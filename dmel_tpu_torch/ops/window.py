@@ -1,0 +1,31 @@
+"""Differentiable Gaussian window (counterpart of
+``dmel_tpu/ops/window.py``)."""
+
+from __future__ import annotations
+
+import torch
+
+#: guard added to lambd in the denominator, as in ``(lambd + 1e-15)``
+LAMBD_EPS = 1e-15
+
+
+def gaussian_window(lambd, window_length: int, norm: bool = False,
+                    dtype=torch.float32, device=None) -> torch.Tensor:
+    """``w[m] = exp(-0.5 * ((m - L/2) / (lambd + eps))^2)``, ``m < L``.
+
+    The centre is ``L/2``, not ``(L-1)/2``.  Differentiable in
+    ``lambd`` (a scalar tensor or float).  ``norm=True`` divides by
+    ``sqrt(sum(w^2))``.  The window lies on ``lambd``'s device when
+    ``lambd`` is a tensor, else on ``device`` (default CPU).
+    """
+    if isinstance(lambd, torch.Tensor):
+        lambd = lambd.to(dtype)
+        device = lambd.device
+    else:
+        lambd = torch.tensor(float(lambd), dtype=dtype, device=device)
+    m = torch.arange(window_length, dtype=dtype, device=device)
+    z = (m - window_length / 2) / (lambd + LAMBD_EPS)
+    window = torch.exp(-0.5 * z * z)
+    if norm:
+        window = window / torch.sqrt(torch.sum(window * window))
+    return window
