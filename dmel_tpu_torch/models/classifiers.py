@@ -52,7 +52,9 @@ class MelPANNsNet(_MelFrontEnd):
         self.spectrogram_model = Cnn6(n_classes, n_mels, augment=augment,
                                       generator=generator)
 
-    def forward(self, x: torch.Tensor):
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None):
+        """``generator`` draws CNN6's training-mode dropout masks."""
         s = self.features(x)                        # (B, 1, M, T)
-        out = self.spectrogram_model(s.transpose(2, 3))
+        out = self.spectrogram_model(s.transpose(2, 3), generator)
         return out, s

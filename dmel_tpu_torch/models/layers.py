@@ -17,7 +17,8 @@ class MelSpectrogramLayer(nn.Module):
 
     ``window_length`` is the static optimized-mode bucket and
     ``lambd_hint`` the static hint of the ``"auto"`` dispatch, both
-    chosen on the host from the current lambda.
+    chosen on the host from the current lambda; :meth:`set_geometry`
+    re-selects them on a built layer.
     """
 
     def __init__(self, init_lambd: float, n_mels: int, n_points: int,
@@ -36,6 +37,13 @@ class MelSpectrogramLayer(nn.Module):
         self.window_length = window_length
         self.normalize_window = normalize_window
         self.impl = impl
+        self.lambd_hint = lambd_hint
+
+    def set_geometry(self, window_length: Optional[int],
+                     lambd_hint: Optional[float]) -> None:
+        """Set the bucket and the hint (the trainer does so at each epoch
+        boundary); the parameters stay as they are."""
+        self.window_length = window_length
         self.lambd_hint = lambd_hint
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:

@@ -3,7 +3,8 @@
 PyTorch layout: ``Cnn6`` takes ``(B, 1, time, mel)``, as the original
 PANNs code does.  Batch norm has torch semantics (momentum 0.1, eps
 1e-5).  Weights are Xavier-uniform with zero biases, drawn from a
-``torch.Generator``.
+``torch.Generator``; dropout masks in training come from the generator
+the caller passes to ``forward``.
 
 The JAX package's ``Patches5x5Conv`` computes the one-input-channel
 5x5 convolution as an im2col matrix product, a workaround for the TPU
@@ -31,6 +32,20 @@ def xavier_uniform_(weight: torch.Tensor,
         weight.uniform_(-bound, bound, generator=generator)
 
 
+def dropout(x: torch.Tensor, p: float, training: bool,
+            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Inverted dropout with flax's semantics: keep each element with
+    probability ``1 - p`` and scale it by ``1 / (1 - p)``.  The mask is
+    drawn from ``generator`` (on ``x``'s device; None takes torch's
+    default generator).  The identity outside training."""
+    if not training:
+        return x
+    keep = torch.rand(x.shape, generator=generator, device=x.device,
+                      dtype=x.dtype) >= p
+    return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
+                                                         device=x.device))
+
+
 class ConvBlock5x5(nn.Module):
     """conv5x5 (no bias) + BN + ReLU + 2x2 average pool."""
 
@@ -48,15 +63,15 @@ class Cnn6(nn.Module):
     """PANNs CNN6: input ``(B, 1, time, mel)``, output the sigmoid
     clipwise scores ``(B, classes_num)``.
 
-    SpecAugment (``augment=True``) acts only in training, which is not
-    ported yet: a training-mode forward with it raises.
+    SpecAugment (``augment=True``) is not ported yet: a training-mode
+    forward with it raises.
     """
 
     def __init__(self, classes_num: int, n_mels: int, augment: bool = False,
                  generator: Optional[torch.Generator] = None):
         super().__init__()
         self.augment = augment
-        self.bn1 = nn.BatchNorm2d(n_mels, momentum=0.1, eps=1e-5)
+        self.bn1 = nn.BatchNorm1d(n_mels, momentum=0.1, eps=1e-5)
         self.conv_block1 = ConvBlock5x5(1, 64)
         self.conv_block2 = ConvBlock5x5(64, 128)
         self.conv_block3 = ConvBlock5x5(128, 256)
@@ -69,18 +84,22 @@ class Cnn6(nn.Module):
                 if m.bias is not None:
                     nn.init.zeros_(m.bias)
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor,
+                generator: Optional[torch.Generator] = None) -> torch.Tensor:
+        """``generator`` draws the training-mode dropout masks."""
         if self.training and self.augment:
-            raise NotImplementedError("SpecAugment belongs to training, "
-                                      "which is not ported yet")
-        # batch norm over mel bins: put mel in the channel slot
-        x = self.bn1(x.transpose(1, 3)).transpose(1, 3)
+            raise NotImplementedError("SpecAugment is not ported yet")
+        # batch norm over mel bins, as rows (B * time, mel) with mel the
+        # channel.  BatchNorm2d over the transposed (B, mel, time, 1) view
+        # returned wrong gradients on the CPU when that view and its output
+        # gradient came in different memory layouts (torch 2.13.0+cpu)
+        x = self.bn1(x.reshape(-1, x.shape[-1])).reshape(x.shape)
         for block in (self.conv_block1, self.conv_block2,
                       self.conv_block3, self.conv_block4):
-            x = F.dropout(block(x), 0.2, training=self.training)
+            x = dropout(block(x), 0.2, self.training, generator)
         x = x.mean(dim=3)                                 # over mel
         x = x.max(dim=2).values + x.mean(dim=2)           # over time
-        x = F.dropout(x, 0.5, training=self.training)
+        x = dropout(x, 0.5, self.training, generator)
         x = F.relu(self.fc1(x))
-        x = F.dropout(x, 0.5, training=self.training)
+        x = dropout(x, 0.5, self.training, generator)
         return torch.sigmoid(self.fc_esc50(x))

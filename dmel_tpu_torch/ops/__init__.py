@@ -1,5 +1,5 @@
 """Functional core of the port: windows, filterbanks, STFT, spectrogram
-and DMEL, with the specband kernel behind ``impl="specband"`` and
+and DMEL, with the specband kernels behind ``impl="specband"`` and
 ``impl="auto"``."""
 
 from dmel_tpu_torch.ops.dmel import (LOG_EPS, auto_route,

@@ -5,7 +5,8 @@ spectrum with ``|lambd|``, mel projection, optional log.
 ``impl`` picks the route:
 
 - ``"exact"``: ``torch.stft`` and a mel matmul, autograd throughout;
-- ``"specband"``: the specband kernel (:mod:`dmel_tpu_torch.ops.specband`);
+- ``"specband"``: the specband kernels (:mod:`dmel_tpu_torch.ops.specband`),
+  K1 forward and K2 for the gradient in ``lambd``;
 - ``"auto"``: the route the JAX package's auto dispatch
   (``impl="pallas"``) takes for the same static ``lambd_hint``.  Where
   it would take a kernel that is not ported yet, this raises

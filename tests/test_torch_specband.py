@@ -9,9 +9,16 @@ within 1e-2 relative (bench.py's dlambda gate).  The CUDA kernel runs
 only on a card (tests/test_torch_gpu.py); here its launcher's data
 layout is emulated in PyTorch and checked, and the wrapper must take
 the plain version for CPU tensors.
+
+The same holds for K2, the gradient in the taps: its plain version
+``specband_drho_plain`` is held against torch autograd, and dlambda
+through the autograd Function (K1's and K2's plain versions on the CPU)
+against ``jax.grad`` of the JAX kernels in interpret mode (1e-2, the
+bench gate; their adjoint is bf16) and of ``_specband_xla_ref`` (1e-4).
 """
 
 import os
+import re
 import stat
 
 import jax
@@ -223,3 +230,222 @@ def test_failed_build_raises_and_leaves_nothing(tmp_path, monkeypatch):
         _cuda.load("specband_fwd")
     assert os.listdir(tmp_path / "_build") == []
     assert _cuda._libs == {}
+
+
+# --- K2, the gradient in the taps ------------------------------------
+
+def _geom(n_fft, hop, n_mels, j, log):
+    return tsb._Geom(n_fft, hop, n_mels, SR, 0.0, float(SR // 2), j, log)
+
+
+def _cotangent(rng, b, n_mels, nfr):
+    """Positive cotangent, so that dlambda does not cancel to ~0."""
+    return rng.uniform(0.5, 1.5, (b, n_mels, nfr)).astype(np.float32)
+
+
+def _port_chain_dlambd(x, lam, case, log, cot):
+    """dlambda through the autograd Function on the CPU: K1's and K2's
+    plain versions in the kernels' layouts, the window by autograd."""
+    n_fft, hop, n_mels, _, j, _ = case
+    lam_t = torch.tensor(lam, requires_grad=True)
+    rho = tsb.window_taps_sym(tops.gaussian_window(lam_t, n_fft), n_fft, j)
+    out = tsb._SpecbandMel.apply(torch.from_numpy(x), rho,
+                                 _geom(n_fft, hop, n_mels, j, log))
+    (out * torch.from_numpy(cot)).sum().backward()
+    return float(lam_t.grad)
+
+
+def _jax_loss(x, case, log, cot, kernel):
+    n_fft, hop, n_mels, _, j, _ = case
+
+    def loss(lam):
+        w = jops.gaussian_window(lam, n_fft)
+        if kernel:
+            mel = jsb.specband_mel_power(
+                jnp.asarray(x), w, n_fft=n_fft, hop_length=hop,
+                n_mels=n_mels, sample_rate=SR, j_taps=j, interpret=True,
+                log_epilogue=log)
+        else:
+            tmat = jsb.band_matrix(jsb.window_taps_sym(w, n_fft, j), j)
+            mel = jnp.swapaxes(jsb._specband_xla_ref(
+                jnp.asarray(x), tmat, n_fft, hop, j, _mel_key(n_mels)), 1, 2)
+            if log:
+                mel = jnp.log(mel + 1e-10)
+        return jnp.sum(mel * cot)
+    return loss
+
+
+def _case_inputs(rng, case):
+    n_fft, hop, n_mels, lam, j, t = case
+    x = rng.standard_normal((2, t)).astype(np.float32)
+    x -= x.mean(-1, keepdims=True)
+    return x, _cotangent(rng, 2, n_mels, tops.num_frames(t, hop))
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"nfft{c[0]}-J{c[4]}")
+@pytest.mark.parametrize("log", [False, True])
+def test_k2_chain_matches_jax_ref(rng, case, log):
+    """dlambda through K2's plain version against jax.grad of the JAX
+    package's plain rebuild ``_specband_xla_ref``: relative 1e-4 (both
+    fp32; they differ only in summation order)."""
+    x, cot = _case_inputs(rng, case)
+    got = _port_chain_dlambd(x, case[3], case, log, cot)
+    want = float(jax.grad(_jax_loss(x, case, log, cot, kernel=False))(
+        jnp.float32(case[3])))
+    assert abs(got - want) <= 1e-4 * abs(want), (got, want)
+
+
+@pytest.mark.parametrize("case,log", [(CASES[0], False), (CASES[1], True),
+                                      (CASES[2], True), (CASES[3], False)],
+                         ids=lambda c: str(c))
+def test_k2_chain_matches_jax_kernel(rng, case, log):
+    """dlambda against jax.grad through the Pallas kernels in interpret
+    mode: relative 1e-2, bench.py's gate (the TPU adjoint casts dS and
+    the tap matrix to bf16)."""
+    x, cot = _case_inputs(rng, case)
+    got = _port_chain_dlambd(x, case[3], case, log, cot)
+    want = float(jax.grad(_jax_loss(x, case, log, cot, kernel=True))(
+        jnp.float32(case[3])))
+    assert abs(got - want) <= GRAD_GATE * abs(want), (got, want)
+
+
+def _residual(rng, case, log):
+    """K1's plain outputs at one geometry and K2's operands: (xext, rho,
+    fb, dmel, logmel), plus the rho leaf of the plain mel for autograd."""
+    n_fft, hop, n_mels, lam, j, t = case
+    x, _ = _case_inputs(rng, case)
+    x = torch.from_numpy(x)
+    g = _geom(n_fft, hop, n_mels, j, log)
+    rho = tsb.window_taps_sym(tops.gaussian_window(lam, n_fft), n_fft, j)
+    out, xext = tsb._fwd_plain(x, rho, g)
+    _, fb, _ = tsb._consts(g, x.device)
+    dmel = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
+        np.float32))
+    return x, g, (xext, rho, fb, dmel, out if log else None)
+
+
+@pytest.mark.parametrize("case", CASES, ids=lambda c: f"nfft{c[0]}-J{c[4]}")
+@pytest.mark.parametrize("log", [False, True])
+def test_k2_plain_matches_autograd(rng, case, log):
+    """``specband_drho_plain`` against torch autograd of the plain mel in
+    the taps: max error within 1e-5 of the largest tap gradient."""
+    x, g, (xext, rho, fb, dmel, logmel) = _residual(rng, case, log)
+    got = tsb.specband_drho_plain(xext, rho, fb, dmel, logmel)
+    rho_leaf = rho.clone().requires_grad_()
+    mel = tsb._mel_from_taps_plain(x, rho_leaf, g)
+    (mel * dmel).sum().backward()
+    want = rho_leaf.grad
+    assert got.shape == want.shape == (2 * case[4] + 1,)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def _k2_rows_per_block() -> int:
+    src = (tsb._cuda.SRC_DIR / "specband_bwd.cu").read_text()
+    return int(re.search(r"constexpr int FR = (\d+);", src).group(1))
+
+
+def _emulate_k2_launcher(xext, rho, fb, dmel, logmel):
+    """K2's launcher and kernels, step by step in PyTorch: blocks of FR
+    frame rows (the last one padded with zero rows), the cotangent of
+    row ``b n_frames + t`` read from ``dmel[b, :, t]``, spectra columns
+    ``[0, k_ext)`` and ``[kp, kp + k_ext)``, per-block partial sums in
+    an ``(n_taps, n_blocks)`` buffer, then one sum per tap."""
+    fr = _k2_rows_per_block()
+    rows, ncol = xext.shape
+    kp = ncol // 2
+    n_taps = rho.shape[0]
+    n_bins, n_mels = fb.shape
+    k_ext = n_bins + n_taps - 1
+    assert k_ext <= kp and ncol % 128 == 0
+    n_blocks = -(-rows // fr)
+    pad = n_blocks * fr - rows
+    b, _, nfr = dmel.shape
+    assert b * nfr == rows
+    g = dmel if logmel is None else dmel * torch.exp(-logmel)
+    r = torch.arange(rows)
+    g = g[r // nfr, :, r % nfr]                       # (rows, n_mels)
+    g = torch.nn.functional.pad(g, (0, 0, 0, pad))
+    xr = torch.nn.functional.pad(xext[:, :k_ext], (0, 0, 0, pad))
+    xi = torch.nn.functional.pad(xext[:, kp:kp + k_ext], (0, 0, 0, pad))
+    dp = g @ fb.T
+    wr = 2.0 * dp * sum(rho[d] * xr[:, n_taps - 1 - d:n_taps - 1 - d + n_bins]
+                        for d in range(n_taps))
+    wi = 2.0 * dp * sum(rho[d] * xi[:, n_taps - 1 - d:n_taps - 1 - d + n_bins]
+                        for d in range(n_taps))
+    partials = torch.stack([
+        ((wr * xr[:, n_taps - 1 - d:n_taps - 1 - d + n_bins]).sum(1)
+         + (wi * xi[:, n_taps - 1 - d:n_taps - 1 - d + n_bins]).sum(1))
+        .reshape(n_blocks, fr).sum(1) for d in range(n_taps)])
+    assert partials.shape == (n_taps, n_blocks)
+    return partials.sum(1)
+
+
+@pytest.mark.parametrize("case,log", [(CASES[0], True), (CASES[3], False),
+                                      ((384, 32, 40, 40.0, 24, 700), True)],
+                         ids=lambda c: str(c))
+def test_k2_launcher_layout_matches_plain(rng, case, log):
+    _, _, (xext, rho, fb, dmel, logmel) = _residual(rng, case, log)
+    # the padding columns of each plane are never read
+    kp = xext.shape[1] // 2
+    k_ext = fb.shape[0] + rho.shape[0] - 1
+    xext = xext.clone()
+    xext[:, k_ext:kp] = float("nan")
+    xext[:, kp + k_ext:] = float("nan")
+    got = _emulate_k2_launcher(xext, rho, fb, dmel, logmel)
+    want = tsb.specband_drho_plain(xext, rho, fb, dmel, logmel)
+    assert torch.isfinite(want).all()
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+@pytest.mark.parametrize("log", [False, True])
+def test_function_dx_matches_plain_autograd(rng, log):
+    """dx of the autograd Function (a vjp through the plain rebuild) and
+    its taps' gradient against autograd of the plain version."""
+    case = CASES[3]
+    n_fft, hop, n_mels, lam, j, t = case
+    x, cot = _case_inputs(rng, case)
+    cot = torch.from_numpy(cot)
+    w = tops.gaussian_window(lam, n_fft)
+    g = _geom(n_fft, hop, n_mels, j, log)
+    xa = torch.from_numpy(x).requires_grad_()
+    rho_a = tsb.window_taps_sym(w, n_fft, j).requires_grad_()
+    (tsb._SpecbandMel.apply(xa, rho_a, g) * cot).sum().backward()
+    xb = torch.from_numpy(x).requires_grad_()
+    rho_b = tsb.window_taps_sym(w, n_fft, j).requires_grad_()
+    (tsb._mel_from_taps_plain(xb, rho_b, g) * cot).sum().backward()
+    assert float((xa.grad - xb.grad).abs().max()
+                 / xb.grad.abs().max()) <= 1e-5
+    assert float((rho_a.grad - rho_b.grad).abs().max()
+                 / rho_b.grad.abs().max()) <= 1e-5
+
+
+def test_frozen_lambda_gets_no_gradient(rng, monkeypatch):
+    """A lambda that needs no gradient asks nothing of K2, through the
+    Function and through the public route."""
+    def no_k2(*args):
+        raise AssertionError("K2 called for a frozen lambda")
+    monkeypatch.setattr(tsb, "specband_drho", no_k2)
+    case = CASES[2]
+    n_fft, hop, n_mels, lam, j, t = case
+    x, cot = _case_inputs(rng, case)
+    lam_t = torch.tensor(lam, requires_grad=False)
+    xt = torch.from_numpy(x).requires_grad_()
+    rho = tsb.window_taps_sym(tops.gaussian_window(lam_t, n_fft), n_fft, j)
+    out = tsb._SpecbandMel.apply(xt, rho, _geom(n_fft, hop, n_mels, j, True))
+    (out * torch.from_numpy(cot)).sum().backward()
+    assert lam_t.grad is None and xt.grad is not None
+    xt.grad = None
+    tops.log_mel_spectrogram(
+        xt, lam_t, n_mels=n_mels, sample_rate=SR, hop_length=hop,
+        optimized=True, window_length=n_fft, impl="specband",
+        lambd_hint=lam, device="cpu").sum().backward()
+    assert lam_t.grad is None and xt.grad is not None
+
+
+def test_k2_wrapper_takes_plain_version_on_cpu(rng):
+    _, _, operands = _residual(rng, CASES[0], True)
+    before = tsb.specband_drho.launches
+    got = tsb.specband_drho(*operands)
+    assert tsb.specband_drho.launches == before
+    torch.testing.assert_close(got, tsb.specband_drho_plain(*operands),
+                               rtol=0, atol=0)
