@@ -7,14 +7,17 @@ import numpy as np
 import torch
 
 from dmel_tpu_torch.device import resolve_device
+from dmel_tpu_torch.precision import precision_scope
 
 
+@precision_scope()
 def predict(model: torch.nn.Module, xs: np.ndarray, batch_size: int = 32,
             device=None) -> tuple[np.ndarray, np.ndarray]:
     """Eval-mode forward passes of ``model`` over ``xs`` (n, T) in
     batches; returns ``(argmax, scores)``, scores ``(n, n_classes)``.
 
-    Runs on ``device`` (default ``cuda``), where the model must lie.
+    Runs on ``device`` (default ``cuda``), where the model must lie,
+    inside :func:`~dmel_tpu_torch.precision.precision_scope`.
     """
     dev = resolve_device(device)
     for p in model.parameters():

@@ -2,9 +2,14 @@
 
 Configs are the flat experiment dicts of the JAX package.  Their
 ``impl`` names map onto the port's routes: ``"xla"`` to ``"exact"``,
-``"pallas"`` (the auto kernel dispatch) to ``"auto"`` and
-``"pallas_specband"`` to ``"specband"``; the framed and fused kernels
-are not ported yet.
+``"pallas"`` (the auto kernel dispatch) to ``"auto"``, and
+``"pallas_specband"``, ``"pallas_framed"``, ``"pallas_fused"`` to
+``"specband"``, ``"framed"``, ``"fused"``.
+
+The ``precision`` key (the JAX registry's default ``"highest"``) is the
+front end's matmul precision there.  The port's front end runs in
+float32 only, which is ``"highest"``; ``"default"`` (bf16 matmuls on the
+TPU) is refused with ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -24,8 +29,8 @@ N_CLASSES = {
     "fsd": 200,
 }
 
-_IMPL = {"xla": "exact", "pallas": "auto", "pallas_specband": "specband"}
-_NOT_PORTED = ("pallas_framed", "pallas_fused")
+_IMPL = {"xla": "exact", "pallas": "auto", "pallas_specband": "specband",
+         "pallas_framed": "framed", "pallas_fused": "fused"}
 
 
 def n_classes_for(dataset_name: str) -> int:
@@ -37,8 +42,6 @@ def n_classes_for(dataset_name: str) -> int:
 
 def _impl(config: dict) -> str:
     name = config.get("impl", "xla")
-    if name in _NOT_PORTED:
-        raise NotImplementedError(f"impl {name!r}: kernel not ported yet")
     try:
         return _IMPL[name]
     except KeyError:
@@ -63,6 +66,9 @@ def get_model_by_config(config: dict, window_length: Optional[int] = None,
         raise NotImplementedError("only model_dtype='float32' is ported")
     if int(config.get("n_sigma", 1)) != 1:
         raise NotImplementedError("multi-sigma DMEL is not ported yet")
+    if config.get("precision", "highest") != "highest":
+        raise NotImplementedError("the port's front end runs in float32 "
+                                  "only: precision='highest'")
     gen = torch.Generator().manual_seed(seed)
     model = MelPANNsNet(
         n_classes=n_classes_for(config["dataset_name"]),

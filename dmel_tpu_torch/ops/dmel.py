@@ -7,41 +7,39 @@ spectrum with ``|lambd|``, mel projection, optional log.
 - ``"exact"``: ``torch.stft`` and a mel matmul, autograd throughout;
 - ``"specband"``: the specband kernels (:mod:`dmel_tpu_torch.ops.specband`),
   K1 forward and K2 for the gradient in ``lambd``;
+- ``"framed"``: the framed kernels (:mod:`dmel_tpu_torch.ops.framed`), K3
+  forward and K4 for the window's gradient; ``win_length == n_fft`` and
+  ``framed.supported``, else ``ValueError``, as in the JAX package;
+- ``"fused"``: the fused kernel (:mod:`dmel_tpu_torch.ops.fused`), K5
+  forward with the torch adjoint backward, for ``n_fft <= 4096``; above
+  that the exact route, as the JAX package's ``pallas_fused`` does;
 - ``"auto"``: the route the JAX package's auto dispatch
-  (``impl="pallas"``) takes for the same static ``lambd_hint``.  Where
-  it would take a kernel that is not ported yet, this raises
-  ``NotImplementedError``; it never substitutes another route.
+  (``impl="pallas"``) takes for the same static ``lambd_hint``.
+
+The framed and fused routes have no log epilogue: ``log_output`` takes
+the log outside the kernel, as the JAX package does.
 """
 
 from __future__ import annotations
 
-from math import gcd
-
 import torch
 
 from dmel_tpu_torch.device import resolve_device
-from dmel_tpu_torch.ops import specband, stft
+from dmel_tpu_torch.ops import framed, fused, specband, stft
 from dmel_tpu_torch.ops.mel import melscale_fbanks
 from dmel_tpu_torch.ops.specband import LOG_EPS
 from dmel_tpu_torch.ops.spectrogram import spectrogram
 from dmel_tpu_torch.ops.window import gaussian_window
 
-#: kernels of the JAX package that the auto dispatch can pick but the
-#: port does not have yet
-_NOT_PORTED = {
-    "framed": "framed (dmel_tpu/ops/pallas/framed_dmel.py)",
-    "fused": "fused (dmel_tpu/ops/pallas/fused_dmel.py)",
-}
-#: the JAX package's framed-kernel geometry guard and fused-kernel cap,
-#: which its auto dispatch consults
-_FRAMED_MAX_NFFT = 1024
-_FUSED_MAX_NFFT = 4096
-
-
-def _framed_supported(n_fft: int, hop_length: int, n_mels: int) -> bool:
-    g = specband.LANE // gcd(hop_length, specband.LANE)
-    return (n_fft % specband.LANE == 0 and g <= 16
-            and n_mels <= specband.MEL_PAD and n_fft <= _FRAMED_MAX_NFFT)
+def _lengths(signal_length: int, optimized: bool,
+             window_length: int | None) -> tuple[int, int]:
+    """``(win_length, n_fft)``: the static bucket in optimized mode,
+    ``(T, 2 T)`` in faithful mode."""
+    if optimized:
+        if window_length is None:
+            raise ValueError("optimized mode needs static window_length")
+        return int(window_length), int(window_length)
+    return signal_length, 2 * signal_length
 
 
 def auto_route(*, signal_length: int, hop_length: int, n_mels: int,
@@ -50,12 +48,7 @@ def auto_route(*, signal_length: int, hop_length: int, n_mels: int,
     """``(route, j_taps)`` that the JAX package's auto dispatch takes:
     route is ``"specband"``, ``"framed"``, ``"fused"`` or ``"exact"``;
     ``j_taps`` is set for ``"specband"``."""
-    if optimized:
-        if window_length is None:
-            raise ValueError("optimized mode needs static window_length")
-        win_length = n_fft = int(window_length)
-    else:
-        win_length, n_fft = signal_length, 2 * signal_length
+    win_length, n_fft = _lengths(signal_length, optimized, window_length)
     lb_fix = (stft.lowbin_fix_needed(lambd_hint, n_fft)
               if lambd_hint is not None else True)
     geom_ok = (win_length == n_fft
@@ -78,9 +71,9 @@ def auto_route(*, signal_length: int, hop_length: int, n_mels: int,
                      and stft.lowbin_fix_needed(lambd_hint, n_fft))
     auto_ok = not small or framed_small or framed_hiprec
     if (auto_ok and win_length == n_fft
-            and _framed_supported(n_fft, hop_length, n_mels)):
+            and framed.supported(n_fft, hop_length, n_mels)):
         return "framed", None
-    if (n_fft > _FUSED_MAX_NFFT or not auto_ok
+    if (n_fft > fused.MAX_N_FFT or not auto_ok
             or ((framed_small or framed_hiprec) and small)):
         return "exact", None
     return "fused", None
@@ -102,7 +95,9 @@ def mel_spectrogram(x, lambd, *, n_mels: int, sample_rate: int,
     ``"auto"`` dispatch decides from, as in the JAX package;
     ``"specband"`` takes its tap count from it too (24 without one).
     ``log_output=True`` returns ``log(mel + 1e-10)``, fused into the
-    kernel on the specband route.
+    kernel on the specband route.  ``impl`` is one of ``"exact"``,
+    ``"specband"``, ``"framed"``, ``"fused"`` and ``"auto"`` (see the
+    module docstring).
     """
     dev = resolve_device(device)
     x = torch.as_tensor(x).to(dev)
@@ -119,10 +114,6 @@ def mel_spectrogram(x, lambd, *, n_mels: int, sample_rate: int,
             signal_length=x.shape[-1], hop_length=hop_length, n_mels=n_mels,
             optimized=optimized, window_length=window_length,
             lambd_hint=lambd_hint)
-        if route in _NOT_PORTED:
-            raise NotImplementedError(
-                f"the auto dispatch picks the {_NOT_PORTED[route]} kernel "
-                "here, which is not ported yet")
     elif impl == "specband":
         if not optimized or window_length is None:
             raise ValueError("the specband route needs optimized mode "
@@ -135,10 +126,14 @@ def mel_spectrogram(x, lambd, *, n_mels: int, sample_rate: int,
                   if lambd_hint is not None else None)
         if j_taps is None:
             j_taps = stft.SPECGEMM_J_TAPS
-    elif impl == "exact":
-        route = "exact"
+    elif impl in ("framed", "fused", "exact"):
+        route = impl
+        if (impl == "fused" and _lengths(x.shape[-1], optimized,
+                                         window_length)[1] > fused.MAX_N_FFT):
+            route = "exact"
     else:
-        raise ValueError(f"unknown impl {impl!r}: exact, specband or auto")
+        raise ValueError(f"unknown impl {impl!r}: exact, specband, framed, "
+                         "fused or auto")
 
     if route == "specband":
         n_fft = int(window_length)
@@ -148,6 +143,18 @@ def mel_spectrogram(x, lambd, *, n_mels: int, sample_rate: int,
             x, w, n_fft=n_fft, hop_length=hop_length, n_mels=n_mels,
             sample_rate=sample_rate, f_min=f_min, f_max=f_max,
             j_taps=j_taps, log_epilogue=log_output)
+    if route in ("framed", "fused"):
+        win_length, n_fft = _lengths(x.shape[-1], optimized, window_length)
+        kw = dict(n_fft=n_fft, hop_length=hop_length, n_mels=n_mels,
+                  sample_rate=sample_rate, f_min=f_min, f_max=f_max)
+        if route == "framed":
+            w = gaussian_window(lambd, win_length, norm=normalize_window,
+                                dtype=x.dtype)
+            mel = framed.framed_mel_power(x, w, **kw)
+        else:
+            mel = fused.dmel_power(x, lambd, win_length=win_length,
+                                   normalize_window=normalize_window, **kw)
+        return torch.log(mel + LOG_EPS) if log_output else mel
 
     s = spectrogram(x, lambd, optimized=optimized, hop_length=hop_length,
                     norm=normalize_window, window_length=window_length)

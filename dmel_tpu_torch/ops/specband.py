@@ -106,6 +106,16 @@ def _taps_basis_np(n_fft: int, j_taps: int) -> np.ndarray:
     return cb
 
 
+@functools.lru_cache(maxsize=16)
+def _taps_basis(n_fft: int, j_taps: int, dtype: torch.dtype,
+                device: torch.device) -> torch.Tensor:
+    """:func:`_taps_basis_np` on ``device``, copied there once: a copy
+    from host memory on every call would make the host wait for the
+    stream."""
+    return torch.tensor(_taps_basis_np(n_fft, j_taps), dtype=dtype,
+                        device=device)
+
+
 def window_taps_sym(window: torch.Tensor, n_fft: int,
                     j_taps: int = SPECGEMM_J_TAPS) -> torch.Tensor:
     """Real taps ``rho_d / N``, ``d = -J .. J``, of a window symmetric
@@ -115,8 +125,7 @@ def window_taps_sym(window: torch.Tensor, n_fft: int,
     the specband function.  A broadcast product and a sum, so the GPU
     route calls no matrix-product library.
     """
-    cb = torch.tensor(_taps_basis_np(n_fft, j_taps), dtype=window.dtype,
-                      device=window.device)
+    cb = _taps_basis(n_fft, j_taps, window.dtype, window.device)
     rho_pos = (window[:, None] * cb).sum(0)                 # (J + 1,)
     return torch.cat([rho_pos[1:].flip(0), rho_pos]) / n_fft
 

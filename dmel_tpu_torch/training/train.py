@@ -31,6 +31,7 @@ from dmel_tpu_torch.models.registry import (dispatch_hint_for,
                                             get_model_by_config,
                                             n_classes_for)
 from dmel_tpu_torch.ops.spectrogram import bucketed_window_length
+from dmel_tpu_torch.precision import precision_scope
 from dmel_tpu_torch.training.optim import build_optimizer
 
 BCE_LOG_FLOOR = -100.0  # torch binary_cross_entropy clamps log at -100
@@ -139,6 +140,7 @@ def _fetch(metrics: list[dict], keys) -> dict:
     return {k: [row[i] for row in host] for i, k in enumerate(keys)}
 
 
+@precision_scope()
 def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
         verbose: int = 0,
         report_fn: Optional[Callable[[dict], None]] = None,
@@ -151,7 +153,8 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
     the model last validated at (``window_length``, ``lambd_hint``).
     ``history`` holds the summary keys of the JAX package's ``fit`` and
     a per-epoch ``records`` list.  ``seed`` seeds the weights, the
-    shuffles and the dropout generator.
+    shuffles and the dropout generator.  Runs inside
+    :func:`~dmel_tpu_torch.precision.precision_scope`.
     """
     for what, value in (("checkpoint_dir", checkpoint_dir),
                         ("pretrained_state_dict", pretrained_state_dict),
