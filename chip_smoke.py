@@ -47,31 +47,53 @@ Phases, each announced by a flushed line when it starts and ends:
    window centred in it).  The same forward gates; dlambda through K5
    and the torch adjoint against autograd of the plain chain and of the
    exact route (1e-2).
-7. model paths: MelPANNsNet (DMEL + CNN6, esc50_synth geometry) built
+7. K1/K2 multi-sigma: K1 and K2 at k_sig = 4 (the default contiguous
+   band map, the hint of the mean lambda, as ``fit`` builds it) at the
+   bench workload (B=128, 1024, lambda 100/110/120/128, J 24), at B=32
+   there, and at 4096 (B=32, lambda 345/360/380/400, J 12).  K1 against
+   the plain multi-sigma function and the exact multi-sigma route
+   (log-mel 1e-4), K2 against its plain version (1e-3 of the largest
+   entry, bit-identical on repeat), dlambda (4,) through the kernels
+   against autograd of the plain chain and of the exact route (1e-2 in
+   each group).  Yardsticks: the exact route's forward and its backward
+   into lambda.
+8. K6 against its plain version (the torch adjoint) on K5's residual at
+   lambda 300 (2048), 600 (4096) and faithful mode (T=1500, n_fft 3000):
+   dw within 1e-3 of its largest entry, bit-identical on repeat; the
+   exact route's backward as the yardstick.
+9. model paths: MelPANNsNet (DMEL + CNN6, esc50_synth geometry) built
    from its config with a seeded init, eval-mode inference through
    ``predict`` over 3 batches of 32, at lambda 128 (specband) and 46.7
-   (framed); the route's forward kernel must launch once per batch, the
-   scores must be finite probabilities, and the features and scores
-   must match the route's plain function followed by the same log and
-   CNN6 head within 1e-4.
-8. train paths: ``fit`` on ``get_dataset_by_config`` for esc50_synth at
+   (framed), and with 4 sigma groups at 128 (multi-sigma specband) and
+   46.7 (the exact multi-sigma route); the route's forward kernel must
+   launch once per batch (none on the exact route), the scores must be
+   finite probabilities, and the features and scores must match the
+   route's plain function followed by the same log and CNN6 head within
+   1e-4.
+10. train paths: ``fit`` on ``get_dataset_by_config`` for esc50_synth at
    full CNN6 width, Adam (lr_model 1e-4, lr_tf 1.0), batch 32, 5 s
    clips, 2 epochs of 480 clips (11 train steps and 2 valid batches an
-   epoch), at lambda 128 (specband), 46.7 (framed) and 600 (fused).
-   Counted by epoch, from the route each epoch's refresh picked: on a
-   specband epoch K2 launches once per train step and K1 once per train
-   step and valid batch; on a framed epoch K4 once per train step and K3
-   once per train step and valid batch; on a fused epoch K5 once per
-   train step and valid batch.  Losses finite; lambda moved.  At lambda
-   128, on one batch, the gradients of lambda and of ``fc_esc50.weight``
-   through the kernels must match the same model, batch and dropout
-   masks through the plain specband function (dlambda relative 1e-3,
-   weights 1e-4 of the largest).  ms per train step, first and steady,
-   on each route; at lambda 128 also with cuDNN's deterministic
-   algorithms off and on, in turns, and which gradients differ between
-   identical steps in each setting; at lambda 46.7 a second ``fit`` with
-   the same seed must be bit-identical in lambda and every weight.
-9. a ``{"kernels": [...]}`` line, then the final
+   epoch), at lambda 128 (specband), 46.7 (framed), 600 (fused), 128
+   with 4 sigma groups (multi-sigma specband) and 600 with
+   ``fused.USE_FUSED_BWD`` set (fused, K6).  Counted by epoch, from the
+   route each epoch's refresh picked: on a specband epoch K2 launches
+   once per train step and K1 once per train step and valid batch (K1m
+   and K2m likewise on a multi-sigma epoch); on a framed epoch K4 once
+   per train step and K3 once per train step and valid batch; on a fused
+   epoch K5 once per train step and valid batch, and K6 once per train
+   step with the flag.  Losses finite; every group's lambda moved.  At
+   lambda 128, on one batch, the gradients of lambda and of
+   ``fc_esc50.weight`` through the kernels must match the same model,
+   batch and dropout masks through the plain specband function (dlambda
+   relative 1e-3 in norm, weights 1e-4 of the largest), with one sigma
+   group and with four; on the fused route the same two gradients with
+   the flag on (K6) against off (the torch adjoint).  ms per train step,
+   first and steady, on each route; at lambda 128 also with cuDNN's
+   deterministic algorithms off and on, in turns, and which gradients
+   differ between identical steps in each setting; at lambda 46.7 a
+   second ``fit`` with the same seed must be bit-identical in lambda and
+   every weight.
+11. a ``{"kernels": [...]}`` line, then the final
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises, so the script exits non-zero before the final
@@ -100,14 +122,17 @@ from dmel_tpu_torch.data import get_dataset_by_config, make_esc50_synth_dataset
 from dmel_tpu_torch.eval import predict
 from dmel_tpu_torch.models import dispatch_hint_for, get_model_by_config
 from dmel_tpu_torch.ops import _cuda, framed, fused, specband, stft
-from dmel_tpu_torch.ops.dmel import LOG_EPS, auto_route, mel_spectrogram
-from dmel_tpu_torch.ops.mel import melscale_fbanks
+from dmel_tpu_torch.ops.dmel import (LOG_EPS, auto_route, default_band_map,
+                                     mel_spectrogram,
+                                     multi_sigma_mel_spectrogram,
+                                     multi_sigma_route)
+from dmel_tpu_torch.ops.mel import melscale_fbanks, melscale_fbanks_np
 from dmel_tpu_torch.ops.spectrogram import bucketed_window_length
 from dmel_tpu_torch.ops.window import gaussian_window
 from dmel_tpu_torch.training import (bce_loss, build_optimizer, fit,
                                      loss_and_metrics, train_step)
 
-WATCHDOG_S = 300
+WATCHDOG_S = 600
 GATE = 1e-4                  # log-mel max-abs gate (bench.py's)
 GRAD_GATE = 1e-2             # dlambda relative gate (bench.py's)
 DRHO_GATE = 1e-3             # K2 vs plain, max |error| / max |drho|
@@ -115,10 +140,17 @@ DW_GATE = 1e-3               # K4 vs plain, max |error| / max |dw|
 TRAIN_GRAD_GATE = 1e-3       # one train step: dlambda, kernels vs plain
 WEIGHT_GRAD_GATE = 1e-4      # one train step: fc weights, of max |grad|
 KERNELS = ("specband_fwd", "specband_bwd", "framed_fwd", "framed_bwd")
-#: every kernel wrapper's launch counter, by kernel
-COUNTERS = {"K1": specband.specband_mel_power, "K2": specband.specband_drho,
-            "K3": framed.framed_mel_power, "K4": framed.framed_dwindow,
-            "K5": fused.dmel_power}
+#: every kernel wrapper's launch counter, by kernel: (object, attribute).
+#: K1m and K2m are K1 and K2 launched at k_sig > 1 by the multi-sigma
+#: function, K6 the fused route's dw kernel (``fused.USE_FUSED_BWD``).
+COUNTERS = {"K1": (specband.specband_mel_power, "launches"),
+            "K2": (specband.specband_drho, "launches"),
+            "K1m": (specband.specband_mel_power_multi, "launches"),
+            "K2m": (specband.specband_drho, "multi_launches"),
+            "K3": (framed.framed_mel_power, "launches"),
+            "K4": (framed.framed_dwindow, "launches"),
+            "K5": (fused.dmel_power, "launches"),
+            "K6": (fused.fused_dwindow, "launches")}
 SR, HOP, N_MELS, T = 8000, 80, 64, 40000
 N_BATCHES, BATCH = 3, 32
 #: one H100 SXM: fp32 outside the tensor cores, and HBM3 bandwidth
@@ -321,11 +353,25 @@ def k1_case(seed: int, batch: int, n_fft: int, lambd: float,
     return res
 
 
-def _plain_features(model, xb, wl, j):
+def _plain_features(model, xb, wl, j, route):
     """The log-mel features of ``xb`` through the plain version of the
-    route the model's layer takes (specband or framed)."""
+    route the model's layer takes (specband, framed, multi-sigma
+    specband; the exact multi-sigma route is its own plain version)."""
     layer = model.spectrogram_layer
     xm = xb - xb.mean(dim=-1, keepdim=True)
+    if route.endswith("_multi"):
+        if route == "exact_multi":
+            mel = multi_sigma_mel_spectrogram(
+                xb, layer.lambd, n_mels=N_MELS, sample_rate=SR,
+                hop_length=HOP, optimized=True, window_length=wl,
+                impl="exact", device=xb.device)
+        else:
+            ws = torch.stack([gaussian_window(lam, wl)
+                              for lam in layer.lambd.abs()])
+            mel = specband.specband_mel_power_multi_plain(
+                xm, ws, default_band_map(N_MELS, len(ws)), n_fft=wl,
+                hop_length=HOP, n_mels=N_MELS, sample_rate=SR, j_taps=j)
+        return torch.log(mel + LOG_EPS)[:, None]
     w = gaussian_window(layer.lambd.abs(), wl)
     if j is not None:
         mel = specband.specband_mel_power_plain(
@@ -337,19 +383,23 @@ def _plain_features(model, xb, wl, j):
     return torch.log(mel + LOG_EPS)[:, None]
 
 
-def model_path(seed: int, dev: torch.device, lam: float) -> dict:
+#: the forward kernel each model route launches once a batch (none on the
+#: exact multi-sigma route)
+_ROUTE_FORWARD = {"specband": "K1", "framed": "K3", "specband_multi": "K1m",
+                  "exact_multi": None}
+
+
+def model_path(seed: int, dev: torch.device, lam: float,
+               n_sigma: int = 1) -> dict:
     """Inference through ``predict`` at ``lam``: the specband route at
-    128, the framed route at 46.7."""
-    config = dict(CONFIG, init_lambd=lam)
-    wl = bucketed_window_length(lam, config["n_points"])
-    hint = dispatch_hint_for(config, wl, lam)
-    route, j = auto_route(signal_length=T, hop_length=HOP, n_mels=N_MELS,
-                          optimized=True, window_length=wl,
-                          lambd_hint=hint)
-    say(f"model: lambda {lam}, window {wl}, hint {hint}, route {route}, "
-        f"J {j}")
-    check(route in ("specband", "framed"), f"model front end takes {route}")
-    key = {"specband": "K1", "framed": "K3"}[route]
+    128, the framed route at 46.7; with ``n_sigma`` groups, the
+    multi-sigma specband route at 128 and the exact one at 46.7."""
+    config = dict(CONFIG, init_lambd=lam, n_sigma=n_sigma)
+    route, wl, hint, j = _route_of(config, lam)
+    say(f"model: lambda {lam}, {n_sigma} sigma groups, window {wl}, hint "
+        f"{hint}, route {route}, J {j}")
+    check(route in _ROUTE_FORWARD, f"model front end takes {route}")
+    key = _ROUTE_FORWARD[route]
     model = get_model_by_config(config, window_length=wl, lambd_hint=hint,
                                 device=dev, seed=seed)
     data = make_esc50_synth_dataset(seed=seed, n_samples=N_BATCHES * BATCH)
@@ -358,8 +408,12 @@ def model_path(seed: int, dev: torch.device, lam: float) -> dict:
     (preds, scores), launches = counted(
         lambda: predict(model, data.xs, batch_size=BATCH, device=dev))
     first_s = time.perf_counter() - t0
-    check(launches[key] == N_BATCHES,
-          f"{key} launched {launches[key]} times for {N_BATCHES} batches")
+    if key is None:
+        check(not any(launches.values()), f"kernels launched: {launches}")
+    else:
+        check(launches[key] == N_BATCHES,
+              f"{key} launched {launches[key]} times for {N_BATCHES} "
+              "batches")
     check(scores.shape == (N_BATCHES * BATCH, 10), f"scores {scores.shape}")
     check(bool(np.isfinite(scores).all()), "non-finite scores")
     check(bool(((scores >= 0) & (scores <= 1)).all()), "scores outside [0,1]")
@@ -372,11 +426,12 @@ def model_path(seed: int, dev: torch.device, lam: float) -> dict:
     xb = torch.from_numpy(data.xs[:BATCH]).to(dev)
     with torch.no_grad(), precision_scope():
         out, s = model(xb)
-        s_plain = _plain_features(model, xb, wl, j)
+        s_plain = _plain_features(model, xb, wl, j, route)
         out_plain = model.spectrogram_model(s_plain.transpose(2, 3))
         err_s = float((s - s_plain).abs().max())
         err_out = float((out - out_plain).abs().max())
-    res = dict(lambd=lam, route=route, launches=launches, batches=N_BATCHES,
+    res = dict(lambd=lam, n_sigma=n_sigma, route=route, launches=launches,
+               batches=N_BATCHES,
                first_ms_per_batch=first_s * 1e3 / N_BATCHES,
                steady_ms_per_batch=steady_s * 1e3 / N_BATCHES,
                feature_err_vs_plain=err_s, score_err_vs_plain=err_out)
@@ -520,13 +575,221 @@ def k2_case(seed: int, batch: int, n_fft: int, lambd: float, log: bool,
     return res
 
 
+def sigma_bins(n_fft: int, band_map, k_sig: int) -> list[int]:
+    """Each sigma group's bin count: the smallest bin range that holds
+    the nonzero filterbank entries of its mel bands (what the
+    multi-sigma kernels convolve for that group)."""
+    fb = melscale_fbanks_np(n_fft // 2 + 1, 0.0, SR // 2, N_MELS, SR)
+    widths = []
+    for s in range(k_sig):
+        rows = np.flatnonzero((fb[:, np.asarray(band_map) == s] != 0).any(1))
+        widths.append(int(rows[-1] - rows[0] + 1) if rows.size else 0)
+    return widths
+
+
+def k1m_bound(batch: int, n_fft: int, j_taps: int, fb_nnz: int,
+              widths: list[int]):
+    """(ms, 'bytes' | 'operations', gflop): the least time one H100
+    needs for the multi-sigma specband forward, no log: one real FFT of
+    each unwindowed frame, shared by the groups; for each group its band
+    convolution (6J + 2 a bin, symmetric real taps) and power (3 a bin)
+    over its own bins (``sigma_bins``: this run's band map); the mel
+    projection over the filterbank's nonzeros.  Bytes: the signal, the
+    K tap vectors and the filterbank read once, the mel written once."""
+    rows = batch * stft.num_frames(T, HOP)
+    n_bins = n_fft // 2 + 1
+    flops = rows * (2.5 * n_fft * math.log2(n_fft)
+                    + (6 * j_taps + 5) * sum(widths) + 2 * fb_nnz)
+    nbytes = 4 * (batch * T + len(widths) * (2 * j_taps + 1)
+                  + n_bins * N_MELS + batch * N_MELS * stft.num_frames(T, HOP))
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops / 1e9)
+
+
+def k2m_bound(batch: int, n_fft: int, j_taps: int, fb_nnz: int,
+              widths: list[int]):
+    """(ms, 'bytes' | 'operations', gflop): the least time one H100
+    needs for the multi-sigma taps' gradient from the spectra residual:
+    dP over the filterbank's nonzeros (each band in its own group), and
+    for each group over its own bins the recomputed S (6J + 2 a bin),
+    dS (3) and the tap products (4 (2J + 1)).  Bytes: X' (2 k_ext floats
+    a row), the cotangent, the taps and the filterbank read once, the
+    (K, 2J + 1) gradient written once."""
+    rows = batch * stft.num_frames(T, HOP)
+    n_bins = n_fft // 2 + 1
+    n_taps = 2 * j_taps + 1
+    k_ext = n_bins + 2 * j_taps
+    flops = rows * (2 * fb_nnz
+                    + (6 * j_taps + 5 + 4 * n_taps) * sum(widths))
+    nbytes = 4 * (rows * 2 * k_ext + rows * N_MELS + n_bins * N_MELS
+                  + 2 * len(widths) * n_taps)
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return (max(t_ops, t_bytes),
+            "operations" if t_ops >= t_bytes else "bytes", flops / 1e9)
+
+
+def _group_rel(a: torch.Tensor, b: torch.Tensor) -> float:
+    """Largest relative error over the sigma groups."""
+    return float(((a - b).abs() / b.abs()).max())
+
+
+def multi_case(seed: int, batch: int, n_fft: int, lams: tuple,
+               dev: torch.device) -> dict:
+    """K1 and K2 at k_sig = len(lams) on the multi-sigma route, with the
+    hint of the mean lambda as the trainer builds it: K1 against the
+    plain multi-sigma function and the exact multi-sigma route (log-mel),
+    K2 against its plain version on K1's residual (of its largest entry,
+    bit-identical on repeat), dlambda (K,) through the kernels against
+    autograd of the plain chain and of the exact route (each group).
+    Times: the kernels, their plain versions, the exact route's forward
+    (K1's yardstick) and its backward into lambda (K2's), and the three
+    chains."""
+    k = len(lams)
+    hint = stft.pallas_compile_hint(float(np.mean(lams)), n_fft, HOP)
+    route, j = multi_sigma_route(hop_length=HOP, n_mels=N_MELS,
+                                 optimized=True, window_length=n_fft,
+                                 lambd_hint=hint)
+    check(route == "specband", f"multi-sigma route {route} at {n_fft}")
+    check(all(stft.specband_j_taps(lam, n_fft) <= j for lam in lams),
+          f"a lambda of {lams} needs more than J = {j}")
+    bm = default_band_map(N_MELS, k)
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((batch, T)).astype(
+        np.float32)).to(dev)
+    xm = x - x.mean(dim=-1, keepdim=True)
+    lam_t = torch.tensor(lams, device=dev)
+    ws = torch.stack([gaussian_window(lam, n_fft) for lam in lam_t])
+    kw = dict(n_fft=n_fft, hop_length=HOP, n_mels=N_MELS, sample_rate=SR,
+              j_taps=j)
+    mkw = dict(n_mels=N_MELS, sample_rate=SR, hop_length=HOP, optimized=True,
+               window_length=n_fft, device=dev)
+    nfr = stft.num_frames(T, HOP)
+
+    def kernel():
+        return specband.specband_mel_power_multi(xm, ws, bm, **kw)
+
+    def plain():
+        return specband.specband_mel_power_multi_plain(xm, ws, bm, **kw)
+
+    def library():
+        return multi_sigma_mel_spectrogram(x, lam_t, impl="exact", **mkw)
+
+    with torch.no_grad():
+        mel_k, mel_p, mel_x = kernel(), plain(), library()
+        torch.cuda.synchronize()
+        check(mel_k.shape == (batch, N_MELS, nfr), f"shape {mel_k.shape}")
+        check(bool(torch.isfinite(mel_k).all()), "non-finite mel")
+        log_k = torch.log(mel_k + LOG_EPS)
+        err = float((log_k - torch.log(mel_p + LOG_EPS)).abs().max())
+        err_exact = float((log_k - torch.log(mel_x + LOG_EPS)).abs().max())
+        kernel_t = timed("ms", kernel)
+        plain_ms = time_ms(plain)
+        library_t = timed("library_ms", library)
+
+        rho = specband.window_taps_sym(ws, n_fft, j)
+        geom = specband._Geom(n_fft, HOP, N_MELS, SR, 0.0, float(SR // 2), j,
+                              False, tuple(int(v) for v in bm))
+        out, xext = specband._fwd(xm, rho, geom)
+        _, fb, _ = specband._consts(geom, dev)
+        dmel = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
+            np.float32)).to(dev)
+
+        def k2():
+            return specband.specband_drho(xext, rho, fb, dmel, None, bm)
+
+        def k2_plain():
+            return specband.specband_drho_plain(xext, rho, fb, dmel, None, bm)
+
+        d_k, d_k2, d_p = k2(), k2(), k2_plain()
+        torch.cuda.synchronize()
+        check(d_k.shape == (k, 2 * j + 1), f"drho shape {d_k.shape}")
+        drho_rel = float((d_k - d_p).abs().max() / d_p.abs().max())
+        k2_t = timed("k2_ms", k2)
+        k2_plain_ms = time_ms(k2_plain)
+
+    def leaf():
+        return torch.tensor(lams, device=dev, requires_grad=True)
+
+    def kernel_chain():
+        lam = leaf()
+        torch.log(multi_sigma_mel_spectrogram(
+            x, lam, impl="auto", lambd_hint=hint, **mkw)
+            + LOG_EPS).sum().backward()
+        return lam.grad
+
+    def plain_chain():
+        lam = leaf()
+        wsl = torch.stack([gaussian_window(v, n_fft) for v in lam.abs()])
+        torch.log(specband.specband_mel_power_multi_plain(xm, wsl, bm, **kw)
+                  + LOG_EPS).sum().backward()
+        return lam.grad
+
+    def exact_chain():
+        lam = leaf()
+        torch.log(multi_sigma_mel_spectrogram(x, lam, impl="exact", **mkw)
+                  + LOG_EPS).sum().backward()
+        return lam.grad
+
+    g_k, g_k2, g_p, g_x = (kernel_chain(), kernel_chain(), plain_chain(),
+                           exact_chain())
+    torch.cuda.synchronize()
+    check(bool(torch.isfinite(g_k).all()), f"non-finite dlambda {g_k}")
+    lam = leaf()
+    exact_out = torch.log(multi_sigma_mel_spectrogram(
+        x, lam, impl="exact", **mkw) + LOG_EPS).sum()
+    library_bwd = timed("library_bwd_ms", lambda: torch.autograd.grad(
+        exact_out, lam, retain_graph=True))
+    del exact_out
+    chain_ms = time_ms(kernel_chain)
+    plain_chain_ms = time_ms(plain_chain)
+    exact_chain_ms = time_ms(exact_chain)
+
+    fb_nnz = int((fb != 0).sum())
+    widths = sigma_bins(n_fft, bm, k)
+    bound_ms, bound_by, least_gflop = k1m_bound(batch, n_fft, j, fb_nnz,
+                                                widths)
+    k2_bound_ms, k2_bound_by, k2_gflop = k2m_bound(batch, n_fft, j, fb_nnz,
+                                                   widths)
+    res = dict(batch=batch, n_fft=n_fft, lambd=list(lams), hint=hint,
+               j_taps=j, k_sig=k, sigma_bins=widths,
+               logmel_max_abs_err=err, logmel_err_vs_exact_route=err_exact,
+               dlambd=g_k.tolist(), dlambd_rel_err=_group_rel(g_k, g_p),
+               dlambd_rel_err_vs_exact=_group_rel(g_k, g_x),
+               dlambd_repeat_bit_identical=bool(torch.equal(g_k, g_k2)),
+               drho_repeat_bit_identical=bool(torch.equal(d_k, d_k2)),
+               drho_err_of_max=drho_rel, **kernel_t, plain_ms=plain_ms,
+               **library_t, bound_ms=bound_ms, bound_by=bound_by,
+               least_gflop=least_gflop, **k2_t, k2_plain_ms=k2_plain_ms,
+               k2_bound_ms=k2_bound_ms, k2_bound_by=k2_bound_by,
+               k2_least_gflop=k2_gflop, **library_bwd, chain_ms=chain_ms,
+               plain_chain_ms=plain_chain_ms, exact_chain_ms=exact_chain_ms)
+    say("K1/K2 multi " + json.dumps(res))
+    check(err <= GATE, f"K1 multi vs plain {err:.3e} > {GATE}")
+    check(err_exact <= GATE, f"K1 multi vs exact route {err_exact:.3e}")
+    check(res["dlambd_rel_err"] <= GRAD_GATE,
+          f"dlambda vs plain {res['dlambd_rel_err']:.3e}")
+    check(res["dlambd_rel_err_vs_exact"] <= GRAD_GATE,
+          f"dlambda vs exact route {res['dlambd_rel_err_vs_exact']:.3e}")
+    check(drho_rel <= DRHO_GATE, f"K2 multi vs plain {drho_rel:.3e} of max")
+    check(res["dlambd_repeat_bit_identical"], "dlambda differs on repeat")
+    check(res["drho_repeat_bit_identical"], "K2 multi differs on repeat")
+    return res
+
+
+def launch_counts() -> dict:
+    return {k: getattr(obj, attr) for k, (obj, attr) in COUNTERS.items()}
+
+
 def counted(fn):
     """``(result, launches)``: ``fn()`` run with every kernel's launch
     counter set to 0 just before it, and the counts read just after."""
-    for c in COUNTERS.values():
-        c.launches = 0
+    for obj, attr in COUNTERS.values():
+        setattr(obj, attr, 0)
     out = fn()
-    return out, {k: c.launches for k, c in COUNTERS.items()}
+    return out, launch_counts()
 
 
 def framed_bound(batch: int, t: int, n_fft: int, fb_nnz: int):
@@ -709,6 +972,114 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
     return res
 
 
+def k6_case(seed: int, batch: int, lambd: float, dev: torch.device,
+            n_fft: int | None = None, t: int = T) -> dict:
+    """K6 on K5's residual at one fused geometry (``n_fft`` the bucket,
+    or None for faithful mode's 2 t with the window centred in it)
+    against its plain version, the torch adjoint
+    ``framed.framed_dwindow_plain`` (of its largest entry, bit-identical
+    on repeat).  Times: K6, the torch adjoint, and the exact route's
+    backward into lambda at this geometry (as K4's yardstick)."""
+    optimized = n_fft is not None
+    win, nfft = (n_fft, n_fft) if optimized else (t, 2 * t)
+    hint = (stft.pallas_compile_hint(lambd, nfft, HOP) if optimized
+            else lambd)
+    got_route, _ = auto_route(signal_length=t, hop_length=HOP, n_mels=N_MELS,
+                              optimized=optimized, window_length=n_fft,
+                              lambd_hint=hint)
+    check(got_route == "fused", f"auto dispatch took {got_route}, not fused")
+    rng = np.random.default_rng(seed)
+    x = torch.from_numpy(rng.standard_normal((batch, t)).astype(
+        np.float32)).to(dev)
+    xm = x - x.mean(dim=-1, keepdim=True)
+    g = framed.Geom(nfft, HOP, N_MELS, SR, 0.0, float(SR // 2))
+    w = fused.pad_window(gaussian_window(torch.tensor(lambd, device=dev),
+                                         win), nfft)
+    with torch.no_grad():
+        out, reim = fused.fused_fwd(xm, w, g)
+        dmel = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
+            np.float32)).to(dev)
+
+        def k6():
+            return fused.fused_dwindow(xm, reim, dmel, g)
+
+        def k6_plain():
+            return framed.framed_dwindow_plain(xm, reim, dmel, g)
+
+        d_k, d_k2, d_p = k6(), k6(), k6_plain()
+        torch.cuda.synchronize()
+        check(d_k.shape == (nfft,), f"dw shape {d_k.shape}")
+        check(bool(torch.isfinite(d_k).all()), "non-finite dw")
+        dw_rel = float((d_k - d_p).abs().max() / d_p.abs().max())
+        kernel_t = timed("ms", k6)
+        plain_ms = time_ms(k6_plain)
+    lam = torch.tensor(lambd, device=dev, requires_grad=True)
+    exact_out = mel_spectrogram(x, lam, impl="exact", n_mels=N_MELS,
+                                sample_rate=SR, hop_length=HOP,
+                                optimized=optimized, window_length=n_fft,
+                                log_output=True, device=dev).sum()
+    library_bwd = timed("library_bwd_ms", lambda: torch.autograd.grad(
+        exact_out, lam, retain_graph=True))
+    del exact_out
+    fb_nnz = int((framed._fb(g, dev) != 0).sum())
+    bound_ms, bound_by, least_gflop = k4_bound(batch, t, nfft, fb_nnz)
+    res = dict(batch=batch, t=t, win_length=win, n_fft=nfft, lambd=lambd,
+               dw_err_of_max=dw_rel,
+               dw_repeat_bit_identical=bool(torch.equal(d_k, d_k2)),
+               **kernel_t, plain_ms=plain_ms, **library_bwd,
+               bound_ms=bound_ms, bound_by=bound_by, least_gflop=least_gflop,
+               direct_gflop=4 * batch * stft.num_frames(t, HOP) * nfft
+               * framed.kp_of(nfft) / 1e9)
+    say("K6 " + json.dumps(res))
+    check(dw_rel <= DW_GATE, f"K6 vs plain {dw_rel:.3e} of max")
+    check(res["dw_repeat_bit_identical"], "K6 differs on repeat")
+    return res
+
+
+def fused_bwd_grad_check(seed: int, dev: torch.device, config: dict,
+                         trainset, wl, hint) -> dict:
+    """One fused train-mode gradient computation on one batch with
+    ``fused.USE_FUSED_BWD`` off (the torch adjoint) and on (K6), from
+    the same weights, batch and dropout masks: dlambda within relative
+    1e-3, fc_esc50.weight within 1e-4 of its largest entry; the flag-on
+    run launches K5 and K6 once each."""
+    model = get_model_by_config(config, window_length=wl, lambd_hint=hint,
+                                device=dev, seed=seed).train()
+    xs, ys, mask = _batch(trainset, dev)
+    params = [model.spectrogram_layer.lambd,
+              model.spectrogram_model.fc_esc50.weight]
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    gen_state = gen.get_state()
+
+    def grads(flag):
+        fused.USE_FUSED_BWD = flag
+        gen.set_state(gen_state)
+        with precision_scope():
+            loss, _, _ = loss_and_metrics(model, xs, ys, mask, one_hot=True,
+                                          n_classes=10, generator=gen)
+            out = torch.autograd.grad(loss, params)
+        torch.cuda.synchronize()
+        return out
+
+    prev = fused.USE_FUSED_BWD
+    try:
+        g_off = grads(False)
+        g_on, launches = counted(lambda: grads(True))
+    finally:
+        fused.USE_FUSED_BWD = prev
+    dlam_rel = float((g_on[0] - g_off[0]).abs() / g_off[0].abs())
+    w_err = float((g_on[1] - g_off[1]).abs().max() / g_off[1].abs().max())
+    res = dict(dlambd_k6=float(g_on[0]), dlambd_torch_adjoint=float(g_off[0]),
+               dlambd_rel_err_k6_vs_torch_adjoint=dlam_rel,
+               fc_weight_grad_err_of_max=w_err, flag_on_launches=launches)
+    say("fused bwd flag " + json.dumps(res))
+    check(launches["K5"] == 1 and launches["K6"] == 1,
+          f"flag on launched {launches}")
+    check(dlam_rel <= TRAIN_GRAD_GATE, f"K6 dlambda {dlam_rel:.3e}")
+    check(w_err <= WEIGHT_GRAD_GATE, f"K6 fc_esc50 weight grad {w_err:.3e}")
+    return res
+
+
 def _batch(ds, dev):
     xs = torch.from_numpy(np.ascontiguousarray(ds.xs[:BATCH])).to(dev)
     ys = torch.from_numpy(np.asarray(ds.ys[:BATCH])).to(dev)
@@ -758,12 +1129,14 @@ def train_step_ms(seed: int, dev: torch.device, config: dict, trainset, wl,
                 steady_ms_per_step=steady, cnn6_fwd_bwd_ms=cnn6_ms)
 
 
-def train_grad_check(seed: int, dev: torch.device, trainset, wl, hint,
-                     j: int) -> dict:
+def train_grad_check(seed: int, dev: torch.device, config: dict, trainset,
+                     wl, hint, j: int, route: str) -> dict:
     """Gradients of lambda and fc_esc50.weight on one batch: the model
     through the kernels against the same model, batch and dropout masks
-    through the plain specband function, the same log and CNN6 head."""
-    model = get_model_by_config(TRAIN_CONFIG, window_length=wl,
+    through the plain specband function (single- or multi-sigma), the
+    same log and CNN6 head.  dlambda's error is relative in norm (a
+    vector with several sigma groups)."""
+    model = get_model_by_config(config, window_length=wl,
                                 lambd_hint=hint, device=dev,
                                 seed=seed).train()
     xs, ys, mask = _batch(trainset, dev)
@@ -779,16 +1152,17 @@ def train_grad_check(seed: int, dev: torch.device, trainset, wl, hint,
 
         model.load_state_dict(saved)
         gen.set_state(gen_state)
-        s = _plain_features(model, xs, wl, j)
+        s = _plain_features(model, xs, wl, j, route)
         out = model.spectrogram_model(s.transpose(2, 3), gen)
         loss_p = bce_loss(out, F.one_hot(ys.long(), 10).to(out.dtype), mask)
         grads_p = torch.autograd.grad(loss_p, params)
 
-    dlam_rel = float((grads_k[0] - grads_p[0]).abs() / grads_p[0].abs())
+    dlam_rel = float((grads_k[0] - grads_p[0]).norm() / grads_p[0].norm())
     w_err = float((grads_k[1] - grads_p[1]).abs().max()
                   / grads_p[1].abs().max())
     res = dict(loss_kernel=loss_k.item(), loss_plain=loss_p.item(),
-               dlambd_kernel=float(grads_k[0]), dlambd_plain=float(grads_p[0]),
+               dlambd_kernel=grads_k[0].tolist(),
+               dlambd_plain=grads_p[0].tolist(),
                dlambd_rel_err=dlam_rel, fc_weight_grad_err_of_max=w_err)
     say("train grad " + json.dumps(res))
     check(dlam_rel <= TRAIN_GRAD_GATE, f"train dlambda {dlam_rel:.3e}")
@@ -827,8 +1201,16 @@ def determinism_probe(seed: int, dev: torch.device, trainset, wl,
 
 
 def _route_of(config, lam):
+    """``(route, window, hint, J)`` of a model built from ``config`` at
+    ``lam``; a multi-sigma config's routes are named ``"<route>_multi"``.
+    The hint comes from the scalar (mean) lambda, as the trainer's."""
     wl = bucketed_window_length(lam, T)
     hint = dispatch_hint_for(config, wl, lam)
+    if config.get("n_sigma", 1) > 1:
+        route, j = multi_sigma_route(hop_length=HOP, n_mels=N_MELS,
+                                     optimized=True, window_length=wl,
+                                     lambd_hint=hint)
+        return route + "_multi", wl, hint, j
     route, j = auto_route(signal_length=T, hop_length=HOP, n_mels=N_MELS,
                           optimized=True, window_length=wl,
                           lambd_hint=hint)
@@ -836,28 +1218,51 @@ def _route_of(config, lam):
 
 
 #: the kernels each route launches on one train step, and on one valid
-#: batch
+#: batch (the fused route's step also launches K6 under USE_FUSED_BWD)
 _ROUTE_KERNELS = {"specband": (("K1", "K2"), ("K1",)),
                   "framed": (("K3", "K4"), ("K3",)),
-                  "fused": (("K5",), ("K5",)), "exact": ((), ())}
+                  "fused": (("K5",), ("K5",)), "exact": ((), ()),
+                  "specband_multi": (("K1m", "K2m"), ("K1m",)),
+                  "exact_multi": ((), ())}
+
+
+def route_kernels(route: str):
+    train, valid = _ROUTE_KERNELS[route]
+    if route == "fused" and fused.USE_FUSED_BWD:
+        train = train + ("K6",)
+    return train, valid
 
 
 def train_path(seed: int, dev: torch.device, lam0: float,
-               repeat: bool = False) -> dict:
+               repeat: bool = False, n_sigma: int = 1,
+               fused_bwd: bool = False) -> dict:
     """``fit`` from ``lam0``: launches counted by epoch against the route
     each epoch's refresh picked; ms per train step on the starting
-    route; at lambda 128 also the one-batch gradient check and the
-    step's cost with cuDNN's deterministic algorithms off and on; with
-    ``repeat``, a second ``fit`` with the same seed must give the same
-    lambda after every epoch and the same weights, bit for bit."""
-    config = dict(TRAIN_CONFIG, init_lambd=lam0)
+    route; at lambda 128 also the one-batch gradient check and, with one
+    sigma group, the step's cost with cuDNN's deterministic algorithms
+    off and on; with ``repeat``, a second ``fit`` with the same seed must
+    give the same lambda after every epoch and the same weights, bit for
+    bit.  ``n_sigma`` groups train a multi-sigma front end (lambda of
+    shape (n_sigma,) must move); ``fused_bwd`` sets
+    ``fused.USE_FUSED_BWD`` for the whole path and adds the one-batch
+    comparison of the flag on and off."""
+    fused.USE_FUSED_BWD = fused_bwd
+    try:
+        return _train_path(seed, dev, lam0, repeat, n_sigma, fused_bwd)
+    finally:
+        fused.USE_FUSED_BWD = False
+
+
+def _train_path(seed, dev, lam0, repeat, n_sigma, fused_bwd):
+    config = dict(TRAIN_CONFIG, init_lambd=lam0, n_sigma=n_sigma)
     trainset, validset, _ = get_dataset_by_config(config)
     route, wl, hint, j = _route_of(config, lam0)
     steps = -(-len(trainset) // BATCH)
     valid_batches = -(-len(validset) // BATCH)
-    say(f"train: lambda {lam0}, route {route}, {len(trainset)} train / "
-        f"{len(validset)} valid clips, {steps} steps and {valid_batches} "
-        f"valid batches an epoch, window {wl}, hint {hint}, J {j}")
+    say(f"train: lambda {lam0}, {n_sigma} sigma groups, route {route}, "
+        f"K6 {fused_bwd}, {len(trainset)} train / {len(validset)} valid "
+        f"clips, {steps} steps and {valid_batches} valid batches an epoch, "
+        f"window {wl}, hint {hint}, J {j}")
     extra = {}
     if route == "specband":
         # the deterministic setting's step cost, in turns off, on, on, off
@@ -867,8 +1272,18 @@ def train_path(seed: int, dev: torch.device, lam0: float,
             say("train step " + json.dumps(r))
         times = turns[1]
         extra = dict(step_turns=turns,
-                     **train_grad_check(seed, dev, trainset, wl, hint, j),
+                     **train_grad_check(seed, dev, config, trainset, wl,
+                                        hint, j, route),
                      **determinism_probe(seed, dev, trainset, wl, hint))
+    elif route == "specband_multi":
+        times = train_step_ms(seed, dev, config, trainset, wl, hint)
+        say("train step " + json.dumps(times))
+        extra = train_grad_check(seed, dev, config, trainset, wl, hint, j,
+                                 route)
+    elif fused_bwd:
+        times = train_step_ms(seed, dev, config, trainset, wl, hint)
+        say("train step " + json.dumps(times))
+        extra = fused_bwd_grad_check(seed, dev, config, trainset, wl, hint)
     else:
         times = train_step_ms(seed, dev, config, trainset, wl, hint)
         say("train step " + json.dumps(times))
@@ -877,8 +1292,7 @@ def train_path(seed: int, dev: torch.device, lam0: float,
     t0 = time.perf_counter()
     (state, history), total = counted(lambda: fit(
         config, trainset, validset, seed=seed, device=dev,
-        report_fn=lambda r: seen.append(
-            {k: c.launches for k, c in COUNTERS.items()})))
+        report_fn=lambda r: seen.append(launch_counts())))
     torch.cuda.synchronize()
     fit_s = time.perf_counter() - t0
     if repeat:
@@ -898,9 +1312,10 @@ def train_path(seed: int, dev: torch.device, lam0: float,
         ep_route = _route_of(config, lam_start)[0]
         launched = {k: cum[k] - prev[k] for k in COUNTERS}
         want = dict.fromkeys(COUNTERS, 0)
-        for k in _ROUTE_KERNELS[ep_route][0]:
+        train_k, valid_k = route_kernels(ep_route)
+        for k in train_k:
             want[k] += steps
-        for k in _ROUTE_KERNELS[ep_route][1]:
+        for k in valid_k:
             want[k] += valid_batches
         epochs.append(dict(epoch=r["epoch"], lambd_start=lam_start,
                            route=ep_route, launches=launched,
@@ -908,7 +1323,9 @@ def train_path(seed: int, dev: torch.device, lam0: float,
         say("record " + json.dumps(dict(r, route=ep_route,
                                         launches=launched)))
         prev, lam_start = cum, r["lambd_est"]
-    res = dict(lambd=lam0, route=route, epochs=epochs,
+    lam_end = state["model"].spectrogram_layer.lambd.detach()
+    res = dict(lambd=lam0, n_sigma=n_sigma, fused_bwd=fused_bwd,
+               route=route, epochs=epochs, lambd_end=lam_end.tolist(),
                steps_per_epoch=steps, valid_batches_per_epoch=valid_batches,
                launches=total, fit_s=fit_s, **times,
                init_lambd=history["init_lambd"],
@@ -925,6 +1342,9 @@ def train_path(seed: int, dev: torch.device, lam0: float,
               for k in ("loss", "valid_loss", "energy")),
           "non-finite loss")
     check(history["est_lambd"] != history["init_lambd"], "lambda did not move")
+    check(tuple(lam_end.shape) == ((n_sigma,) if n_sigma > 1 else ()),
+          f"lambda of shape {tuple(lam_end.shape)}")
+    check(bool((lam_end != lam0).all()), "a sigma group's lambda did not move")
     check(extra.get("fit_repeat_bit_identical", True),
           "a second fit with the same seed differs")
     return res
@@ -1010,27 +1430,48 @@ def main():
                   frontend_case(seed, "fused", BATCH, 300.0, dev, None,
                                 t=1500)]
 
+    with phase("K1/K2 multi vs plain"):
+        cases_m = [multi_case(seed, 128, 1024, (100.0, 110.0, 120.0, 128.0),
+                              dev),
+                   multi_case(seed, BATCH, 1024, (100.0, 110.0, 120.0, 128.0),
+                              dev),
+                   multi_case(seed, BATCH, 4096, (345.0, 360.0, 380.0, 400.0),
+                              dev)]
+
+    with phase("K6 vs plain"):
+        cases6 = [k6_case(seed, BATCH, 300.0, dev, 2048),
+                  k6_case(seed, BATCH, 600.0, dev, 4096),
+                  k6_case(seed, BATCH, 300.0, dev, None, t=1500)]
+
+    paths = {}
     with phase("model path"):
-        model = model_path(seed, dev, 128.0)
+        paths["inference"] = model_path(seed, dev, 128.0)
     with phase("model path, framed"):
-        model_fr = model_path(seed, dev, 46.7)
+        paths["inference_framed"] = model_path(seed, dev, 46.7)
+    with phase("model path, multi-sigma"):
+        paths["inference_multi"] = model_path(seed, dev, 128.0, n_sigma=4)
+    with phase("model path, multi-sigma exact"):
+        paths["inference_multi_exact"] = model_path(seed, dev, 46.7,
+                                                    n_sigma=4)
 
     with phase("train path"):
-        train = train_path(seed, dev, 128.0)
+        paths["train"] = train_path(seed, dev, 128.0)
     with phase("train path, framed"):
-        train_fr = train_path(seed, dev, 46.7, repeat=True)
+        paths["train_framed"] = train_path(seed, dev, 46.7, repeat=True)
     with phase("train path, fused"):
-        train_fu = train_path(seed, dev, 600.0)
+        paths["train_fused"] = train_path(seed, dev, 600.0)
+    with phase("train path, multi-sigma"):
+        paths["train_multi"] = train_path(seed, dev, 128.0, n_sigma=4)
+    with phase("train path, fused with K6"):
+        paths["train_fused_k6"] = train_path(seed, dev, 600.0,
+                                             fused_bwd=True)
 
     def by_path(key):
-        return {"inference": model["launches"][key],
-                "inference_framed": model_fr["launches"][key],
-                "train": train["launches"][key],
-                "train_framed": train_fr["launches"][key],
-                "train_fused": train_fu["launches"][key]}
+        return {name: r["launches"][key] for name, r in paths.items()}
 
     main1, main2 = cases[1], cases2[2]   # the model's and the train's shape
     main34, main5 = cases34[0], cases5[1]
+    main_m, main6 = cases_m[1], cases6[1]
     kernels = [
         _kernel_entry(
             "specband_fwd", "specband_fwd.cu",
@@ -1063,6 +1504,27 @@ def main():
             "dmel_tpu/ops/pallas/fused_dmel.py:68", by_path("K5"),
             max(c["logmel_max_abs_err"] for c in cases5), "log-mel", GATE,
             main5, **_library(main5, "library_ms")),
+        _kernel_entry(
+            "specband_fwd_multi", "specband_fwd.cu",
+            "dmel_tpu/ops/pallas/specband_dmel.py:476", by_path("K1m"),
+            max(c["logmel_max_abs_err"] for c in cases_m), "log-mel", GATE,
+            main_m, **_library(main_m, "library_ms"), k_sig=main_m["k_sig"],
+            logmel_err_vs_exact_route=max(
+                c["logmel_err_vs_exact_route"] for c in cases_m)),
+        _kernel_entry(
+            "specband_bwd_multi", "specband_bwd.cu",
+            "dmel_tpu/ops/pallas/specband_dmel.py:749", by_path("K2m"),
+            max(c["drho_err_of_max"] for c in cases_m),
+            "drho / max |drho|", DRHO_GATE, main_m, prefix="k2_",
+            **_library(main_m, "library_bwd_ms"), k_sig=main_m["k_sig"],
+            dlambd_rel_err=max(c["dlambd_rel_err"] for c in cases_m),
+            dlambd_rel_err_vs_exact=max(
+                c["dlambd_rel_err_vs_exact"] for c in cases_m)),
+        _kernel_entry(
+            "fused_bwd", "framed_bwd.cu",
+            "dmel_tpu/ops/pallas/fused_dmel.py:152", by_path("K6"),
+            max(c["dw_err_of_max"] for c in cases6), "dw / max |dw|",
+            DW_GATE, main6, **_library(main6, "library_bwd_ms")),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on a path")

@@ -1,9 +1,18 @@
-// Framed mel power, backward into the window, for Hopper (sm_90a).
+// Framed and fused mel power, backward into the window, for Hopper (sm_90a).
 //
-// Replaces the TPU kernel dmel_tpu/ops/pallas/framed_dmel.py:_bwd_kernel
-// (K4), launched by _bwd.  Given the Re|Im residual that the forward kernel
-// (framed_fwd.cu) left in global memory, the signal, the filterbank and the
-// cotangent g of the (B, n_mels, n_frames) mel power, it computes for every
+// Replaces two TPU kernels through two entry points of the same kernels:
+// framed_bwd() dmel_tpu/ops/pallas/framed_dmel.py:_bwd_kernel (K4), launched
+// by _bwd, for the framed route's n_fft (a multiple of 128 up to 1024); and
+// fused_bwd() dmel_tpu/ops/pallas/fused_dmel.py:_bwd_kernel (K6), launched
+// by _bwd_dw_fused, for any even n_fft up to 4096 with the window centred
+// in n_fft (faithful mode's n_fft = 2 T included), on the residual that the
+// fused forward (framed_fwd.cu:fused_fwd, K5) leaves.  K6 computes the same
+// function as K4; the TPU needed a second kernel for its VMEM tiling of
+// large n_fft, and here the loaders and the epilogue mask every ragged
+// tail (the last 128-sample column block, bins past n_bins) instead.
+//
+// Given the Re|Im residual that the forward kernel (framed_fwd.cu) left in
+// global memory, the signal, the filterbank and the cotangent g of the (B, n_mels, n_frames) mel power, it computes for every
 // frame row r = b * n_frames + t
 //
 //   dP[r, k]   = sum_j g[b, j, t] fb[k, j]        over fb's nonzeros
@@ -18,9 +27,10 @@
 //
 // What bounds it on this card: operations.  The adjoint DFT is a GEMM of
 // (rows, 2 kp) by (2 kp, n_fft), 4 rows kp n_fft flops, ~38 GFLOP at
-// n_fft 1024 and batch 32, run in fp32 FMAs; the function itself needs an
-// inverse real FFT a frame (chip_smoke.py:framed_bound).  The design keeps
-// dfw on chip, as the TPU kernel did:
+// n_fft 1024 and batch 32 (~555 GFLOP at 4096, where the frame count
+// stays and kp and n_fft grow 4x each), run in fp32 FMAs; the function
+// itself needs an inverse real FFT a frame (chip_smoke.py:k4_bound).  The
+// design keeps dfw on chip, as the TPU kernels did:
 //
 // 1. dreim_kernel: one block owns FR frame rows, stages their cotangent in
 //    shared memory, forms dP over each bin's contiguous range of nonzero
@@ -43,8 +53,9 @@
 // and the single-pass bf16 adjoint GEMMs (fp32 throughout), the Nyquist
 // split (128-lane tiling).  The tensor cores are later work.
 //
-// C interface: framed_bwd() launches the three kernels on the given stream
-// and returns cudaGetLastError(); it does not synchronise.
+// C interface: framed_bwd() and fused_bwd() check their geometry, launch
+// the three kernels on the given stream and return cudaGetLastError();
+// they do not synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -271,32 +282,14 @@ dw_sum_kernel(const float* __restrict__ partials, float* __restrict__ dw,
   if (threadIdx.x == 0) dw[blockIdx.x] = red[0];
 }
 
-}  // namespace
-
-extern "C" {
-
-const char* framed_bwd_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
-}
-
-// Frame rows per block of adjoint_dw_kernel: the caller sizes partials as
-// (n_fft, ceil(rows / framed_bwd_rows_per_block())).
-int framed_bwd_rows_per_block() { return BM; }
-
-// x (batch, sig_len); reim (rows, 2*kp) as framed_fwd wrote it; table (2,
-// n_fft) as there; fb (n_bins, n_mels) dense; bin_lo / bin_hi (n_bins)
-// int32, each bin's nonzero mel range; dmel (batch, n_mels, nfr); dreim
-// scratch (rows, 2*kp); partials scratch (n_fft, n_blocks); dw (n_fft).
-// All fp32 unless stated, contiguous, on the current device.  n_fft a
-// multiple of 128, at most 1024 (the framed route's geometry).
-int framed_bwd(const float* x, const float* reim, const float* table,
+// The three launches on the given stream; returns cudaGetLastError().
+int launch_bwd(const float* x, const float* reim, const float* table,
                const float* fb, const int* bin_lo, const int* bin_hi,
                const float* dmel, float* dreim, float* partials, float* dw,
                int batch, int sig_len, int nfr, int hop, int n_fft, int kp,
                int n_bins, int n_mels, void* stream) {
   const int rows = batch * nfr;
   if (batch <= 0 || nfr <= 0 || rows / nfr != batch || hop <= 0 ||
-      n_fft < 128 || n_fft % 128 != 0 || n_fft > 1024 ||
       n_bins != n_fft / 2 + 1 || kp < n_bins || kp % BK != 0 ||
       n_mels <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -322,6 +315,51 @@ int framed_bwd(const float* x, const float* reim, const float* table,
 
   dw_sum_kernel<<<n_fft, SUM_THREADS, 0, s>>>(partials, dw, n_blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* framed_bwd_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Frame rows per block of adjoint_dw_kernel: the caller sizes partials as
+// (n_fft, ceil(rows / framed_bwd_rows_per_block())).
+int framed_bwd_rows_per_block() { return BM; }
+
+// x (batch, sig_len); reim (rows, 2*kp) as framed_fwd / fused_fwd wrote it;
+// table (2, n_fft) as there; fb (n_bins, n_mels) dense; bin_lo / bin_hi
+// (n_bins) int32, each bin's nonzero mel range; dmel (batch, n_mels, nfr);
+// dreim scratch (rows, 2*kp); partials scratch (n_fft, n_blocks); dw
+// (n_fft).  All fp32 unless stated, contiguous, on the current device.
+
+// K4: n_fft a multiple of 128, at most 1024 (the framed route's geometry).
+int framed_bwd(const float* x, const float* reim, const float* table,
+               const float* fb, const int* bin_lo, const int* bin_hi,
+               const float* dmel, float* dreim, float* partials, float* dw,
+               int batch, int sig_len, int nfr, int hop, int n_fft, int kp,
+               int n_bins, int n_mels, void* stream) {
+  if (n_fft < 128 || n_fft % 128 != 0 || n_fft > 1024)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd(x, reim, table, fb, bin_lo, bin_hi, dmel, dreim,
+                    partials, dw, batch, sig_len, nfr, hop, n_fft, kp,
+                    n_bins, n_mels, stream);
+}
+
+// K6: any even n_fft from 2 to 4096 (the fused route's geometry), the
+// window centred in it by the caller.
+int fused_bwd(const float* x, const float* reim, const float* table,
+              const float* fb, const int* bin_lo, const int* bin_hi,
+              const float* dmel, float* dreim, float* partials, float* dw,
+              int batch, int sig_len, int nfr, int hop, int n_fft, int kp,
+              int n_bins, int n_mels, void* stream) {
+  if (n_fft < 2 || n_fft % 2 != 0 || n_fft > 4096)
+    return static_cast<int>(cudaErrorInvalidValue);
+  return launch_bwd(x, reim, table, fb, bin_lo, bin_hi, dmel, dreim,
+                    partials, dw, batch, sig_len, nfr, hop, n_fft, kp,
+                    n_bins, n_mels, stream);
 }
 
 }  // extern "C"

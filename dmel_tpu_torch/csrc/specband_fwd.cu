@@ -1,18 +1,25 @@
 // Specband mel power, forward, for Hopper (sm_90a).
 //
 // Replaces the TPU kernel dmel_tpu/ops/pallas/specband_dmel.py:_fwd_kernel
-// (+ _fwd_rest), launched by _specband_fwd.  For each batch row b and frame
-// t of the signal zero-padded by n_fft/2 on both sides it computes
+// (+ _fwd_rest), launched by _specband_fwd, at k_sig = 1 (specband_mel_power)
+// and at k_sig = K > 1 (specband_mel_power_multi: K windows, one per group
+// of mel bands).  For each batch row b and frame t of the signal
+// zero-padded by n_fft/2 on both sides it computes
 //
-//   X'[t, j] = sum_m x[t*hop + m - n_fft/2] * (-1)^k e^{-2 pi i m k / N},
-//              k = j - J, j = 0 .. k_ext-1   (bins -J .. n_bins-1+J)
-//   S[t, k]  = sum_{i=0}^{2J} rho[i] * X'[t, k + 2J - i]
-//   P[t, k]  = Re(S)^2 + Im(S)^2,            k = 0 .. n_bins-1
-//   mel[t]   = P[t, :] @ fb                  (n_bins x n_mels)
+//   X'[t, j]    = sum_m x[t*hop + m - n_fft/2] * (-1)^k e^{-2 pi i m k / N},
+//                 k = j - J, j = 0 .. k_ext-1   (bins -J .. n_bins-1+J)
+//   S_s[t, k]   = sum_{i=0}^{2J} rho[s, i] * X'[t, k + 2J - i]
+//   P_s[t, k]   = Re(S_s)^2 + Im(S_s)^2,        k = 0 .. n_bins-1
+//   mel[t, m]   = sum_k P_{band_map[m]}[t, k] fb[k, m]
 //   out[b, m, t] = mel (or log(mel + 1e-10))
 //
-// in two launches:
+// The spectra X' do not depend on the window, so all K sigmas share one
+// pass of the expensive part, as on the TPU ("marginal cost per sigma: one
+// banded GEMM per output tile"); each sigma adds only its band convolution
+// on the bins under its own mel bands.  In three launches:
 //
+// 0. sigma_range_kernel (sigma_ranges.cuh): each sigma's bin range [lo, hi)
+//    from the filterbank and band_map.
 // 1. ext_dft_kernel: X' as one fp32 GEMM, frames (rows = B*n_frames, n_fft)
 //    times the phase-flipped bases (n_fft, 2*kp), cos plane then sin plane.
 //    The frames are never materialised: each block reads its rows straight
@@ -29,9 +36,17 @@
 //    in flight in registers.  The bases (2.3 MB per plane at n_fft 1024)
 //    do not fit a block's shared memory as the TPU kept them in VMEM; they
 //    are streamed tile by tile and stay resident in the 50 MB L2.
-// 2. band_mel_kernel: one block owns FR frames, stages their X' rows in
-//    shared memory, convolves with the 2J+1 taps, squares, projects onto
-//    the mel bands and writes the (B, n_mels, n_frames) output directly.
+// 2. band_mel_kernel: one block owns FR frames and stages their X' rows in
+//    shared memory.  Then, one sigma at a time, it convolves the bins of
+//    [lo, hi) with that sigma's 2J+1 taps, squares them into one power
+//    buffer, projects them onto that sigma's mel bands and writes those
+//    rows of the (B, n_mels, n_frames) output directly.  One power buffer
+//    serves every sigma in turn: K buffers would need K x n_bins floats a
+//    frame (64 KB a frame at n_fft 4096 and K = 8), past a block's shared
+//    memory.  Any band_map works, contiguous or not: a sigma's range
+//    covers all of its bands.  At k_sig = 1 the range is the filterbank's
+//    nonzero bins and the result is bit for bit the one of a pass over
+//    every bin (the products left out are exact zeros).
 //
 // What the TPU design needed and this one drops: the sliding-DFT
 // recurrence and hop-delta GEMMs (fewer operations; a later optimisation
@@ -40,8 +55,8 @@
 // carried between sequential grid steps (blocks here run in any order and
 // own their output).
 //
-// C interface: specband_fwd() launches both kernels on the given stream
-// and returns cudaGetLastError(); it does not synchronise.
+// C interface: specband_fwd() launches the three kernels on the given
+// stream and returns cudaGetLastError(); it does not synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -56,7 +71,9 @@ constexpr int A_PAD = 4;         // keeps the transposed A stores conflict-free
 
 constexpr int FR = 4;            // frames per block in band_mel_kernel
 constexpr int BAND_THREADS = 256;
-constexpr int MAX_TAPS = 128;
+constexpr int MAX_TAPS = 128;    // taps a sigma: 2J + 1 with 2J < 128
+
+#include "sigma_ranges.cuh"
 
 __global__ void __launch_bounds__(GEMM_THREADS)
 ext_dft_kernel(const float* __restrict__ x, const float* __restrict__ basis,
@@ -158,20 +175,25 @@ ext_dft_kernel(const float* __restrict__ x, const float* __restrict__ basis,
 
 __global__ void __launch_bounds__(BAND_THREADS)
 band_mel_kernel(const float* __restrict__ xext, const float* __restrict__ rho,
-                const float* __restrict__ fb, float* __restrict__ out,
+                const float* __restrict__ fb,
+                const int* __restrict__ band_map,
+                const int* __restrict__ sig_range, float* __restrict__ out,
                 int rows, int nfr, int kp, int k_ext, int n_bins, int n_taps,
-                int n_mels, int log_out) {
+                int n_mels, int k_sig, int log_out) {
   extern __shared__ __align__(16) float smem[];
   float* xr = smem;                    // FR x k_ext, cos plane
   float* xi = xr + FR * k_ext;         // FR x k_ext, sin plane
-  float* p = xi + FR * k_ext;          // FR x n_bins, power
-  __shared__ float taps[MAX_TAPS];
+  float* p = xi + FR * k_ext;          // FR x n_bins, one sigma's power
+  float* taps = p + FR * n_bins;       // k_sig x n_taps
+  int* map = reinterpret_cast<int*>(taps + k_sig * n_taps);   // n_mels
 
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * FR;
   const int ncol = 2 * kp;
 
-  if (tid < n_taps) taps[tid] = rho[tid];
+  for (int i = tid; i < k_sig * n_taps; i += BAND_THREADS) taps[i] = rho[i];
+  for (int m = tid; m < n_mels; m += BAND_THREADS)
+    map[m] = band_map == nullptr ? 0 : band_map[m];
   for (int i = tid; i < FR * k_ext; i += BAND_THREADS) {
     const int f = i / k_ext;
     const int j = i - f * k_ext;
@@ -185,39 +207,47 @@ band_mel_kernel(const float* __restrict__ xext, const float* __restrict__ rho,
     xr[i] = re;
     xi[i] = im;
   }
-  __syncthreads();
 
   const int two_j = n_taps - 1;
-  for (int i = tid; i < FR * n_bins; i += BAND_THREADS) {
-    const int f = i / n_bins;
-    const int k = i - f * n_bins;
-    const float* ar = xr + f * k_ext + k + two_j;
-    const float* ai = xi + f * k_ext + k + two_j;
-    float sr = 0.f, si = 0.f;
-    for (int d = 0; d < n_taps; ++d) {
-      const float w = taps[d];
-      sr = fmaf(w, ar[-d], sr);
-      si = fmaf(w, ai[-d], si);
+  for (int s = 0; s < k_sig; ++s) {
+    // the spectra, and the previous sigma's power read by its mel pass
+    __syncthreads();
+    const int lo = __ldg(sig_range + 2 * s);
+    const int hi = __ldg(sig_range + 2 * s + 1);
+    const int width = hi - lo;
+    const float* ts = taps + s * n_taps;
+    for (int i = tid; i < FR * width; i += BAND_THREADS) {
+      const int f = i / width;
+      const int k = lo + i - f * width;
+      const float* ar = xr + f * k_ext + k + two_j;
+      const float* ai = xi + f * k_ext + k + two_j;
+      float sr = 0.f, si = 0.f;
+      for (int d = 0; d < n_taps; ++d) {
+        const float w = ts[d];
+        sr = fmaf(w, ar[-d], sr);
+        si = fmaf(w, ai[-d], si);
+      }
+      p[f * n_bins + k] = sr * sr + si * si;
     }
-    p[i] = sr * sr + si * si;
-  }
-  __syncthreads();
+    __syncthreads();
 
-  // (mel m, frame f) pairs with f fastest: neighbouring threads write
-  // neighbouring frames of one mel band.
-  for (int i = tid; i < FR * n_mels; i += BAND_THREADS) {
-    const int m = i / FR;
-    const int f = i - m * FR;
-    const int r = row0 + f;
-    if (r >= rows) continue;
-    const float* pf = p + f * n_bins;
-    float acc = 0.f;
-    for (int k = 0; k < n_bins; ++k)
-      acc = fmaf(pf[k], __ldg(fb + (size_t)k * n_mels + m), acc);
-    if (log_out) acc = logf(acc + 1e-10f);
-    const int b = r / nfr;
-    const int t = r - b * nfr;
-    out[((size_t)b * n_mels + m) * nfr + t] = acc;
+    // (mel m, frame f) pairs of this sigma's bands with f fastest:
+    // neighbouring threads write neighbouring frames of one mel band.  The
+    // filterbank is zero outside [lo, hi) for these bands.
+    for (int i = tid; i < FR * n_mels; i += BAND_THREADS) {
+      const int m = i / FR;
+      const int f = i - m * FR;
+      const int r = row0 + f;
+      if (r >= rows || map[m] != s) continue;
+      const float* pf = p + f * n_bins;
+      float acc = 0.f;
+      for (int k = lo; k < hi; ++k)
+        acc = fmaf(pf[k], __ldg(fb + (size_t)k * n_mels + m), acc);
+      if (log_out) acc = logf(acc + 1e-10f);
+      const int b = r / nfr;
+      const int t = r - b * nfr;
+      out[((size_t)b * n_mels + m) * nfr + t] = acc;
+    }
   }
 }
 
@@ -229,36 +259,46 @@ const char* specband_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x (batch, sig_len); basis (n_fft, 2*kp); rho (n_taps); fb (n_bins, n_mels);
-// xext scratch (batch*nfr, 2*kp); out (batch, n_mels, nfr).  All fp32,
-// contiguous, on the current device.
+// x (batch, sig_len); basis (n_fft, 2*kp); rho (k_sig, n_taps), one tap
+// vector a sigma; fb (n_bins, n_mels); band_map (n_mels) int32, each mel
+// band's sigma in [0, k_sig), or null for k_sig = 1; sig_range scratch
+// (k_sig, 2) int32; xext scratch (batch*nfr, 2*kp); out (batch, n_mels,
+// nfr).  All fp32 unless stated, contiguous, on the current device.
 int specband_fwd(const float* x, const float* basis, const float* rho,
-                 const float* fb, float* xext, float* out, int batch,
-                 int sig_len, int nfr, int hop, int n_fft, int kp, int k_ext,
-                 int n_bins, int n_taps, int n_mels, int log_out,
+                 const float* fb, const int* band_map, int* sig_range,
+                 float* xext, float* out, int batch, int sig_len, int nfr,
+                 int hop, int n_fft, int kp, int k_ext, int n_bins,
+                 int n_taps, int n_mels, int k_sig, int log_out,
                  void* stream) {
   const int rows = batch * nfr;
   if (batch <= 0 || nfr <= 0 || rows / nfr != batch || n_fft % BK != 0 ||
       (2 * kp) % BN != 0 || k_ext > kp || n_taps > MAX_TAPS ||
-      n_bins + n_taps - 1 != k_ext || n_mels <= 0) {
+      n_bins + n_taps - 1 != k_ext || n_mels <= 0 || k_sig < 1 ||
+      k_sig > MAX_SIGMA || (k_sig > 1 && band_map == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
 
-  dim3 grid1((rows + BM - 1) / BM, (2 * kp) / BN);
-  ext_dft_kernel<<<grid1, GEMM_THREADS, 0, s>>>(x, basis, xext, rows, sig_len,
-                                                nfr, hop, n_fft, 2 * kp);
+  sigma_range_kernel<<<1, RANGE_THREADS, 0, s>>>(fb, band_map, n_bins,
+                                                 n_mels, k_sig, sig_range);
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  const size_t smem = sizeof(float) * (size_t)FR * (2 * k_ext + n_bins);
+  dim3 grid1((rows + BM - 1) / BM, (2 * kp) / BN);
+  ext_dft_kernel<<<grid1, GEMM_THREADS, 0, s>>>(x, basis, xext, rows, sig_len,
+                                                nfr, hop, n_fft, 2 * kp);
+  err = cudaGetLastError();
+  if (err != cudaSuccess) return static_cast<int>(err);
+
+  const size_t smem = sizeof(float) * ((size_t)FR * (2 * k_ext + n_bins) +
+                                       (size_t)k_sig * n_taps + n_mels);
   err = cudaFuncSetAttribute(band_mel_kernel,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
   band_mel_kernel<<<(rows + FR - 1) / FR, BAND_THREADS, smem, s>>>(
-      xext, rho, fb, out, rows, nfr, kp, k_ext, n_bins, n_taps, n_mels,
-      log_out);
+      xext, rho, fb, band_map, sig_range, out, rows, nfr, kp, k_ext, n_bins,
+      n_taps, n_mels, k_sig, log_out);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -10,13 +10,15 @@ from typing import Optional
 import torch
 from torch import nn
 
-from dmel_tpu_torch.models.layers import MelSpectrogramLayer
+from dmel_tpu_torch.models.layers import (MelSpectrogramLayer,
+                                          MultiSigmaMelSpectrogramLayer)
 from dmel_tpu_torch.models.panns import Cnn6
 from dmel_tpu_torch.ops.specband import LOG_EPS
 
 
 class _MelFrontEnd(nn.Module):
-    """Holds the DMEL front end shared by the mel classifiers."""
+    """Holds the DMEL front end shared by the mel classifiers: the
+    multi-sigma layer when ``n_sigma > 1``, else the scalar one."""
 
     def __init__(self, init_lambd: float, n_mels: int, sample_rate: int,
                  n_points: int, hop_length: int = 1,
@@ -24,15 +26,17 @@ class _MelFrontEnd(nn.Module):
                  window_length: Optional[int] = None,
                  energy_normalize: bool = False,
                  normalize_window: bool = False, impl: str = "exact",
-                 lambd_hint: Optional[float] = None):
+                 lambd_hint: Optional[float] = None, n_sigma: int = 1):
         super().__init__()
         self.energy_normalize = energy_normalize
-        self.spectrogram_layer = MelSpectrogramLayer(
-            init_lambd=init_lambd, n_mels=n_mels, n_points=n_points,
-            sample_rate=sample_rate, hop_length=hop_length,
-            optimized=optimized, window_length=window_length,
-            normalize_window=normalize_window, impl=impl,
-            lambd_hint=lambd_hint)
+        kw = dict(init_lambd=init_lambd, n_mels=n_mels, n_points=n_points,
+                  sample_rate=sample_rate, hop_length=hop_length,
+                  optimized=optimized, window_length=window_length,
+                  normalize_window=normalize_window, impl=impl,
+                  lambd_hint=lambd_hint)
+        self.spectrogram_layer = (
+            MultiSigmaMelSpectrogramLayer(n_sigma=n_sigma, **kw)
+            if n_sigma > 1 else MelSpectrogramLayer(**kw))
 
     def features(self, x: torch.Tensor) -> torch.Tensor:
         s = self.spectrogram_layer(x)

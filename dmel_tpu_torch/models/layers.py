@@ -8,7 +8,8 @@ from typing import Optional
 import torch
 from torch import nn
 
-from dmel_tpu_torch.ops.dmel import mel_spectrogram
+from dmel_tpu_torch.ops.dmel import (mel_spectrogram,
+                                     multi_sigma_mel_spectrogram)
 
 
 class MelSpectrogramLayer(nn.Module):
@@ -48,6 +49,30 @@ class MelSpectrogramLayer(nn.Module):
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         mel = mel_spectrogram(
+            x, self.lambd, n_mels=self.n_mels, sample_rate=self.sample_rate,
+            hop_length=self.hop_length, optimized=self.optimized,
+            window_length=self.window_length,
+            normalize_window=self.normalize_window, impl=self.impl,
+            lambd_hint=self.lambd_hint, device=x.device)
+        return mel[:, None, :, :]
+
+
+class MultiSigmaMelSpectrogramLayer(MelSpectrogramLayer):
+    """Multi-sigma DMEL: a vector of ``n_sigma`` trainable window lengths,
+    one a contiguous group of mel bands (``default_band_map``).  The
+    parameter keeps the name ``lambd`` (shape ``(n_sigma,)``), so the
+    optimizer's ``lr_tf`` group and the trajectory records treat it as
+    the scalar one.  ``lambd_hint`` may be a scalar or one a sigma.
+    Output ``(B, 1, n_mels, n_points // hop_length + 1)``."""
+
+    def __init__(self, init_lambd: float, n_sigma: int, n_mels: int,
+                 n_points: int, sample_rate: int, **kwargs):
+        super().__init__(init_lambd, n_mels, n_points, sample_rate,
+                         **kwargs)
+        self.lambd = nn.Parameter(torch.full((n_sigma,), float(init_lambd)))
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        mel = multi_sigma_mel_spectrogram(
             x, self.lambd, n_mels=self.n_mels, sample_rate=self.sample_rate,
             hop_length=self.hop_length, optimized=self.optimized,
             window_length=self.window_length,

@@ -64,8 +64,6 @@ def get_model_by_config(config: dict, window_length: Optional[int] = None,
         raise NotImplementedError(f"model {name!r} is not ported yet")
     if config.get("model_dtype", "float32") != "float32":
         raise NotImplementedError("only model_dtype='float32' is ported")
-    if int(config.get("n_sigma", 1)) != 1:
-        raise NotImplementedError("multi-sigma DMEL is not ported yet")
     if config.get("precision", "highest") != "highest":
         raise NotImplementedError("the port's front end runs in float32 "
                                   "only: precision='highest'")
@@ -83,6 +81,7 @@ def get_model_by_config(config: dict, window_length: Optional[int] = None,
         normalize_window=config["normalize_window"],
         impl=_impl(config),
         lambd_hint=lambd_hint,
+        n_sigma=int(config.get("n_sigma", 1)),
         augment=config.get("augment", False),
         generator=gen)
     return model.to(dev)
@@ -91,7 +90,8 @@ def get_model_by_config(config: dict, window_length: Optional[int] = None,
 def dispatch_hint_for(config: dict, window_length: Optional[int],
                       lambd_value: float) -> Optional[float]:
     """Canonical static ``lambd_hint`` for a model built from
-    ``config`` at ``lambd_value``; None where the config does not use
+    ``config`` at ``lambd_value`` (a scalar: the mean for a multi-sigma
+    model, as the trainer passes it); None where the config does not use
     the auto dispatch or runs in faithful mode."""
     if _impl(config) != "auto" or window_length is None:
         return None

@@ -6,7 +6,7 @@ compiled at first use by ``nvcc`` into a shared library and loaded with
 seconds, needs no PyTorch headers and leaves no lock file behind.
 
 The library lands in ``dmel_tpu_torch/_build/`` under a name keyed by a
-hash of its source and flags.  It is compiled to a temporary name and
+hash of its source, the ``csrc/*.cuh`` headers and the flags.  It is compiled to a temporary name and
 renamed into place, so a half-written library is never loaded.
 """
 
@@ -56,6 +56,8 @@ def nvcc() -> str:
 def _build(name: str) -> tuple[Path, float, str]:
     src = SRC_DIR / f"{name}.cu"
     h = hashlib.sha256(src.read_bytes())
+    for header in sorted(SRC_DIR.glob("*.cuh")):
+        h.update(header.read_bytes())
     h.update(" ".join(NVCC_FLAGS).encode())
     out = BUILD_DIR / f"lib{name}_{h.hexdigest()[:16]}.so"
     if out.exists():

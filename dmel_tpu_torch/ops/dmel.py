@@ -18,15 +18,23 @@ spectrum with ``|lambd|``, mel projection, optional log.
 
 The framed and fused routes have no log epilogue: ``log_output`` takes
 the log outside the kernel, as the JAX package does.
+
+:func:`multi_sigma_mel_spectrogram` gives each group of mel bands its
+own window (a vector ``lambds``); its ``"auto"`` route is the
+multi-sigma specband kernel pair where the JAX package takes
+``specband_mel_power_multi``, and the exact route everywhere else.
 """
 
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from dmel_tpu_torch.device import resolve_device
 from dmel_tpu_torch.ops import framed, fused, specband, stft
-from dmel_tpu_torch.ops.mel import melscale_fbanks
+from dmel_tpu_torch.ops.mel import device_fbanks, melscale_fbanks_np
 from dmel_tpu_torch.ops.specband import LOG_EPS
 from dmel_tpu_torch.ops.spectrogram import spectrogram
 from dmel_tpu_torch.ops.window import gaussian_window
@@ -158,12 +166,117 @@ def mel_spectrogram(x, lambd, *, n_mels: int, sample_rate: int,
 
     s = spectrogram(x, lambd, optimized=optimized, hop_length=hop_length,
                     norm=normalize_window, window_length=window_length)
-    fb = melscale_fbanks(s.shape[-2], f_min, f_max, n_mels, sample_rate,
-                         dtype=s.dtype, device=dev)
+    fb = device_fbanks(s.shape[-2], f_min, f_max, n_mels, sample_rate,
+                       dtype=s.dtype, device=dev)
     mel = (s.transpose(-1, -2) @ fb).transpose(-1, -2)
     if log_output:
         mel = torch.log(mel + LOG_EPS)
     return mel
+
+
+def default_band_map(n_mels: int, n_sigma: int) -> np.ndarray:
+    """Contiguous assignment of mel bands to sigma groups: band ``j``
+    uses sigma ``j * n_sigma // n_mels``.  A static numpy array, as in
+    the JAX package."""
+    return (np.arange(n_mels) * n_sigma) // n_mels
+
+
+def multi_sigma_route(*, hop_length: int, n_mels: int, optimized: bool,
+                      window_length: int | None, lambd_hint,
+                      impl: str = "auto") -> tuple[str, int | None]:
+    """``(route, j_taps)`` of :func:`multi_sigma_mel_spectrogram`: the
+    JAX package's condition for its multi-sigma kernel.  ``"specband"``
+    (with ``j_taps`` the largest tap count the hints need: one tap width
+    serves every group) when ``impl="auto"``, optimized mode with a
+    static ``window_length >= PALLAS_AUTO_MIN_NFFT`` that
+    ``specband.supported`` takes, and a static ``lambd_hint`` (a scalar
+    or one a sigma) every value of which passes ``specband_ok``; else
+    ``"exact"``.  Every other ``impl`` takes the exact route, as the
+    JAX package's non-``"pallas"`` impls do."""
+    if impl not in ("exact", "specband", "framed", "fused", "auto"):
+        raise ValueError(f"unknown impl {impl!r}: exact, specband, framed, "
+                         "fused or auto")
+    if impl == "auto" and optimized and window_length is not None:
+        wl = int(window_length)
+        hints = (None if lambd_hint is None else
+                 [float(h) for h in np.atleast_1d(
+                     np.asarray(lambd_hint, dtype=np.float32))])
+        if (hints is not None and wl >= stft.PALLAS_AUTO_MIN_NFFT
+                and specband.supported(wl, hop_length, n_mels)
+                and all(stft.specband_ok(h, wl, wl, hop_length)
+                        for h in hints)):
+            return "specband", max(stft.specband_j_taps(h, wl)
+                                   for h in hints)
+    return "exact", None
+
+
+def multi_sigma_mel_spectrogram(
+        x, lambds, *, n_mels: int, sample_rate: int, hop_length: int = 1,
+        f_min: float = 0.0, f_max: float | None = None,
+        optimized: bool = False, window_length: int | None = None,
+        normalize_window: bool = False, subtract_mean: bool = True,
+        abs_lambd: bool = True, band_map=None, impl: str = "exact",
+        lambd_hint=None, device=None) -> torch.Tensor:
+    """Multi-sigma DMEL ``(..., n_mels, T // hop_length + 1)``, mel
+    power with no log: a vector of K window parameters ``lambds``, mel
+    band ``j`` computed from the spectrogram analysed with window
+    ``lambds[band_map[j]]`` (default :func:`default_band_map`).  With
+    K == 1 this is :func:`mel_spectrogram`.  Differentiable in every
+    ``lambds[k]``; runs on ``device`` (default ``cuda``).
+
+    The route is :func:`multi_sigma_route`'s: ``impl="auto"`` takes the
+    specband kernels at ``k_sig = K`` (one shared spectra pass) where
+    the JAX package's ``"pallas"`` takes its multi-sigma kernel; the
+    exact route runs K ``torch.stft`` power spectrograms and one
+    contraction with the band-masked filterbank ``(K, F, n_mels)``.
+    """
+    dev = resolve_device(device)
+    x = torch.as_tensor(x).to(dev)
+    lambds = torch.atleast_1d(torch.as_tensor(lambds, dtype=x.dtype)).to(dev)
+    k = lambds.shape[0]
+    if band_map is None:
+        band_map = default_band_map(n_mels, k)
+    if f_max is None:
+        f_max = sample_rate // 2
+    if subtract_mean:
+        x = x - x.mean(dim=-1, keepdim=True)
+    if abs_lambd:
+        lambds = lambds.abs()
+    route, j_taps = multi_sigma_route(
+        hop_length=hop_length, n_mels=n_mels, optimized=optimized,
+        window_length=window_length, lambd_hint=lambd_hint, impl=impl)
+    if route == "specband":
+        wl = int(window_length)
+        windows = torch.stack([gaussian_window(lam, wl, norm=normalize_window,
+                                               dtype=x.dtype)
+                               for lam in lambds])
+        return specband.specband_mel_power_multi(
+            x, windows, band_map, n_fft=wl, hop_length=hop_length,
+            n_mels=n_mels, sample_rate=sample_rate, f_min=f_min,
+            f_max=f_max, j_taps=j_taps)
+    bm = specband.check_band_map(band_map, n_mels, k)
+    ps = torch.stack([spectrogram(x, lam, optimized=optimized,
+                                  hop_length=hop_length,
+                                  norm=normalize_window,
+                                  window_length=window_length)
+                      for lam in lambds])                  # (K, ..., F, Tt)
+    fb_k = _masked_fbanks(ps.shape[-2], float(f_min), float(f_max), n_mels,
+                          sample_rate, bm, k, ps.dtype, dev)
+    return torch.einsum("k...ft,kfm->...mt", ps, fb_k)
+
+
+@functools.lru_cache(maxsize=16)
+def _masked_fbanks(n_freqs: int, f_min: float, f_max: float, n_mels: int,
+                   sample_rate: int, band_map: tuple, k_sig: int,
+                   dtype: torch.dtype, device: torch.device) -> torch.Tensor:
+    """``(K, F, n_mels)``: the mel filterbank with sigma ``s``'s copy
+    keeping only the bands ``band_map`` gives it, copied to ``device``
+    once (a copy from host memory on every call would make the host
+    wait for the stream)."""
+    fb = melscale_fbanks_np(n_freqs, f_min, f_max, n_mels, sample_rate)
+    sel = np.eye(k_sig, dtype=np.float32)[list(band_map)]   # (n_mels, K)
+    return torch.tensor(fb[None] * sel.T[:, None, :], dtype=dtype,
+                        device=device)
 
 
 def log_mel_spectrogram(x, lambd, **kwargs) -> torch.Tensor:

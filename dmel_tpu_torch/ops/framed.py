@@ -25,8 +25,8 @@ Three versions of each half of the function live here:
 - :func:`framed_mel_power`, the public function: :class:`WindowedMel`,
   an autograd function, over K3 and K4.
 
-The fused route (:mod:`dmel_tpu_torch.ops.fused`) runs K3's kernel
-through its second entry point.
+The fused route (:mod:`dmel_tpu_torch.ops.fused`) runs K3's and K4's
+kernels through their second entry points (K5 and K6).
 """
 
 from __future__ import annotations
@@ -237,11 +237,13 @@ def _fwd_lib() -> ctypes.CDLL:
 
 
 def _bwd_lib() -> ctypes.CDLL:
-    """K4's library with its C signatures declared (as :func:`_fwd_lib`)."""
+    """The backward library (K4, K6) with its C signatures declared (as
+    :func:`_fwd_lib`)."""
     lib = _cuda.load("framed_bwd").cdll
-    lib.framed_bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                               + [ctypes.c_void_p])
-    lib.framed_bwd.restype = ctypes.c_int
+    for entry in (lib.framed_bwd, lib.fused_bwd):
+        entry.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+                          + [ctypes.c_void_p])
+        entry.restype = ctypes.c_int
     lib.framed_bwd_rows_per_block.argtypes = []
     lib.framed_bwd_rows_per_block.restype = ctypes.c_int
     lib.framed_bwd_error_string.argtypes = [ctypes.c_int]
@@ -326,19 +328,15 @@ def framed_dwindow_plain(x2: torch.Tensor, reim: torch.Tensor,
     return (frames * dfw.reshape(frames.shape)).sum((0, 1))
 
 
-def framed_dwindow(x2: torch.Tensor, reim: torch.Tensor, dmel: torch.Tensor,
-                   g: Geom) -> torch.Tensor:
-    """K4's wrapper: the window's gradient ``(n_fft,)`` as
-    :func:`framed_dwindow_plain` defines it.
-
-    CPU tensors take :func:`framed_dwindow_plain`.  CUDA tensors launch
-    ``csrc/framed_bwd.cu`` on the current stream, without synchronising,
-    after checking device, dtype, shape and contiguity; a failed build or
-    launch raises.  Each launch adds one to ``framed_dwindow.launches``.
-    """
-    if x2.device.type == "cpu":
-        return framed_dwindow_plain(x2, reim, dmel, g)
-    _check_operands("framed_dwindow", x2.device, x2, reim, dmel)
+def launch_bwd(entry: str, x2: torch.Tensor, reim: torch.Tensor,
+               dmel: torch.Tensor, g: Geom) -> torch.Tensor:
+    """Launch the backward kernels' entry point ``entry`` (``"framed_bwd"``
+    for K4, ``"fused_bwd"`` for K6) on the current stream, without
+    synchronising: the window's gradient ``(n_fft,)`` as
+    :func:`framed_dwindow_plain` defines it.  Checks device, dtype, shape
+    and contiguity; a failed build or launch raises.  The caller counts
+    the launch."""
+    _check_operands(entry, x2.device, x2, reim, dmel)
     b, t = x2.shape
     nfr = num_frames(t, g.hop_length)
     n_bins, kp = g.n_fft // 2 + 1, kp_of(g.n_fft)
@@ -346,7 +344,7 @@ def framed_dwindow(x2: torch.Tensor, reim: torch.Tensor, dmel: torch.Tensor,
     if (reim.shape != (rows, 2 * kp)
             or dmel.shape != (b, g.n_mels, nfr)):
         raise ValueError(
-            f"framed_dwindow: inconsistent shapes x {tuple(x2.shape)}, "
+            f"{entry}: inconsistent shapes x {tuple(x2.shape)}, "
             f"reim {tuple(reim.shape)}, dmel {tuple(dmel.shape)}")
     with torch.cuda.device(x2.device):
         c = _kernel_consts(g, x2.device)
@@ -356,15 +354,28 @@ def framed_dwindow(x2: torch.Tensor, reim: torch.Tensor, dmel: torch.Tensor,
         partials = torch.empty((g.n_fft, n_blocks), dtype=torch.float32,
                                device=x2.device)
         dw = torch.empty(g.n_fft, dtype=torch.float32, device=x2.device)
-        rc = lib.framed_bwd(
+        rc = getattr(lib, entry)(
             x2.data_ptr(), reim.data_ptr(), c.table.data_ptr(),
             c.fb.data_ptr(), c.bin_lo.data_ptr(), c.bin_hi.data_ptr(),
             dmel.data_ptr(), dreim.data_ptr(), partials.data_ptr(),
             dw.data_ptr(), b, t, nfr, g.hop_length, g.n_fft, kp, n_bins,
             g.n_mels, torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
-        raise RuntimeError("framed_bwd launch failed: "
+        raise RuntimeError(f"{entry} launch failed: "
                            + lib.framed_bwd_error_string(rc).decode())
+    return dw
+
+
+def framed_dwindow(x2: torch.Tensor, reim: torch.Tensor, dmel: torch.Tensor,
+                   g: Geom) -> torch.Tensor:
+    """K4's wrapper: the window's gradient ``(n_fft,)`` as
+    :func:`framed_dwindow_plain` defines it.  CPU tensors take
+    :func:`framed_dwindow_plain`; CUDA tensors launch
+    ``csrc/framed_bwd.cu`` (entry ``framed_bwd``) and add one to
+    ``framed_dwindow.launches``."""
+    if x2.device.type == "cpu":
+        return framed_dwindow_plain(x2, reim, dmel, g)
+    dw = launch_bwd("framed_bwd", x2, reim, dmel, g)
     framed_dwindow.launches += 1
     return dw
 
@@ -388,9 +399,9 @@ class WindowedMel(torch.autograd.Function):
     keeps the Re|Im residual, with the window's gradient from
     ``dwindow(x2, reim, dmel, g)``: K3 and K4 on the framed route (the
     JAX package's ``_framed_mel`` custom vjp), K5 and the torch adjoint
-    :func:`framed_dwindow_plain` on the fused route (its
-    ``_dmel_from_window``).  ``dx`` is computed only when ``x2`` needs a
-    gradient."""
+    :func:`framed_dwindow_plain` (or K6 under ``fused.USE_FUSED_BWD``) on
+    the fused route (its ``_dmel_from_window``).  ``dx`` is computed only
+    when ``x2`` needs a gradient."""
 
     @staticmethod
     def forward(ctx, x2, window, g: Geom, fwd, dwindow):

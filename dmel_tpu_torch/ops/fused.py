@@ -9,10 +9,15 @@ no frames tensor is built, and takes an n_fft that is not a lane multiple
 (faithful mode's ``2 T``) and a window centred in n_fft
 (:func:`pad_window`).
 
-The backward is not a kernel, in the JAX package either
-(``USE_FUSED_BWD = False``): it is the adjoint chain ``_dmel_bwd`` over
-the saved Re|Im, written in torch (:func:`framed.framed_dwindow_plain`),
-where ``torch.matmul`` plays the part of XLA's GEMMs.
+The backward into the window is, by default, not a kernel, in the JAX
+package either (``USE_FUSED_BWD = False``): it is the adjoint chain
+``_dmel_bwd`` over the saved Re|Im, written in torch
+(:func:`framed.framed_dwindow_plain`), where ``torch.matmul`` plays the
+part of XLA's GEMMs.  With :data:`USE_FUSED_BWD` set it is K6
+(:func:`fused_dwindow`), the counterpart of the JAX package's fused dw
+kernel: the second entry point of the framed backward kernel
+(``csrc/framed_bwd.cu``, ``fused_bwd``), whose plain version is that same
+torch adjoint.
 """
 
 from __future__ import annotations
@@ -25,6 +30,10 @@ from dmel_tpu_torch.ops.window import gaussian_window
 
 #: largest n_fft the kernel serves (the JAX package's cap)
 MAX_N_FFT = 4096
+
+#: take the window's gradient from K6 (:func:`fused_dwindow`) instead of
+#: the torch adjoint; off by default, as in the JAX package
+USE_FUSED_BWD = False
 
 
 def pad_window(window: torch.Tensor, n_fft: int) -> torch.Tensor:
@@ -87,6 +96,23 @@ def fused_fwd(x2: torch.Tensor, window: torch.Tensor, g: framed.Geom):
     return res
 
 
+def fused_dwindow(x2: torch.Tensor, reim: torch.Tensor, dmel: torch.Tensor,
+                  g: framed.Geom) -> torch.Tensor:
+    """K6's wrapper: the window's gradient ``(n_fft,)`` from K5's residual,
+    as :func:`framed.framed_dwindow_plain` defines it.  CPU tensors take
+    that plain version; CUDA tensors launch ``csrc/framed_bwd.cu`` (entry
+    ``fused_bwd``, any even n_fft up to 4096) and add one to
+    ``fused_dwindow.launches``."""
+    if x2.device.type == "cpu":
+        return framed.framed_dwindow_plain(x2, reim, dmel, g)
+    dw = framed.launch_bwd("fused_bwd", x2, reim, dmel, g)
+    fused_dwindow.launches += 1
+    return dw
+
+
+fused_dwindow.launches = 0
+
+
 def dmel_power(x: torch.Tensor, lambd, *, win_length: int, n_fft: int,
                hop_length: int, n_mels: int, sample_rate: int,
                f_min: float = 0.0, f_max: float | None = None,
@@ -101,7 +127,8 @@ def dmel_power(x: torch.Tensor, lambd, *, win_length: int, n_fft: int,
     tensors launch K5 (adding one to ``dmel_power.launches``) on the
     current stream, without synchronising, and float32 only
     (``TypeError`` otherwise); CPU tensors run the same autograd function
-    over the plain forward.
+    over the plain forward.  The window's gradient comes from K6 when
+    :data:`USE_FUSED_BWD` is set, else from the torch adjoint.
     """
     if f_max is None:
         f_max = sample_rate // 2
@@ -113,8 +140,8 @@ def dmel_power(x: torch.Tensor, lambd, *, win_length: int, n_fft: int,
     g = framed.Geom(n_fft, hop_length, n_mels, sample_rate, float(f_min),
                     float(f_max))
     w = _window(lambd, win_length, n_fft, normalize_window, x.device)
-    out = framed.WindowedMel.apply(x2, w, g, fused_fwd,
-                                   framed.framed_dwindow_plain)
+    dwindow = fused_dwindow if USE_FUSED_BWD else framed.framed_dwindow_plain
+    out = framed.WindowedMel.apply(x2, w, g, fused_fwd, dwindow)
     return out.reshape(lead + out.shape[-2:])
 
 

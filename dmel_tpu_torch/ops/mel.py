@@ -84,3 +84,22 @@ def melscale_fbanks(n_freqs: int, f_min: float, f_max: float, n_mels: int,
     fb = melscale_fbanks_np(n_freqs, f_min, f_max, n_mels, sample_rate,
                             norm, mel_scale)
     return torch.tensor(fb, dtype=dtype, device=device)
+
+
+@functools.lru_cache(maxsize=32)
+def _fbanks_on(n_freqs: int, f_min: float, f_max: float, n_mels: int,
+               sample_rate: int, dtype: torch.dtype,
+               device: torch.device) -> torch.Tensor:
+    return torch.tensor(melscale_fbanks_np(n_freqs, f_min, f_max, n_mels,
+                                           sample_rate),
+                        dtype=dtype, device=device)
+
+
+def device_fbanks(n_freqs: int, f_min: float, f_max: float, n_mels: int,
+                  sample_rate: int, dtype=torch.float32,
+                  device=None) -> torch.Tensor:
+    """:func:`melscale_fbanks` (HTK, no norm) copied to ``device`` once
+    and shared by every caller, read-only: a copy from host memory on
+    every call would make the host wait for the stream."""
+    return _fbanks_on(int(n_freqs), float(f_min), float(f_max), int(n_mels),
+                      int(sample_rate), dtype, torch.device(device or "cpu"))

@@ -22,6 +22,14 @@ Two versions of the function live here:
   wrapped by :func:`specband_drho` with its plain version
   :func:`specband_drho_plain`).  CUDA tensors launch the kernels; CPU
   tensors take the plain version.
+
+The multi-sigma pair :func:`specband_mel_power_multi_plain` and
+:func:`specband_mel_power_multi` (the JAX package's
+``specband_mel_power_multi``) runs K windows through the same kernels at
+``k_sig = K``: one spectra pass, a ``(K, 2J + 1)`` tap matrix, and mel
+band ``m`` taken from the power of tap vector ``band_map[m]`` (the
+per-sigma masked filterbank of :func:`fb_pad`).  Its launches count on
+``specband_mel_power_multi.launches`` and ``specband_drho.multi_launches``.
 """
 
 from __future__ import annotations
@@ -47,6 +55,9 @@ SPECBAND_MAX_NFFT = 4096
 #: the kernel's spectra planes (cos, sin) are padded to a multiple of
 #: this many columns, half its GEMM tile width
 _KP_ALIGN = 64
+#: most sigma groups of one multi-sigma call (the JAX package's
+#: ``k_sig * 128 <= 1024``)
+MAX_SIGMA = 8
 
 
 def supported(n_fft: int, hop_length: int, n_mels: int,
@@ -119,15 +130,16 @@ def _taps_basis(n_fft: int, j_taps: int, dtype: torch.dtype,
 def window_taps_sym(window: torch.Tensor, n_fft: int,
                     j_taps: int = SPECGEMM_J_TAPS) -> torch.Tensor:
     """Real taps ``rho_d / N``, ``d = -J .. J``, of a window symmetric
-    about ``N/2``: ``rho_d = sum_m w[m] cos(2 pi (m - N/2) d / N)``.
+    about ``N/2``: ``rho_d = sum_m w[m] cos(2 pi (m - N/2) d / N)``;
+    ``(..., 2J + 1)`` for windows ``(..., n_fft)``.
 
     Differentiable in the window; this is the only place lambda enters
     the specband function.  A broadcast product and a sum, so the GPU
     route calls no matrix-product library.
     """
     cb = _taps_basis(n_fft, j_taps, window.dtype, window.device)
-    rho_pos = (window[:, None] * cb).sum(0)                 # (J + 1,)
-    return torch.cat([rho_pos[1:].flip(0), rho_pos]) / n_fft
+    rho_pos = (window[..., :, None] * cb).sum(-2)           # (..., J + 1)
+    return torch.cat([rho_pos[..., 1:].flip(-1), rho_pos], -1) / n_fft
 
 
 def band_matrix(rho: torch.Tensor, j_taps: int) -> torch.Tensor:
@@ -143,12 +155,21 @@ def band_matrix(rho: torch.Tensor, j_taps: int) -> torch.Tensor:
 
 
 def fb_pad(n_fft: int, nt: int, n_mels: int, sample_rate: int,
-           f_min: float, f_max: float) -> np.ndarray:
-    """Mel filterbank zero-padded to ``(nt * LANE, MEL_PAD)``."""
+           f_min: float, f_max: float, band_map=None,
+           k_sig: int = 1) -> np.ndarray:
+    """Mel filterbank zero-padded to ``(nt * LANE, MEL_PAD)``; for
+    ``k_sig > 1``, ``(nt * k_sig * LANE, MEL_PAD)`` with rows ordered
+    (tile, sigma, lane) and each sigma's copy masked to the mel bands
+    ``band_map`` gives it (the JAX package's ``_fb_pad``)."""
     fb = melscale_fbanks_np(n_fft // 2 + 1, f_min, f_max, n_mels,
                             sample_rate)
-    return np.pad(fb, ((0, nt * LANE - fb.shape[0]),
-                       (0, MEL_PAD - n_mels)))
+    fb = np.pad(fb, ((0, nt * LANE - fb.shape[0]), (0, MEL_PAD - n_mels)))
+    if k_sig == 1:
+        return fb
+    sel = np.zeros((MEL_PAD, k_sig), np.float32)
+    sel[np.arange(n_mels), np.asarray(band_map)] = 1.0
+    fb4 = fb.reshape(nt, 1, LANE, MEL_PAD) * sel.T[None, :, None, :]
+    return np.ascontiguousarray(fb4.reshape(nt * k_sig * LANE, MEL_PAD))
 
 
 def _check(x, window, n_fft, hop_length, n_mels, j_taps):
@@ -161,8 +182,36 @@ def _check(x, window, n_fft, hop_length, n_mels, j_taps):
         raise ValueError(f"window on {window.device}, signal on {x.device}")
 
 
+def _check_multi(x, windows, band_map, n_fft, hop_length, n_mels, j_taps):
+    """The multi-sigma call's guards (the JAX package's, plus the band
+    map's own); returns the band map as a tuple of ints."""
+    if windows.dim() != 2:
+        raise ValueError("windows must be (K, n_fft), one a sigma group")
+    _check(x, windows, n_fft, hop_length, n_mels, j_taps)
+    return check_band_map(band_map, n_mels, windows.shape[0])
+
+
+def check_band_map(band_map, n_mels: int, k_sig: int) -> tuple:
+    """``band_map`` as a tuple of ``n_mels`` ints in ``[0, k_sig)``, the
+    sigma groups at most 8; ``ValueError`` otherwise."""
+    if k_sig > MAX_SIGMA:
+        raise ValueError(f"too many sigma groups: {k_sig} > {MAX_SIGMA}")
+    bm = tuple(int(v) for v in np.asarray(band_map).reshape(-1))
+    if len(bm) != n_mels or not all(0 <= v < k_sig for v in bm):
+        raise ValueError(f"band_map must give each of the {n_mels} mel "
+                         f"bands a sigma group in [0, {k_sig})")
+    return bm
+
+
+@functools.lru_cache(maxsize=16)
+def _band_map_tensor(band_map: tuple, device: torch.device) -> torch.Tensor:
+    """The band map as an int32 tensor on ``device``, copied there once."""
+    return torch.tensor(band_map, dtype=torch.int32, device=device)
+
+
 class _Geom(NamedTuple):
-    """Static geometry of one specband call."""
+    """Static geometry of one specband call; ``band_map`` (a tuple, one
+    sigma group a mel band) only on the multi-sigma function."""
     n_fft: int
     hop_length: int
     n_mels: int
@@ -171,29 +220,39 @@ class _Geom(NamedTuple):
     f_max: float
     j_taps: int
     log_epilogue: bool
+    band_map: tuple | None = None
+
+
+def _taps2(rho: torch.Tensor) -> torch.Tensor:
+    """The taps as a ``(k_sig, 2J + 1)`` matrix."""
+    return rho[None] if rho.dim() == 1 else rho
 
 
 def _mel_from_taps_plain(x2: torch.Tensor, rho: torch.Tensor,
                          g: _Geom) -> torch.Tensor:
     """Plain specband mel ``(B, n_mels, n_frames)`` of ``x2`` (B, T)
-    from the taps ``rho``: direct extended-bin DFT, banded matmul with
-    the tap matrix, power, mel, optional log."""
+    from the taps ``rho`` (``(2J + 1,)``, or ``(K, 2J + 1)`` with
+    ``g.band_map``): direct extended-bin DFT, banded matmul with the
+    concatenated tap matrix, power, the (masked) filterbank, optional
+    log."""
     dev = x2.device
     _, _, nt, kpad = _geom(g.n_fft, g.j_taps)
+    rho2 = _taps2(rho)
+    k_sig = rho2.shape[0]
     frames = frame_signal(x2, g.n_fft, g.hop_length)    # (B, nfr, n_fft)
     bc, bs = _bases_np(g.n_fft, g.j_taps, kpad)
     xr = frames @ torch.tensor(bc, device=dev)
     xi = frames @ torch.tensor(bs, device=dev)
-    tmat = band_matrix(rho, g.j_taps)
+    tmat = torch.cat([band_matrix(r, g.j_taps) for r in rho2], dim=1)
     width = LANE + 2 * g.j_taps
     tiles = []
     for f in range(nt):
         sre = xr[..., f * LANE:f * LANE + width] @ tmat
         sim = xi[..., f * LANE:f * LANE + width] @ tmat
         tiles.append(sre * sre + sim * sim)
-    p = torch.cat(tiles, dim=-1)                        # (B, nfr, nt*LANE)
+    p = torch.cat(tiles, dim=-1)                   # (B, nfr, nt*K*LANE)
     fb = torch.tensor(fb_pad(g.n_fft, nt, g.n_mels, g.sample_rate, g.f_min,
-                             g.f_max), device=dev)
+                             g.f_max, g.band_map, k_sig), device=dev)
     mel = (p @ fb)[..., :g.n_mels].transpose(-1, -2)
     if g.log_epilogue:
         mel = torch.log(mel + LOG_EPS)
@@ -219,6 +278,32 @@ def specband_mel_power_plain(x: torch.Tensor, window: torch.Tensor, *,
     g = _Geom(n_fft, hop_length, n_mels, sample_rate, float(f_min),
               float(f_max), j_taps, log_epilogue)
     rho = window_taps_sym(window.to(torch.float32), n_fft, j_taps)
+    mel = _mel_from_taps_plain(x2, rho, g)
+    return mel.reshape(lead + mel.shape[-2:])
+
+
+def specband_mel_power_multi_plain(x: torch.Tensor, windows: torch.Tensor,
+                                   band_map, *, n_fft: int, hop_length: int,
+                                   n_mels: int, sample_rate: int,
+                                   f_min: float = 0.0,
+                                   f_max: float | None = None,
+                                   j_taps: int = SPECGEMM_J_TAPS
+                                   ) -> torch.Tensor:
+    """Plain PyTorch multi-sigma specband mel power ``(..., n_mels,
+    n_frames)``: ``windows`` ``(K, n_fft)``, one symmetric window a
+    sigma group, and ``band_map`` (``n_mels`` ints in ``[0, K)``) the
+    group of each mel band.  Float32 on the inputs' device;
+    differentiable in ``x`` and ``windows``; the guards of
+    :func:`specband_mel_power_multi`."""
+    if f_max is None:
+        f_max = sample_rate // 2
+    bm = _check_multi(x, windows, band_map, n_fft, hop_length, n_mels,
+                      j_taps)
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).to(torch.float32)
+    g = _Geom(n_fft, hop_length, n_mels, sample_rate, float(f_min),
+              float(f_max), j_taps, False, bm)
+    rho = window_taps_sym(windows.to(torch.float32), n_fft, j_taps)
     mel = _mel_from_taps_plain(x2, rho, g)
     return mel.reshape(lead + mel.shape[-2:])
 
@@ -256,16 +341,25 @@ def _fwd_plain(x2: torch.Tensor, rho: torch.Tensor, g: _Geom):
     """K1's plain version in the kernel's buffer layout: ``(out,
     xext)`` with ``out`` (B, n_mels, n_frames) and ``xext`` the
     ``(B n_frames, 2 kp)`` spectra, cos plane in columns ``[0, kp)``,
-    sin plane in ``[kp, 2 kp)``, row ``b n_frames + t``."""
+    sin plane in ``[kp, 2 kp)``, row ``b n_frames + t``.  With
+    ``(K, 2J + 1)`` taps, mel band ``m`` is taken from the power of tap
+    vector ``g.band_map[m]``."""
     b, t = x2.shape
     nfr = num_frames(t, g.hop_length)
     n_bins = g.n_fft // 2 + 1
     basis, fb, kp = _consts(g, x2.device)
     frames = frame_signal(x2, g.n_fft, g.hop_length)
     xext = frames.reshape(b * nfr, g.n_fft) @ basis
-    s_re = _band_sum(xext[:, :kp], rho, n_bins)
-    s_im = _band_sum(xext[:, kp:], rho, n_bins)
-    mel = (s_re * s_re + s_im * s_im) @ fb
+    mels = []
+    for r in _taps2(rho):
+        s_re = _band_sum(xext[:, :kp], r, n_bins)
+        s_im = _band_sum(xext[:, kp:], r, n_bins)
+        mels.append((s_re * s_re + s_im * s_im) @ fb)
+    mel = mels[0]
+    if g.band_map is not None:
+        bands = torch.arange(g.n_mels, device=x2.device)
+        sigma = _band_map_tensor(g.band_map, x2.device).long()
+        mel = torch.stack(mels)[sigma, :, bands].T
     if g.log_epilogue:
         mel = torch.log(mel + LOG_EPS)
     return mel.reshape(b, nfr, g.n_mels).transpose(1, 2).contiguous(), xext
@@ -276,7 +370,7 @@ def _fwd_lib() -> ctypes.CDLL:
     stream as ``c_void_p`` (ctypes would pass a bare Python int as a
     32-bit int), sizes as ``c_int``."""
     lib = _cuda.load("specband_fwd").cdll
-    lib.specband_fwd.argtypes = ([ctypes.c_void_p] * 6 + [ctypes.c_int] * 11
+    lib.specband_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
                                  + [ctypes.c_void_p])
     lib.specband_fwd.restype = ctypes.c_int
     lib.specband_error_string.argtypes = [ctypes.c_int]
@@ -287,7 +381,7 @@ def _fwd_lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     """K2's library with its C signatures declared (as :func:`_fwd_lib`)."""
     lib = _cuda.load("specband_bwd").cdll
-    lib.specband_bwd.argtypes = ([ctypes.c_void_p] * 7 + [ctypes.c_int] * 7
+    lib.specband_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
                                  + [ctypes.c_void_p])
     lib.specband_bwd.restype = ctypes.c_int
     lib.specband_bwd_rows_per_block.argtypes = []
@@ -300,16 +394,23 @@ def _bwd_lib() -> ctypes.CDLL:
 def _fwd(x2: torch.Tensor, rho: torch.Tensor, g: _Geom):
     """K1's wrapper: ``(out, xext)`` as :func:`_fwd_plain` gives them.
     CPU tensors take :func:`_fwd_plain`; CUDA tensors launch
-    ``csrc/specband_fwd.cu``, on the current stream and without
-    synchronising, and add one to ``specband_mel_power.launches``."""
+    ``csrc/specband_fwd.cu`` at ``k_sig`` = the taps' rows, on the
+    current stream and without synchronising, and add one to
+    ``specband_mel_power.launches`` (or, with ``g.band_map``, to
+    ``specband_mel_power_multi.launches``)."""
     if x2.device.type == "cpu":
         return _fwd_plain(x2, rho, g)
     b, t = x2.shape
     nfr = num_frames(t, g.hop_length)
     n_bins, k_ext, _, _ = _geom(g.n_fft, g.j_taps)
+    k_sig = _taps2(rho).shape[0]
     with torch.cuda.device(x2.device):
         basis, fb, kp = _consts(g, x2.device)
+        band_map = (None if g.band_map is None
+                    else _band_map_tensor(g.band_map, x2.device))
         rho = rho.contiguous()
+        sig_range = torch.empty((k_sig, 2), dtype=torch.int32,
+                                device=x2.device)
         xext = torch.empty((b * nfr, 2 * kp), dtype=torch.float32,
                            device=x2.device)
         out = torch.empty((b, g.n_mels, nfr), dtype=torch.float32,
@@ -317,20 +418,25 @@ def _fwd(x2: torch.Tensor, rho: torch.Tensor, g: _Geom):
         lib = _fwd_lib()
         rc = lib.specband_fwd(
             x2.data_ptr(), basis.data_ptr(), rho.data_ptr(), fb.data_ptr(),
-            xext.data_ptr(), out.data_ptr(), b, t, nfr, g.hop_length,
-            g.n_fft, kp, k_ext, n_bins, 2 * g.j_taps + 1, g.n_mels,
-            int(g.log_epilogue),
+            None if band_map is None else band_map.data_ptr(),
+            sig_range.data_ptr(), xext.data_ptr(), out.data_ptr(), b, t,
+            nfr, g.hop_length, g.n_fft, kp, k_ext, n_bins,
+            2 * g.j_taps + 1, g.n_mels, k_sig, int(g.log_epilogue),
             torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("specband_fwd launch failed: "
                            + lib.specband_error_string(rc).decode())
-    specband_mel_power.launches += 1
+    if g.band_map is None:
+        specband_mel_power.launches += 1
+    else:
+        specband_mel_power_multi.launches += 1
     return out, xext
 
 
 def specband_drho_plain(xext: torch.Tensor, rho: torch.Tensor,
                         fb: torch.Tensor, dmel: torch.Tensor,
-                        logmel: torch.Tensor | None = None) -> torch.Tensor:
+                        logmel: torch.Tensor | None = None,
+                        band_map=None) -> torch.Tensor:
     """K2's plain version: the gradient in the ``2J + 1`` taps ``rho``,
     written as the kernel's arithmetic in float32 on any device.
 
@@ -341,23 +447,36 @@ def specband_drho_plain(xext: torch.Tensor, rho: torch.Tensor,
     ``g = dmel exp(-logmel)``, ``dP = g fb^T``, ``S`` recomputed from
     the taps, ``drho[i] = sum 2 dP (S_re X'_re + S_im X'_im)`` at the
     shift ``2J - i``.
+
+    With ``(K, 2J + 1)`` taps and ``band_map`` (``n_mels`` ints in
+    ``[0, K)``) it gives ``(K, 2J + 1)``: sigma ``s`` takes ``dP_s`` over
+    its own mel bands only.
     """
     rows, ncol = xext.shape
     kp = ncol // 2
     n_bins, n_mels = fb.shape
-    two_j = rho.shape[0] - 1
+    two_j = rho.shape[-1] - 1
     g = dmel if logmel is None else dmel * torch.exp(-logmel)
-    dp = g.transpose(1, 2).reshape(rows, n_mels) @ fb.T
+    g = g.transpose(1, 2).reshape(rows, n_mels)
     xr, xi = xext[:, :kp], xext[:, kp:]
-    wr = 2.0 * dp * _band_sum(xr, rho, n_bins)
-    wi = 2.0 * dp * _band_sum(xi, rho, n_bins)
-    return torch.stack([
-        (wr * xr[:, two_j - i:two_j - i + n_bins]).sum()
-        + (wi * xi[:, two_j - i:two_j - i + n_bins]).sum()
-        for i in range(two_j + 1)])
+
+    def one(r, dp):
+        wr = 2.0 * dp * _band_sum(xr, r, n_bins)
+        wi = 2.0 * dp * _band_sum(xi, r, n_bins)
+        return torch.stack([
+            (wr * xr[:, two_j - i:two_j - i + n_bins]).sum()
+            + (wi * xi[:, two_j - i:two_j - i + n_bins]).sum()
+            for i in range(two_j + 1)])
+
+    if rho.dim() == 1:
+        return one(rho, g @ fb.T)
+    sigma = _band_map_tensor(check_band_map(band_map, n_mels, rho.shape[0]),
+                             xext.device)
+    return torch.stack([one(r, (g * (sigma == s)) @ fb.T)
+                        for s, r in enumerate(rho)])
 
 
-def _check_drho_operands(xext, rho, fb, dmel, logmel):
+def _check_drho_operands(xext, rho, fb, dmel, logmel, band_map):
     ops = [xext, rho, fb, dmel] + ([] if logmel is None else [logmel])
     for t in ops:
         if t.device != xext.device:
@@ -366,13 +485,15 @@ def _check_drho_operands(xext, rho, fb, dmel, logmel):
             raise TypeError("specband_drho takes float32 operands")
         if not t.is_contiguous():
             raise ValueError("specband_drho takes contiguous operands")
-    if xext.dim() != 2 or rho.dim() != 1 or fb.dim() != 2 or dmel.dim() != 3:
-        raise ValueError("specband_drho: xext (rows, 2 kp), rho (taps,), "
-                         "fb (n_bins, n_mels), dmel (B, n_mels, n_frames)")
+    if (xext.dim() != 2 or rho.dim() != (1 if band_map is None else 2)
+            or fb.dim() != 2 or dmel.dim() != 3):
+        raise ValueError("specband_drho: xext (rows, 2 kp), rho (taps,) or "
+                         "(K, taps) with a band_map, fb (n_bins, n_mels), "
+                         "dmel (B, n_mels, n_frames)")
     rows, ncol = xext.shape
     n_bins, n_mels = fb.shape
     b, m, nfr = dmel.shape
-    if (ncol % 2 or n_bins + rho.shape[0] - 1 > ncol // 2 or m != n_mels
+    if (ncol % 2 or n_bins + rho.shape[-1] - 1 > ncol // 2 or m != n_mels
             or b * nfr != rows
             or (logmel is not None and logmel.shape != dmel.shape)):
         raise ValueError(
@@ -382,50 +503,63 @@ def _check_drho_operands(xext, rho, fb, dmel, logmel):
 
 
 def specband_drho(xext: torch.Tensor, rho: torch.Tensor, fb: torch.Tensor,
-                  dmel: torch.Tensor,
-                  logmel: torch.Tensor | None = None) -> torch.Tensor:
-    """K2's wrapper: the taps' gradient ``(2J + 1,)`` as
+                  dmel: torch.Tensor, logmel: torch.Tensor | None = None,
+                  band_map=None) -> torch.Tensor:
+    """K2's wrapper: the taps' gradient, ``(2J + 1,)`` or, with
+    ``(K, 2J + 1)`` taps and a ``band_map``, ``(K, 2J + 1)``, as
     :func:`specband_drho_plain` defines it.
 
     CPU tensors take :func:`specband_drho_plain`.  CUDA tensors launch
-    ``csrc/specband_bwd.cu`` on the current stream, without
-    synchronising, after checking device, dtype, shape and contiguity;
-    a failed build or launch raises.  Each launch adds one to
-    ``specband_drho.launches``.
+    ``csrc/specband_bwd.cu`` at ``k_sig = K`` on the current stream,
+    without synchronising, after checking device, dtype, shape and
+    contiguity; a failed build or launch raises.  Each launch adds one
+    to ``specband_drho.launches``, or with a ``band_map`` to
+    ``specband_drho.multi_launches``.
     """
     if xext.device.type == "cpu":
-        return specband_drho_plain(xext, rho, fb, dmel, logmel)
+        return specband_drho_plain(xext, rho, fb, dmel, logmel, band_map)
     if xext.device.type != "cuda":
         raise ValueError(f"specband runs on cpu or cuda, not {xext.device}")
-    _check_drho_operands(xext, rho, fb, dmel, logmel)
+    _check_drho_operands(xext, rho, fb, dmel, logmel, band_map)
     rows, ncol = xext.shape
     n_bins, n_mels = fb.shape
-    n_taps = rho.shape[0]
+    k_sig, n_taps = _taps2(rho).shape
     with torch.cuda.device(xext.device):
+        bm = (None if band_map is None else _band_map_tensor(
+            check_band_map(band_map, n_mels, k_sig), xext.device))
         lib = _bwd_lib()
         fr = lib.specband_bwd_rows_per_block()
-        partials = torch.empty((n_taps, -(-rows // fr)), dtype=torch.float32,
-                               device=xext.device)
-        drho = torch.empty(n_taps, dtype=torch.float32, device=xext.device)
+        sig_range = torch.empty((k_sig, 2), dtype=torch.int32,
+                                device=xext.device)
+        partials = torch.empty((k_sig * n_taps, -(-rows // fr)),
+                               dtype=torch.float32, device=xext.device)
+        drho = torch.empty(rho.shape, dtype=torch.float32,
+                           device=xext.device)
         rc = lib.specband_bwd(
             xext.data_ptr(), rho.data_ptr(), fb.data_ptr(), dmel.data_ptr(),
             None if logmel is None else logmel.data_ptr(),
+            None if bm is None else bm.data_ptr(), sig_range.data_ptr(),
             partials.data_ptr(), drho.data_ptr(), rows, dmel.shape[2],
-            ncol // 2, n_bins + n_taps - 1, n_bins, n_taps, n_mels,
+            ncol // 2, n_bins + n_taps - 1, n_bins, n_taps, n_mels, k_sig,
             torch.cuda.current_stream(xext.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("specband_bwd launch failed: "
                            + lib.specband_bwd_error_string(rc).decode())
-    specband_drho.launches += 1
+    if band_map is None:
+        specband_drho.launches += 1
+    else:
+        specband_drho.multi_launches += 1
     return drho
 
 
 specband_drho.launches = 0
+specband_drho.multi_launches = 0
 
 
 class _SpecbandMel(torch.autograd.Function):
     """``(x2, rho) -> mel`` through K1, with the taps' gradient from K2:
     the counterpart of the JAX package's ``_specband_mel`` custom vjp.
+    ``rho`` is ``(2J + 1,)``, or ``(K, 2J + 1)`` with ``g.band_map``.
 
     The JAX function differentiates ``band_matrix(rho)``, a TPU lane
     layout of the same ``2J + 1`` numbers, so its gradient summed over
@@ -450,7 +584,8 @@ class _SpecbandMel(torch.autograd.Function):
         dx = drho = None
         if ctx.needs_input_grad[1]:
             _, fb, _ = _consts(g, xext.device)
-            drho = specband_drho(xext, rho.contiguous(), fb, dout, logmel)
+            drho = specband_drho(xext, rho.contiguous(), fb, dout, logmel,
+                                 g.band_map)
         if ctx.needs_input_grad[0]:
             dmel = dout if logmel is None else dout * torch.exp(-logmel)
             with torch.enable_grad():
@@ -501,3 +636,47 @@ def specband_mel_power(x: torch.Tensor, window: torch.Tensor, *,
 
 
 specband_mel_power.launches = 0
+
+
+def specband_mel_power_multi(x: torch.Tensor, windows: torch.Tensor,
+                             band_map, *, n_fft: int, hop_length: int,
+                             n_mels: int, sample_rate: int,
+                             f_min: float = 0.0, f_max: float | None = None,
+                             j_taps: int = SPECGEMM_J_TAPS) -> torch.Tensor:
+    """Multi-sigma specband mel power ``(..., n_mels, n_frames)``, no log
+    (the JAX package's ``specband_mel_power_multi``): ``windows``
+    ``(K, n_fft)``, one symmetric window a sigma group, ``band_map``
+    (``n_mels`` ints in ``[0, K)``) the group of each mel band.  All K
+    windows share K1's one spectra pass.  At most 8 groups, else
+    ``ValueError``.
+
+    CPU tensors take :func:`specband_mel_power_multi_plain`.  CUDA
+    tensors launch K1 at ``k_sig = K`` (adding one to
+    ``specband_mel_power_multi.launches``), float32 only, on the current
+    stream and without synchronising; the gradient in ``windows`` comes
+    from K2 at ``k_sig = K`` through the ``(K, 2J + 1)`` taps.
+    """
+    if f_max is None:
+        f_max = sample_rate // 2
+    bm = _check_multi(x, windows, band_map, n_fft, hop_length, n_mels,
+                      j_taps)
+    if x.device.type == "cpu":
+        return specband_mel_power_multi_plain(
+            x, windows, bm, n_fft=n_fft, hop_length=hop_length,
+            n_mels=n_mels, sample_rate=sample_rate, f_min=f_min,
+            f_max=f_max, j_taps=j_taps)
+    if x.device.type != "cuda":
+        raise ValueError(f"specband runs on cpu or cuda, not {x.device}")
+    if x.dtype != torch.float32 or windows.dtype != torch.float32:
+        raise TypeError("specband takes float32 signals and windows")
+    lead = x.shape[:-1]
+    x2 = x.reshape(-1, x.shape[-1]).contiguous()
+    g = _Geom(n_fft, hop_length, n_mels, sample_rate, float(f_min),
+              float(f_max), j_taps, False, bm)
+    with torch.cuda.device(x.device):
+        rho = window_taps_sym(windows, n_fft, j_taps)
+        out = _SpecbandMel.apply(x2, rho, g)
+    return out.reshape(lead + out.shape[-2:])
+
+
+specband_mel_power_multi.launches = 0

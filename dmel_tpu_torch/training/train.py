@@ -127,7 +127,8 @@ def eval_step(model, xs, ys, mask, *, one_hot: bool, n_classes: int):
 
 
 def current_lambd(model: torch.nn.Module) -> float:
-    """Scalar lambda estimate of the model's spectrogram layer."""
+    """Scalar lambda estimate of the model's spectrogram layer: the mean
+    of a multi-sigma layer's vector."""
     return float(model.spectrogram_layer.lambd.detach().mean())
 
 
@@ -257,6 +258,10 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
             "energy": train_energy,
             "best_lambd_est": best_lambd_est,
         }
+        lam_leaf = model.spectrogram_layer.lambd.detach()
+        if lam_leaf.numel() > 1:
+            # multi-sigma: each group's lambda; lambd_est stays the mean
+            record["lambd_est_bands"] = lam_leaf.cpu().tolist()
         history["records"].append(record)
         if report_fn is not None:
             report_fn(record)

@@ -1,5 +1,6 @@
-"""The port's fused module (K5 forward, the torch adjoint backward)
-against dmel_tpu's fused kernel, on the CPU; and the slice as a whole:
+"""The port's fused module (K5 forward, the torch adjoint backward, and
+K6 under ``USE_FUSED_BWD``) against dmel_tpu's fused kernels, on the
+CPU; and the slice as a whole:
 MelPANNsNet with JAX weights moved from the specband route to the framed
 and the fused route.
 
@@ -11,6 +12,8 @@ dlambda relative <= 1e-4 (all float32; they differ in the order of the
 sums).  Model features and scores: max-abs <= 1e-4 (bench.py's feature
 gate).
 """
+
+import re
 
 import jax
 import jax.numpy as jnp
@@ -27,7 +30,7 @@ from dmel_tpu_torch import models as tmodels
 from dmel_tpu_torch import ops as tops
 from dmel_tpu_torch.ops import framed as tfr
 from dmel_tpu_torch.ops import fused as tfu
-from tests.test_torch_framed import emulate_fwd
+from tests.test_torch_framed import _dft_operand, emulate_fwd, emulate_k4
 
 GATE = 1e-4
 EXACT_GATE = 1e-5
@@ -198,6 +201,82 @@ def test_explicit_impl_above_cap_takes_exact_route(rng, t, optimized,
     exact = tops.mel_spectrogram(x, lam, impl="exact", device="cpu", **kw)
     assert torch.equal(got, exact)
     assert float(np.max(np.abs(_log(got) - _log(want)))) <= EXACT_GATE
+
+
+# --- K6, the fused route's dw kernel (USE_FUSED_BWD) -----------------------
+
+def _dlambd_fused(x, lam, kw, cot, use_fused_bwd, monkeypatch):
+    monkeypatch.setattr(tfu, "USE_FUSED_BWD", use_fused_bwd)
+    calls = []
+    real = tfu.fused_dwindow
+    monkeypatch.setattr(tfu, "fused_dwindow",
+                        lambda *a: calls.append(1) or real(*a))
+    got = _dlambd_port(x, lam, kw, cot)
+    assert calls == ([1] if use_fused_bwd else [])
+    return got
+
+
+@pytest.mark.parametrize("t,win,hop,n_mels,optimized,lam", [
+    (1000, 128, 20, 16, True, 20.0), (1500, 1500, 80, 64, False, 300.0)],
+    ids=["bucket128", "faithful3000"])
+def test_fused_bwd_flag_matches_jax(rng, monkeypatch, t, win, hop, n_mels,
+                                    optimized, lam):
+    """dlambda with ``USE_FUSED_BWD`` on (K6's wrapper, whose plain
+    version on the CPU is the torch adjoint) equals dlambda with it off,
+    and matches the JAX package's fused route with its
+    ``fused_dmel.USE_FUSED_BWD`` on (the dw kernel in interpret mode)
+    within relative 1e-4.  The first geometry is that of
+    ``test_pallas.py::TestFusedBwdKernel`` (whose ``impl="pallas"`` takes
+    the XLA path below the 1024 floor without a hint, so this test names
+    ``"pallas_fused"``); the second is faithful mode's n_fft = 3000."""
+    x = rng.standard_normal((2, t)).astype(np.float32)
+    kw = dict(n_mels=n_mels, sample_rate=SR, hop_length=hop,
+              optimized=optimized, window_length=win if optimized else None)
+    cot = rng.uniform(0.5, 1.5, (2, n_mels, t // hop + 1)).astype(np.float32)
+    off = _dlambd_fused(x, lam, kw, cot, False, monkeypatch)
+    on = _dlambd_fused(x, lam, kw, cot, True, monkeypatch)
+    assert on == off
+    monkeypatch.setattr(jfu, "USE_FUSED_BWD", True)
+    want = _dlambd_jax(x, lam, kw, cot, "pallas_fused")
+    assert abs(on - want) <= EXACT_GRAD_GATE * abs(want), (on, want)
+
+
+@pytest.mark.parametrize("n_fft", [1400, 3000])
+def test_k6_index_walk_matches_plain_bases(n_fft):
+    """K6's adjoint B loader at an n_fft that is not a multiple of the
+    128-sample column block (nor, at 1400, of 16): the running phase
+    indices, restarted where the -sin plane begins and masked past
+    n_bins, rebuild the plain bases."""
+    k = re.findall(r"constexpr int BK = (\d+);",
+                   (tfr._cuda.SRC_DIR / "framed_bwd.cu").read_text())
+    n_bins, kp = n_fft // 2 + 1, tfr.kp_of(n_fft)
+    got = _dft_operand(n_fft, kp, n_bins, tfr._table_np(n_fft), int(k[0]),
+                       adjoint=True)
+    c, s = tfr._bases_np(n_fft)
+    np.testing.assert_array_equal(got[:n_bins], c.T)
+    np.testing.assert_array_equal(got[kp:kp + n_bins], s.T)
+    assert not got[n_bins:kp].any() and not got[kp + n_bins:].any()
+
+
+@pytest.mark.parametrize("t,win,n_fft,hop,n_mels", [
+    (1500, 1500, 3000, 80, 64), (700, 700, 1400, 40, 32),
+    (1000, 128, 128, 20, 16)], ids=lambda v: str(v))
+def test_k6_launcher_layout_matches_plain(rng, t, win, n_fft, hop, n_mels):
+    """K6 runs K4's kernels through their second entry point: the same
+    emulated launcher on K5's residual at the fused geometries (a window
+    centred in n_fft, ragged column blocks) against the torch adjoint."""
+    x = torch.from_numpy(rng.standard_normal((3, t)).astype(np.float32))
+    w = tfu.pad_window(tops.gaussian_window(win / 8.0, win), n_fft)
+    g = tfr.Geom(n_fft, hop, n_mels, SR, 0.0, float(SR // 2))
+    out, reim = tfu.fused_fwd(x, w, g)
+    dmel = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
+        np.float32))
+    got = emulate_k4(x, reim, dmel, g)
+    want = tfr.framed_dwindow_plain(x, reim, dmel, g)
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+    before = tfu.fused_dwindow.launches
+    assert torch.equal(tfu.fused_dwindow(x, reim, dmel, g), want)
+    assert tfu.fused_dwindow.launches == before
 
 
 # --- the slice as a whole ------------------------------------------------

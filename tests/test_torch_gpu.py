@@ -1,9 +1,9 @@
 """Card-only tests of dmel_tpu_torch: the specband CUDA kernels (K1
-forward, K2 the taps' gradient), the framed kernels (K3 forward, K4 the
-window's gradient) and the fused forward (K5) against their plain
-PyTorch versions at edge shapes, a train step through them, the GPU
-rules of the entry points, and ``fit``'s precision flags and
-reproducibility.
+forward, K2 the taps' gradient, single- and multi-sigma), the framed
+kernels (K3 forward, K4 the window's gradient) and the fused forward
+(K5) and dw kernel (K6) against their plain PyTorch versions at edge
+shapes, train steps through them, the GPU rules of the entry points,
+and ``fit``'s precision flags and reproducibility.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -519,6 +519,282 @@ def test_framed_and_fused_bad_inputs_raise(cuda):
         framed.framed_dwindow(x, reim, dmel.transpose(1, 2), g)
     with pytest.raises(ValueError, match="inconsistent"):
         framed.framed_dwindow(x, reim, dmel[:1], g)
+
+
+# --- multi-sigma K1/K2 (k_sig > 1) -------------------------------------
+
+#: (k_sig, band map kind, batch, T, n_fft, lambdas' range, J)
+MULTI_CASES = [
+    (2, "contiguous", 3, 4000, 1024, (100.0, 128.0), 24),
+    (4, "contiguous", 2, 4000, 1024, (100.0, 128.0), 24),
+    (4, "scattered", 2, 4000, 1024, (100.0, 128.0), 24),
+    (8, "contiguous", 2, 3000, 2048, (180.0, 250.0), 12),
+    (8, "scattered", 1, 9000, 4096, (345.0, 500.0), 24),
+    (3, "scattered", 3, 1001, 256, (28.0, 40.0), 24),
+]
+
+
+def _multi_operands(cuda, case, seed=0):
+    k_sig, kind, b, t, n_fft, (lo, hi), j = case
+    n_mels = 64 if n_fft >= 1024 else 32
+    hop = 80 if n_fft >= 1024 else 16
+    if kind == "contiguous":
+        bm = tuple(int(v) for v in ops.default_band_map(n_mels, k_sig))
+    else:   # interleaved groups; the last group gets no band
+        bm = tuple((i * 5) % max(k_sig - 1, 1) for i in range(n_mels))
+    x = _signal((b, t), seed).to(cuda)
+    lams = torch.linspace(lo, hi, k_sig, device=cuda)
+    ws = torch.stack([ops.gaussian_window(l, n_fft) for l in lams])
+    kw = dict(n_fft=n_fft, hop_length=hop, n_mels=n_mels, sample_rate=8000,
+              j_taps=j)
+    return x, ws, bm, kw
+
+
+@pytest.mark.parametrize("case", MULTI_CASES,
+                         ids=lambda c: f"k{c[0]}-{c[1]}-nfft{c[4]}")
+def test_k1_multi_matches_plain(cuda, case):
+    x, ws, bm, kw = _multi_operands(cuda, case)
+    before = (specband.specband_mel_power.launches,
+              specband.specband_mel_power_multi.launches)
+    got = specband.specband_mel_power_multi(x, ws, bm, **kw)
+    want = specband.specband_mel_power_multi_plain(x, ws, bm, **kw)
+    torch.cuda.synchronize()
+    assert (specband.specband_mel_power.launches,
+            specband.specband_mel_power_multi.launches) == (before[0],
+                                                            before[1] + 1)
+    assert got.shape == want.shape
+    assert torch.isfinite(got).all()
+    err = float((torch.log(got + 1e-10) - torch.log(want + 1e-10)).abs()
+                .max())
+    assert err <= GATE, err
+
+
+def _multi_residual(cuda, case, seed=0):
+    x, ws, bm, kw = _multi_operands(cuda, case, seed)
+    g = specband._Geom(kw["n_fft"], kw["hop_length"], kw["n_mels"], 8000,
+                       0.0, 4000.0, kw["j_taps"], False, bm)
+    rho = specband.window_taps_sym(ws, kw["n_fft"], kw["j_taps"])
+    out, xext = specband._fwd(x, rho, g)
+    _, fb, _ = specband._consts(g, cuda)
+    dmel = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        tuple(out.shape)).astype(np.float32)).to(cuda)
+    return xext, rho, fb, dmel, bm
+
+
+@pytest.mark.parametrize("case", MULTI_CASES,
+                         ids=lambda c: f"k{c[0]}-{c[1]}-nfft{c[4]}")
+def test_k2_multi_matches_plain(cuda, case):
+    xext, rho, fb, dmel, bm = _multi_residual(cuda, case)
+    before = (specband.specband_drho.launches,
+              specband.specband_drho.multi_launches)
+    got = specband.specband_drho(xext, rho, fb, dmel, None, bm)
+    again = specband.specband_drho(xext, rho, fb, dmel, None, bm)
+    want = specband.specband_drho_plain(xext, rho, fb, dmel, None, bm)
+    torch.cuda.synchronize()
+    assert (specband.specband_drho.launches,
+            specband.specband_drho.multi_launches) == (before[0],
+                                                       before[1] + 2)
+    assert got.shape == want.shape == rho.shape
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= DRHO_GATE, err
+
+
+@pytest.mark.parametrize("log", [False, True])
+def test_one_sigma_multi_launch_is_the_single_launch(cuda, log):
+    """k_sig = 1 through the multi-sigma entry (a band map of zeros)
+    gives the single-sigma kernels' results bit for bit: the same
+    kernels, the same bin range, the same sums."""
+    case = CASES[2]
+    b, t, n_fft, hop, n_mels, lam, j = case
+    x = _signal((b, t)).to(cuda)
+    w = ops.gaussian_window(torch.tensor(lam, device=cuda), n_fft)
+    rho = specband.window_taps_sym(w, n_fft, j)
+    g = specband._Geom(n_fft, hop, n_mels, 8000, 0.0, 4000.0, j, log)
+    gm = g._replace(band_map=(0,) * n_mels)
+    out, xext = specband._fwd(x, rho, g)
+    out_m, xext_m = specband._fwd(x, rho[None], gm)
+    assert torch.equal(out, out_m) and torch.equal(xext, xext_m)
+    _, fb, _ = specband._consts(g, cuda)
+    dmel = torch.ones_like(out)
+    logmel = out if log else None
+    d = specband.specband_drho(xext, rho, fb, dmel, logmel)
+    d_m = specband.specband_drho(xext, rho[None], fb, dmel, logmel,
+                                 gm.band_map)
+    assert torch.equal(d, d_m[0])
+
+
+def test_multi_dlambda_through_kernels(cuda):
+    """dlambda (4,) through the multi-sigma route (K1, K2 at k_sig = 4)
+    against the exact multi-sigma route, each group within bench.py's
+    gate, and bit-identical on repeat."""
+    x = _signal((2, 6000)).to(cuda)
+    kw = dict(n_mels=64, sample_rate=8000, hop_length=80, optimized=True,
+              window_length=1024, lambd_hint=ops.pallas_compile_hint(
+                  110.0, 1024, 80))
+
+    def dlam(impl):
+        lam = torch.tensor([100.0, 110.0, 120.0, 128.0], device=cuda,
+                           requires_grad=True)
+        mel = ops.multi_sigma_mel_spectrogram(x, lam, impl=impl, **kw)
+        torch.log(mel + 1e-10).sum().backward()
+        return lam.grad
+
+    before = (specband.specband_mel_power_multi.launches,
+              specband.specband_drho.multi_launches)
+    got = dlam("auto")
+    assert (specband.specband_mel_power_multi.launches,
+            specband.specband_drho.multi_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    want = dlam("exact")
+    assert torch.all((got - want).abs() <= GRAD_GATE * want.abs()), (got,
+                                                                     want)
+    assert torch.equal(got, dlam("auto"))
+
+
+def test_multi_train_step_runs_both_kernels(cuda):
+    config = dict(model_name="panns_cnn6", dataset_name="esc50_synth",
+                  init_lambd=128.0, n_points=4000, hop_length=80,
+                  optimized=True, normalize_window=False, n_mels=64,
+                  resample_rate=8000, energy_normalize=True, impl="pallas",
+                  optimizer_name="adam", lr_model=1e-4, lr_tf=1.0,
+                  n_sigma=4)
+    hint = ops.pallas_compile_hint(128.0, 1024, 80)
+    model = get_model_by_config(config, 1024, hint, device=cuda)
+    opt = build_optimizer(config, model)
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    xs = _signal((4, 4000)).to(cuda)
+    ys = torch.tensor([0, 3, 5, 9], device=cuda)
+    mask = torch.ones(4, dtype=torch.bool, device=cuda)
+    before = (specband.specband_mel_power_multi.launches,
+              specband.specband_drho.multi_launches)
+    with precision_scope():
+        m = train_step(model, opt, xs, ys, mask, one_hot=True, n_classes=10,
+                       generator=gen)
+    assert (specband.specband_mel_power_multi.launches,
+            specband.specband_drho.multi_launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    lam = model.spectrogram_layer.lambd
+    assert lam.shape == (4,) and bool((lam != 128.0).all())
+    assert torch.isfinite(m["loss"])
+
+
+# --- K6, the fused route's dw kernel ----------------------------------
+
+@pytest.mark.parametrize("case", FUSED_CASES,
+                         ids=lambda c: f"nfft{c[3]}-win{c[2]}-b{c[0]}")
+def test_k6_matches_plain(cuda, case):
+    b, t, win, n_fft, hop, n_mels, lam = case
+    x = _signal((b, t)).to(cuda)
+    w = fused.pad_window(ops.gaussian_window(torch.tensor(lam, device=cuda),
+                                             win), n_fft)
+    g = framed.Geom(n_fft, hop, n_mels, 8000, 0.0, 4000.0)
+    out, reim = fused.fused_fwd(x, w, g)
+    dmel = torch.from_numpy(np.random.default_rng(1).standard_normal(
+        tuple(out.shape)).astype(np.float32)).to(cuda)
+    before = fused.fused_dwindow.launches
+    got = fused.fused_dwindow(x, reim, dmel, g)
+    again = fused.fused_dwindow(x, reim, dmel, g)
+    want = framed.framed_dwindow_plain(x, reim, dmel, g)
+    torch.cuda.synchronize()
+    assert fused.fused_dwindow.launches == before + 2
+    assert got.shape == want.shape == (n_fft,)
+    assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= DW_GATE, err
+
+
+@pytest.mark.parametrize("n_fft,win,lam", [(2048, 2048, 300.0),
+                                           (3000, 1500, 300.0)])
+def test_fused_bwd_flag_runs_k6(cuda, monkeypatch, n_fft, win, lam):
+    """With ``fused.USE_FUSED_BWD`` set, dlambda on the fused route comes
+    from K6 and matches the flag-off dlambda (the torch adjoint) within
+    bench.py's gate, bit-identical on repeat."""
+    t = win if n_fft != win else 6000
+    x = _signal((2, t)).to(cuda)
+    kw = dict(n_mels=64, sample_rate=8000, hop_length=80,
+              optimized=n_fft == win, window_length=n_fft if n_fft == win
+              else None, impl="fused", log_output=True)
+
+    def dlam():
+        lam_t = torch.tensor(lam, device=cuda, requires_grad=True)
+        ops.mel_spectrogram(x, lam_t, **kw).sum().backward()
+        return lam_t.grad
+
+    off = dlam()
+    monkeypatch.setattr(fused, "USE_FUSED_BWD", True)
+    before = fused.fused_dwindow.launches
+    on = dlam()
+    assert fused.fused_dwindow.launches == before + 1
+    assert abs(float(on - off)) <= GRAD_GATE * abs(float(off))
+    assert torch.equal(on, dlam())
+
+
+@pytest.mark.parametrize("route", ["multi", "exact_multi", "fused_bwd"])
+def test_new_routes_do_not_synchronise(cuda, monkeypatch, route):
+    """Forward and backward into lambda through the multi-sigma routes
+    (the specband kernels, and the exact route with its filterbank kept
+    on the card) and through the fused route with K6 make the host wait
+    for the card nowhere."""
+    x = _signal((2, 6000)).to(cuda)
+    kw = dict(n_mels=64, sample_rate=8000, hop_length=80, optimized=True)
+    if route.endswith("multi"):
+        lam = torch.tensor([100.0, 110.0, 120.0, 128.0], device=cuda,
+                           requires_grad=True)
+        impl = "auto" if route == "multi" else "exact"
+
+        def run():
+            ops.multi_sigma_mel_spectrogram(
+                x, lam, window_length=1024, impl=impl,
+                lambd_hint=ops.pallas_compile_hint(110.0, 1024, 80),
+                **kw).sum().backward()
+    else:
+        monkeypatch.setattr(fused, "USE_FUSED_BWD", True)
+        lam = torch.tensor(600.0, device=cuda, requires_grad=True)
+
+        def run():
+            ops.log_mel_spectrogram(x, lam, window_length=4096, impl="fused",
+                                    **kw).sum().backward()
+
+    run()
+    torch.cuda.synchronize()
+    torch.cuda.set_sync_debug_mode("error")
+    try:
+        run()
+    finally:
+        torch.cuda.set_sync_debug_mode("default")
+
+
+def test_failed_launches_raise(cuda):
+    """A geometry the kernels refuse raises on the card; the plain
+    version is never returned in its place."""
+    x, ws, bm, kw = _multi_operands(cuda, MULTI_CASES[1])
+    n_fft, j = kw["n_fft"], kw["j_taps"]
+    with pytest.raises(ValueError, match="too many sigma groups"):
+        specband.specband_mel_power_multi(
+            x, ws.repeat(3, 1)[:9], (0,) * kw["n_mels"], **kw)
+    # nine groups past the Python guard: the C entry refuses the launch
+    g = specband._Geom(n_fft, kw["hop_length"], kw["n_mels"], 8000, 0.0,
+                       4000.0, j, False, tuple(i % 9 for i in
+                                               range(kw["n_mels"])))
+    rho = specband.window_taps_sym(ws.repeat(3, 1)[:9], n_fft, j)
+    with pytest.raises(RuntimeError, match="specband_fwd launch failed"):
+        specband._fwd(x, rho, g)
+    xext, rho4, fb, dmel, bm = _multi_residual(cuda, MULTI_CASES[1])
+    with pytest.raises(ValueError, match="band_map"):
+        specband.specband_drho(xext, rho4, fb, dmel, None, (5,) * 64)
+    with pytest.raises(ValueError, match="rho"):
+        specband.specband_drho(xext, rho4, fb, dmel)
+    # K6 above its cap: shapes consistent, the C entry refuses
+    g6 = framed.Geom(4098, 80, 64, 8000, 0.0, 4000.0)
+    x6 = torch.zeros((1, 2000), device=cuda)
+    nfr = ops.num_frames(2000, 80)
+    reim = torch.zeros((nfr, 2 * framed.kp_of(4098)), device=cuda)
+    dmel6 = torch.zeros((1, 64, nfr), device=cuda)
+    with pytest.raises(RuntimeError, match="fused_bwd launch failed"):
+        fused.fused_dwindow(x6, reim, dmel6, g6)
 
 
 # --- fit: precision flags and reproducibility -------------------------

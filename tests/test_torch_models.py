@@ -128,20 +128,26 @@ def test_registry_matches_jax():
 @pytest.mark.parametrize("change,error", [
     (dict(model_name="mel_linear_net"), NotImplementedError),
     (dict(model_dtype="bfloat16"), NotImplementedError),
-    (dict(n_sigma=3), NotImplementedError),
+    (dict(n_sigma=3), None),
     (dict(impl="pallas_framed"), None),
     (dict(impl="pallas_fused"), None),
     (dict(precision="default"), NotImplementedError),
     (dict(impl="cudnn"), ValueError),
     (dict(impl="specband"), ValueError)])
 def test_registry_refuses_what_is_not_ported(change, error):
-    """What is not ported raises; the framed and fused impls build and
-    take their routes (``error`` None)."""
+    """What is not ported raises; the framed and fused impls and the
+    multi-sigma front end build and take their routes (``error``
+    None)."""
     if error is None:
         model = tmodels.get_model_by_config(dict(CONFIG, **change),
                                             window_length=WINDOW,
                                             device="cpu")
-        assert model.spectrogram_layer.impl == change["impl"][len("pallas_"):]
+        layer = model.spectrogram_layer
+        if "impl" in change:
+            assert layer.impl == change["impl"][len("pallas_"):]
+        else:
+            assert isinstance(layer, tmodels.MultiSigmaMelSpectrogramLayer)
+            assert layer.lambd.shape == (change["n_sigma"],)
         return
     with pytest.raises(error):
         tmodels.get_model_by_config(dict(CONFIG, **change),
