@@ -15,13 +15,21 @@ Phases, each announced by a flushed line when it starts and ends:
 3. K1 against its plain version: the specband forward kernel against
    ``specband_mel_power_plain`` on the same CUDA tensors at the bench
    workload (B=128 x 5 s at 8 kHz, n_fft 1024, hop 80, 64 mels,
-   lambda 128), at the model path's batch of 32, and at the 4096 bucket
-   (lambda 400); log-mel max-abs error gated at 1e-4.  Times with CUDA
-   events: the kernel, the plain version and, as a yardstick, one
-   torch.stft + mel matmul of the same function.  Every such time is the
-   median of 5 blocks of 10 calls after 3 warm-up calls; each kernel and
-   yardstick time also carries its blocks' range and the host's time to
-   issue a call, which shows when the card waited on the host.
+   lambda 128), at the model path's batch of 32, and at the 2048 and
+   4096 buckets (lambda 250, 400); log-mel max-abs error gated at 1e-4;
+   its spectra buffer ``xext`` within 1e-5 of the plain version's
+   largest entry and bit-identical on repeat.  Every n_fft here takes
+   the FFT spectra stage (``stage``); the direct-DFT stage is launched
+   through the same C entry at the same shapes (``direct_ms``, gated
+   like the kernel), and ``torch.profiler`` splits both into their
+   launches (``split``, ``split_direct``: device ms a launch by kernel,
+   with the launches the profiler recorded of 5 calls).
+   Times with CUDA events: the kernel, the plain version and, as a
+   yardstick, one torch.stft + mel matmul of the same function.  Every
+   such time is the median of 5 blocks of 10 calls after 3 warm-up
+   calls; each kernel and yardstick time also carries its blocks' range
+   and the host's time to issue a call, which shows when the card waited
+   on the host.
 4. K2 against its plain version: the training hot path that bench.py
    measures, ``mel_spectrogram(..., impl="specband")`` forward and
    ``backward()`` into lambda, through the kernels and through autograd
@@ -41,12 +49,16 @@ Phases, each announced by a flushed line when it starts and ends:
    ``framed_dwindow_plain`` on K3's residual (1e-3 of the largest entry,
    two runs bit-identical), dlambda through the kernels against autograd
    of the plain chain and of the exact route (1e-2).  Times as for
-   K1/K2; the exact route's backward is K4's yardstick.
+   K1/K2; the exact route's backward is K4's yardstick.  K3 runs the
+   direct stage; its ``direct_ms`` is the same two kernels launched
+   through K5's entry at K3's shape, a control of the timing.
 6. K5 against its plain version: the fused route at lambda 300 (2048)
    and 600 (4096), B=32, and faithful mode at T=1500 (n_fft 3000, the
-   window centred in it).  The same forward gates; dlambda through K5
-   and the torch adjoint against autograd of the plain chain and of the
-   exact route (1e-2).
+   window centred in it; radices 4, 3, 5, 5, 5).  The same forward
+   gates, the Re|Im residual within 1e-5 of the plain version's largest
+   entry and bit-identical on repeat; dlambda through K5 and the torch
+   adjoint against autograd of the plain chain and of the exact route
+   (1e-2).  ``stage``, ``direct_ms`` and the splits as for K1.
 7. K1/K2 multi-sigma: K1 and K2 at k_sig = 4 (the default contiguous
    band map, the hint of the mean lambda, as ``fit`` builds it) at the
    bench workload (B=128, 1024, lambda 100/110/120/128, J 24), at B=32
@@ -56,7 +68,8 @@ Phases, each announced by a flushed line when it starts and ends:
    entry, bit-identical on repeat), dlambda (4,) through the kernels
    against autograd of the plain chain and of the exact route (1e-2 in
    each group).  Yardsticks: the exact route's forward and its backward
-   into lambda.
+   into lambda.  ``stage``, ``direct_ms``, the splits and the ``xext``
+   gates as for K1.
 8. K6 against its plain version (the torch adjoint) on K5's residual at
    lambda 300 (2048), 600 (4096) and faithful mode (T=1500, n_fft 3000):
    dw within 1e-3 of its largest entry, bit-identical on repeat; the
@@ -81,7 +94,9 @@ Phases, each announced by a flushed line when it starts and ends:
    and K2m likewise on a multi-sigma epoch); on a framed epoch K4 once
    per train step and K3 once per train step and valid batch; on a fused
    epoch K5 once per train step and valid batch, and K6 once per train
-   step with the flag.  Losses finite; every group's lambda moved.  At
+   step with the flag; K1, K1m and K5 also on their FFT counters
+   (``fft_launches``) wherever the epoch's window takes the FFT stage.
+   Losses finite; every group's lambda moved.  At
    lambda 128, on one batch, the gradients of lambda and of
    ``fc_esc50.weight`` through the kernels must match the same model,
    batch and dropout masks through the plain specband function (dlambda
@@ -93,8 +108,8 @@ Phases, each announced by a flushed line when it starts and ends:
    differ between identical steps in each setting; at lambda 46.7 a
    second ``fit`` with the same seed must be bit-identical in lambda and
    every weight.
-11. a ``{"kernels": [...]}`` line, then the final
-   ``{"ok": true, "device": {...}}`` line.
+11. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
+   ran), then the final ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises, so the script exits non-zero before the final
 line.  A watchdog ends a run that hangs with a traceback.  Without a
@@ -121,7 +136,7 @@ from dmel_tpu_torch import precision_scope
 from dmel_tpu_torch.data import get_dataset_by_config, make_esc50_synth_dataset
 from dmel_tpu_torch.eval import predict
 from dmel_tpu_torch.models import dispatch_hint_for, get_model_by_config
-from dmel_tpu_torch.ops import _cuda, framed, fused, specband, stft
+from dmel_tpu_torch.ops import _cuda, fft_plan, framed, fused, specband, stft
 from dmel_tpu_torch.ops.dmel import (LOG_EPS, auto_route, default_band_map,
                                      mel_spectrogram,
                                      multi_sigma_mel_spectrogram,
@@ -137,6 +152,7 @@ GATE = 1e-4                  # log-mel max-abs gate (bench.py's)
 GRAD_GATE = 1e-2             # dlambda relative gate (bench.py's)
 DRHO_GATE = 1e-3             # K2 vs plain, max |error| / max |drho|
 DW_GATE = 1e-3               # K4 vs plain, max |error| / max |dw|
+RESIDUAL_GATE = 1e-5         # K1's xext, K3/K5's Re|Im: of the largest entry
 TRAIN_GRAD_GATE = 1e-3       # one train step: dlambda, kernels vs plain
 WEIGHT_GRAD_GATE = 1e-4      # one train step: fc weights, of max |grad|
 KERNELS = ("specband_fwd", "specband_bwd", "framed_fwd", "framed_bwd")
@@ -150,7 +166,12 @@ COUNTERS = {"K1": (specband.specband_mel_power, "launches"),
             "K3": (framed.framed_mel_power, "launches"),
             "K4": (framed.framed_dwindow, "launches"),
             "K5": (fused.dmel_power, "launches"),
-            "K6": (fused.fused_dwindow, "launches")}
+            "K6": (fused.fused_dwindow, "launches"),
+            "K1fft": (specband.specband_mel_power, "fft_launches"),
+            "K1mfft": (specband.specband_mel_power_multi, "fft_launches"),
+            "K5fft": (fused.dmel_power, "fft_launches")}
+#: the kernels that count their FFT-stage launches apart, and the counter
+FFT_COUNTER = {"K1": "K1fft", "K1m": "K1mfft", "K5": "K5fft"}
 SR, HOP, N_MELS, T = 8000, 80, 64, 40000
 N_BATCHES, BATCH = 3, 32
 #: one H100 SXM: fp32 outside the tensor cores, and HBM3 bandwidth
@@ -255,6 +276,42 @@ def timed(key: str, fn) -> dict:
             key + "_enqueue": t["enqueue_ms"]}
 
 
+def _kernel_name(key: str) -> str:
+    """A profiler event's kernel name without namespace, template
+    arguments or parameters."""
+    key = key.replace("(anonymous namespace)::", "")
+    return key.split("(")[0].split("<")[0].split("::")[-1].strip()
+
+
+def stage_split(fn, calls: int = 5):
+    """``{kernel: [ms, launches]}`` for each kernel ``fn`` launches, from
+    ``torch.profiler``'s ``key_averages`` over ``calls`` calls after one
+    warm-up: its device ms a launch, over the launches the profiler
+    recorded (it can record fewer than were made, so the time is not
+    divided by ``calls``); ``"not measured"`` where the profiler saw no
+    device time."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(calls):
+            fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        us = getattr(ev, "device_time_total", 0) or 0
+        if us > 0 and ev.count:
+            ms, n = out.get(_kernel_name(ev.key), (0.0, 0))
+            out[_kernel_name(ev.key)] = [(ms * n + us / 1e3) / (n + ev.count),
+                                         n + ev.count]
+    return out or "not measured"
+
+
+def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
+    """max |got - want| over max |want|."""
+    return float((got - want).abs().max() / want.abs().max())
+
+
 def k1_flops(batch: int, n_fft: int, j_taps: int, fb_nnz: int,
              log: bool = True) -> tuple[int, int]:
     """(least, direct): the operations the specband forward needs, and
@@ -281,12 +338,15 @@ def k1_bound(batch: int, n_fft: int, j_taps: int, fb_nnz: int):
     """(ms, 'bytes' | 'operations'): the least time one H100 needs for
     the specband forward, from the operations the function needs
     (:func:`k1_flops`) at the fp32 peak and the bytes it must move (the
-    signal, taps and filterbank read once, the log-mel written once) at
-    the HBM rate."""
+    signal, taps and filterbank read once; the log-mel and the spectra
+    residual ``xext``, 2 k_ext floats a frame, written once) at the HBM
+    rate."""
     least, _ = k1_flops(batch, n_fft, j_taps, fb_nnz)
     n_bins = n_fft // 2 + 1
+    rows = batch * stft.num_frames(T, HOP)
     nbytes = 4 * (batch * T + 2 * j_taps + 1 + n_bins * N_MELS
-                  + batch * N_MELS * stft.num_frames(T, HOP))
+                  + batch * N_MELS * stft.num_frames(T, HOP)
+                  + rows * 2 * (n_bins + 2 * j_taps))
     t_ops = least / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
@@ -323,9 +383,21 @@ def k1_case(seed: int, batch: int, n_fft: int, lambd: float,
         return torch.log((p.transpose(-1, -2) @ fb).transpose(-1, -2)
                          + LOG_EPS)
 
+    geom = specband._Geom(n_fft, HOP, N_MELS, SR, 0.0, float(SR // 2), j,
+                          True)
+
+    def direct():
+        """K1 with the direct-DFT spectra stage, through its C entry."""
+        rho = specband.window_taps_sym(w, n_fft, j)
+        return specband.launch_fwd(x, rho, geom, None)[0]
+
     with torch.no_grad():
         mel_k, mel_p = kernel(False), plain(False)
-        log_k, log_p, log_x = kernel(), plain(), library()
+        log_k, log_p, log_x, log_d = kernel(), plain(), library(), direct()
+        rho = specband.window_taps_sym(w, n_fft, j)
+        (_, xext), (_, xext2) = (specband._fwd(x, rho, geom),
+                                 specband._fwd(x, rho, geom))
+        _, xext_p = specband._fwd_plain(x, rho, geom)
         torch.cuda.synchronize()
         nfr = stft.num_frames(T, HOP)
         check(log_k.shape == (batch, N_MELS, nfr), f"shape {log_k.shape}")
@@ -333,23 +405,34 @@ def k1_case(seed: int, batch: int, n_fft: int, lambd: float,
         rel = float(((mel_k - mel_p).abs() / mel_p.abs()).max())
         err = float((log_k - log_p).abs().max())
         err_exact = float((log_k - log_x).abs().max())
+        err_direct = float((log_d - log_p).abs().max())
+        xext_err = rel_err(xext, xext_p)
+        del xext_p
         kernel_t = timed("ms", kernel)
-        ms = kernel_t["ms"]
+        direct_ms = time_ms(direct)
         plain_ms = time_ms(plain)
         library_t = timed("library_ms", library)
+        split, split_direct = stage_split(kernel), stage_split(direct)
     fb_nnz = int((fb != 0).sum())
     bound_ms, bound_by = k1_bound(batch, n_fft, j, fb_nnz)
-    least, direct = k1_flops(batch, n_fft, j, fb_nnz)
+    least, direct_flops = k1_flops(batch, n_fft, j, fb_nnz)
     res = dict(batch=batch, n_fft=n_fft, lambd=lambd, j_taps=j,
-               mel_rel_err=rel, logmel_max_abs_err=err,
-               logmel_err_vs_exact_stft=err_exact, **kernel_t,
-               plain_ms=plain_ms, **library_t, bound_ms=bound_ms,
-               bound_by=bound_by,
-               least_gflop=least / 1e9, direct_dft_gflop=direct / 1e9,
-               direct_dft_tflops_achieved=direct / ms / 1e9)
+               stage=fft_plan.stage_name(n_fft),
+               radices=fft_plan.plan(n_fft), mel_rel_err=rel,
+               logmel_max_abs_err=err, logmel_err_vs_exact_stft=err_exact,
+               logmel_err_direct_stage=err_direct, xext_err_of_max=xext_err,
+               xext_repeat_bit_identical=bool(torch.equal(xext, xext2)),
+               **kernel_t, direct_ms=direct_ms, plain_ms=plain_ms,
+               **library_t, bound_ms=bound_ms, bound_by=bound_by,
+               split=split, split_direct=split_direct,
+               least_gflop=least / 1e9, direct_dft_gflop=direct_flops / 1e9,
+               direct_dft_tflops_achieved=direct_flops / direct_ms / 1e9)
     say("K1 " + json.dumps(res))
     check(err <= GATE, f"K1 vs plain {err:.3e} > {GATE} at {res}")
     check(err_exact <= GATE, f"K1 vs exact STFT {err_exact:.3e} > {GATE}")
+    check(err_direct <= GATE, f"K1 direct stage vs plain {err_direct:.3e}")
+    check(xext_err <= RESIDUAL_GATE, f"K1 xext vs plain {xext_err:.3e}")
+    check(res["xext_repeat_bit_identical"], "K1 xext differs on repeat")
     return res
 
 
@@ -414,6 +497,11 @@ def model_path(seed: int, dev: torch.device, lam: float,
         check(launches[key] == N_BATCHES,
               f"{key} launched {launches[key]} times for {N_BATCHES} "
               "batches")
+        if key in FFT_COUNTER:
+            want_fft = N_BATCHES if fft_plan.plan(wl) is not None else 0
+            check(launches[FFT_COUNTER[key]] == want_fft,
+                  f"{key} took the FFT stage {launches[FFT_COUNTER[key]]} "
+                  f"times, expected {want_fft}")
     check(scores.shape == (N_BATCHES * BATCH, 10), f"scores {scores.shape}")
     check(bool(np.isfinite(scores).all()), "non-finite scores")
     check(bool(((scores >= 0) & (scores <= 1)).all()), "scores outside [0,1]")
@@ -595,13 +683,15 @@ def k1m_bound(batch: int, n_fft: int, j_taps: int, fb_nnz: int,
     convolution (6J + 2 a bin, symmetric real taps) and power (3 a bin)
     over its own bins (``sigma_bins``: this run's band map); the mel
     projection over the filterbank's nonzeros.  Bytes: the signal, the
-    K tap vectors and the filterbank read once, the mel written once."""
+    K tap vectors and the filterbank read once; the mel and the spectra
+    residual ``xext`` (2 k_ext floats a frame) written once."""
     rows = batch * stft.num_frames(T, HOP)
     n_bins = n_fft // 2 + 1
     flops = rows * (2.5 * n_fft * math.log2(n_fft)
                     + (6 * j_taps + 5) * sum(widths) + 2 * fb_nnz)
     nbytes = 4 * (batch * T + len(widths) * (2 * j_taps + 1)
-                  + n_bins * N_MELS + batch * N_MELS * stft.num_frames(T, HOP))
+                  + n_bins * N_MELS + batch * N_MELS * stft.num_frames(T, HOP)
+                  + rows * 2 * (n_bins + 2 * j_taps))
     t_ops = flops / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
     return (max(t_ops, t_bytes),
@@ -677,22 +767,37 @@ def multi_case(seed: int, batch: int, n_fft: int, lams: tuple,
     def library():
         return multi_sigma_mel_spectrogram(x, lam_t, impl="exact", **mkw)
 
+    geom = specband._Geom(n_fft, HOP, N_MELS, SR, 0.0, float(SR // 2), j,
+                          False, tuple(int(v) for v in bm))
+
+    def direct():
+        """K1 multi with the direct-DFT spectra stage, through its C
+        entry."""
+        return specband.launch_fwd(
+            xm, specband.window_taps_sym(ws, n_fft, j), geom, None)[0]
+
     with torch.no_grad():
-        mel_k, mel_p, mel_x = kernel(), plain(), library()
+        mel_k, mel_p, mel_x, mel_d = kernel(), plain(), library(), direct()
         torch.cuda.synchronize()
         check(mel_k.shape == (batch, N_MELS, nfr), f"shape {mel_k.shape}")
         check(bool(torch.isfinite(mel_k).all()), "non-finite mel")
         log_k = torch.log(mel_k + LOG_EPS)
-        err = float((log_k - torch.log(mel_p + LOG_EPS)).abs().max())
+        log_p = torch.log(mel_p + LOG_EPS)
+        err = float((log_k - log_p).abs().max())
         err_exact = float((log_k - torch.log(mel_x + LOG_EPS)).abs().max())
+        err_direct = float((torch.log(mel_d + LOG_EPS) - log_p).abs().max())
         kernel_t = timed("ms", kernel)
+        direct_ms = time_ms(direct)
         plain_ms = time_ms(plain)
         library_t = timed("library_ms", library)
+        split, split_direct = stage_split(kernel), stage_split(direct)
 
         rho = specband.window_taps_sym(ws, n_fft, j)
-        geom = specband._Geom(n_fft, HOP, N_MELS, SR, 0.0, float(SR // 2), j,
-                              False, tuple(int(v) for v in bm))
         out, xext = specband._fwd(xm, rho, geom)
+        _, xext2 = specband._fwd(xm, rho, geom)
+        _, xext_p = specband._fwd_plain(xm, rho, geom)
+        xext_err = rel_err(xext, xext_p)
+        del xext_p
         _, fb, _ = specband._consts(geom, dev)
         dmel = torch.from_numpy(rng.standard_normal(tuple(out.shape)).astype(
             np.float32)).to(dev)
@@ -755,7 +860,12 @@ def multi_case(seed: int, batch: int, n_fft: int, lams: tuple,
                                                    widths)
     res = dict(batch=batch, n_fft=n_fft, lambd=list(lams), hint=hint,
                j_taps=j, k_sig=k, sigma_bins=widths,
+               stage=fft_plan.stage_name(n_fft),
+               radices=fft_plan.plan(n_fft),
                logmel_max_abs_err=err, logmel_err_vs_exact_route=err_exact,
+               logmel_err_direct_stage=err_direct, xext_err_of_max=xext_err,
+               xext_repeat_bit_identical=bool(torch.equal(xext, xext2)),
+               direct_ms=direct_ms, split=split, split_direct=split_direct,
                dlambd=g_k.tolist(), dlambd_rel_err=_group_rel(g_k, g_p),
                dlambd_rel_err_vs_exact=_group_rel(g_k, g_x),
                dlambd_repeat_bit_identical=bool(torch.equal(g_k, g_k2)),
@@ -769,6 +879,9 @@ def multi_case(seed: int, batch: int, n_fft: int, lams: tuple,
     say("K1/K2 multi " + json.dumps(res))
     check(err <= GATE, f"K1 multi vs plain {err:.3e} > {GATE}")
     check(err_exact <= GATE, f"K1 multi vs exact route {err_exact:.3e}")
+    check(err_direct <= GATE, f"K1 multi direct stage {err_direct:.3e}")
+    check(xext_err <= RESIDUAL_GATE, f"K1 multi xext {xext_err:.3e}")
+    check(res["xext_repeat_bit_identical"], "K1 multi xext differs on repeat")
     check(res["dlambd_rel_err"] <= GRAD_GATE,
           f"dlambda vs plain {res['dlambd_rel_err']:.3e}")
     check(res["dlambd_rel_err_vs_exact"] <= GRAD_GATE,
@@ -868,20 +981,33 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
         return torch.log((p.transpose(-1, -2) @ fb).transpose(-1, -2)
                          + LOG_EPS)
 
+    def direct():
+        """The direct-DFT stage through K5's C entry (K3's two kernels):
+        K5's same-run reference, and K3's timing control."""
+        return framed.launch_fwd("fused_fwd", xm, w, g, None)
+
     with torch.no_grad():
-        mel_k, reim = kernel(xm, w, g)
+        (mel_k, reim), (_, reim2) = kernel(xm, w, g), kernel(xm, w, g)
         mel_p, reim_p = framed.fwd_plain(xm, w, g)
+        mel_d = direct()[0]
         log_x = library()
         torch.cuda.synchronize()
         check(mel_k.shape == (batch, N_MELS, nfr), f"shape {mel_k.shape}")
         check(bool(torch.isfinite(mel_k).all()), "non-finite mel")
         log_k = torch.log(mel_k + LOG_EPS)
-        err = float((log_k - torch.log(mel_p + LOG_EPS)).abs().max())
+        log_p = torch.log(mel_p + LOG_EPS)
+        err = float((log_k - log_p).abs().max())
         err_exact = float((log_k - log_x).abs().max())
-        reim_err = float((reim - reim_p).abs().max() / reim_p.abs().max())
+        err_direct = float((torch.log(mel_d + LOG_EPS) - log_p).abs().max())
+        reim_err = rel_err(reim, reim_p)
+        reim_repeat = bool(torch.equal(reim, reim2))
+        del reim2, reim_p
         kernel_t = timed("ms", lambda: kernel(xm, w, g))
+        direct_ms = time_ms(direct)
         plain_ms = time_ms(lambda: framed.fwd_plain(xm, w, g))
         library_t = timed("library_ms", library)
+        split = stage_split(lambda: kernel(xm, w, g))
+        split_direct = stage_split(direct)
         if route == "framed":
             dmel = torch.from_numpy(rng.standard_normal(
                 (batch, N_MELS, nfr)).astype(np.float32)).to(dev)
@@ -941,8 +1067,14 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
     fb_nnz = int((fb != 0).sum())
     bound_ms, bound_by, least_gflop = framed_bound(batch, t, nfft, fb_nnz)
     res = dict(route=route, batch=batch, t=t, win_length=win, n_fft=nfft,
-               lambd=lambd, logmel_max_abs_err=err,
-               logmel_err_vs_exact_stft=err_exact, reim_err_of_max=reim_err,
+               lambd=lambd,
+               stage=("direct" if route == "framed"
+                      else fft_plan.stage_name(nfft)),
+               radices=None if route == "framed" else fft_plan.plan(nfft),
+               logmel_max_abs_err=err, logmel_err_vs_exact_stft=err_exact,
+               logmel_err_direct_stage=err_direct, reim_err_of_max=reim_err,
+               reim_repeat_bit_identical=reim_repeat, direct_ms=direct_ms,
+               split=split, split_direct=split_direct,
                dlambd=float(g_k), dlambd_rel_err=dlam_rel,
                dlambd_rel_err_vs_exact=dlam_rel_exact,
                dlambd_repeat_bit_identical=bool(torch.equal(g_k, g_k2)),
@@ -962,6 +1094,9 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
     say({"framed": "K3/K4 ", "fused": "K5 "}[route] + json.dumps(res))
     check(err <= GATE, f"{route} forward vs plain {err:.3e} > {GATE}")
     check(err_exact <= GATE, f"{route} vs exact STFT {err_exact:.3e}")
+    check(err_direct <= GATE, f"{route} direct stage {err_direct:.3e}")
+    check(reim_err <= RESIDUAL_GATE, f"{route} Re|Im vs plain {reim_err:.3e}")
+    check(reim_repeat, f"{route} Re|Im differs on repeat")
     check(dlam_rel <= GRAD_GATE, f"dlambda vs plain {dlam_rel:.3e}")
     check(dlam_rel_exact <= GRAD_GATE,
           f"dlambda vs exact route {dlam_rel_exact:.3e}")
@@ -1309,7 +1444,7 @@ def _train_path(seed, dev, lam0, repeat, n_sigma, fused_bwd):
     prev = dict.fromkeys(COUNTERS, 0)
     lam_start = lam0
     for r, cum in zip(records, seen):
-        ep_route = _route_of(config, lam_start)[0]
+        ep_route, ep_wl = _route_of(config, lam_start)[:2]
         launched = {k: cum[k] - prev[k] for k in COUNTERS}
         want = dict.fromkeys(COUNTERS, 0)
         train_k, valid_k = route_kernels(ep_route)
@@ -1317,9 +1452,12 @@ def _train_path(seed, dev, lam0, repeat, n_sigma, fused_bwd):
             want[k] += steps
         for k in valid_k:
             want[k] += valid_batches
+        if fft_plan.plan(ep_wl) is not None:
+            for k, k_fft in FFT_COUNTER.items():
+                want[k_fft] = want[k]
         epochs.append(dict(epoch=r["epoch"], lambd_start=lam_start,
-                           route=ep_route, launches=launched,
-                           expected=want))
+                           route=ep_route, window_length=ep_wl,
+                           launches=launched, expected=want))
         say("record " + json.dumps(dict(r, route=ep_route,
                                         launches=launched)))
         prev, lam_start = cum, r["lambd_est"]
@@ -1410,6 +1548,7 @@ def main():
     with phase("K1 vs plain"):
         cases = [k1_case(seed, 128, 1024, 128.0, dev),
                  k1_case(seed, BATCH, 1024, 128.0, dev),
+                 k1_case(seed, BATCH, 2048, 250.0, dev),
                  k1_case(seed, BATCH, 4096, 400.0, dev)]
 
     with phase("K2 vs plain"):
@@ -1469,6 +1608,17 @@ def main():
     def by_path(key):
         return {name: r["launches"][key] for name, r in paths.items()}
 
+    def fft_fields(key, case, all_cases):
+        """A spectra-stage kernel's entry fields: the stage of the main
+        path's shape and of every measured shape, the direct stage's time
+        and both splits at the main shape, its FFT-stage launches."""
+        return dict(stage=case["stage"],
+                    stages={f"B{c['batch']}-nfft{c['n_fft']}": c["stage"]
+                            for c in all_cases},
+                    direct_ms=case["direct_ms"], split=case["split"],
+                    split_direct=case["split_direct"],
+                    fft_launches=sum(by_path(FFT_COUNTER[key]).values()))
+
     main1, main2 = cases[1], cases2[2]   # the model's and the train's shape
     main34, main5 = cases34[0], cases5[1]
     main_m, main6 = cases_m[1], cases6[1]
@@ -1477,38 +1627,45 @@ def main():
             "specband_fwd", "specband_fwd.cu",
             "dmel_tpu/ops/pallas/specband_dmel.py:476", by_path("K1"),
             max(c["logmel_max_abs_err"] for c in cases), "log-mel", GATE,
-            main1, **_library(main1, "library_ms")),
+            main1, **_library(main1, "library_ms"),
+            **fft_fields("K1", main1, cases),
+            xext_err_of_max=max(c["xext_err_of_max"] for c in cases)),
         _kernel_entry(
             "specband_bwd", "specband_bwd.cu",
             "dmel_tpu/ops/pallas/specband_dmel.py:749", by_path("K2"),
             max(c["drho_err_of_max"] for c in cases2),
             "drho / max |drho|", DRHO_GATE, main2,
-            **_library(main2, "library_bwd_ms"),
+            **_library(main2, "library_bwd_ms"), stage="none (no DFT)",
             drho_err_of_max=max(c["drho_err_of_max"] for c in cases2),
             dlambd_rel_err=max(c["dlambd_rel_err"] for c in cases2)),
         _kernel_entry(
             "framed_fwd", "framed_fwd.cu",
             "dmel_tpu/ops/pallas/framed_dmel.py:138", by_path("K3"),
             max(c["logmel_max_abs_err"] for c in cases34), "log-mel", GATE,
-            main34, **_library(main34, "library_ms")),
+            main34, **_library(main34, "library_ms"), stage="direct",
+            direct_ms=main34["direct_ms"], split=main34["split"]),
         _kernel_entry(
             "framed_bwd", "framed_bwd.cu",
             "dmel_tpu/ops/pallas/framed_dmel.py:247", by_path("K4"),
             max(c["dw_err_of_max"] for c in cases34), "dw / max |dw|",
             DW_GATE, main34, prefix="k4_",
-            **_library(main34, "library_bwd_ms"),
+            **_library(main34, "library_bwd_ms"), stage="direct",
             dw_err_of_max=max(c["dw_err_of_max"] for c in cases34),
             dlambd_rel_err=max(c["dlambd_rel_err"] for c in cases34)),
         _kernel_entry(
             "fused_fwd", "framed_fwd.cu",
             "dmel_tpu/ops/pallas/fused_dmel.py:68", by_path("K5"),
             max(c["logmel_max_abs_err"] for c in cases5), "log-mel", GATE,
-            main5, **_library(main5, "library_ms")),
+            main5, **_library(main5, "library_ms"),
+            **fft_fields("K5", main5, cases5),
+            reim_err_of_max=max(c["reim_err_of_max"] for c in cases5)),
         _kernel_entry(
             "specband_fwd_multi", "specband_fwd.cu",
             "dmel_tpu/ops/pallas/specband_dmel.py:476", by_path("K1m"),
             max(c["logmel_max_abs_err"] for c in cases_m), "log-mel", GATE,
             main_m, **_library(main_m, "library_ms"), k_sig=main_m["k_sig"],
+            **fft_fields("K1m", main_m, cases_m),
+            xext_err_of_max=max(c["xext_err_of_max"] for c in cases_m),
             logmel_err_vs_exact_route=max(
                 c["logmel_err_vs_exact_route"] for c in cases_m)),
         _kernel_entry(
@@ -1517,6 +1674,7 @@ def main():
             max(c["drho_err_of_max"] for c in cases_m),
             "drho / max |drho|", DRHO_GATE, main_m, prefix="k2_",
             **_library(main_m, "library_bwd_ms"), k_sig=main_m["k_sig"],
+            stage="none (no DFT)",
             dlambd_rel_err=max(c["dlambd_rel_err"] for c in cases_m),
             dlambd_rel_err_vs_exact=max(
                 c["dlambd_rel_err_vs_exact"] for c in cases_m)),
@@ -1524,7 +1682,8 @@ def main():
             "fused_bwd", "framed_bwd.cu",
             "dmel_tpu/ops/pallas/fused_dmel.py:152", by_path("K6"),
             max(c["dw_err_of_max"] for c in cases6), "dw / max |dw|",
-            DW_GATE, main6, **_library(main6, "library_bwd_ms")),
+            DW_GATE, main6, **_library(main6, "library_bwd_ms"),
+            stage="direct"),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on a path")

@@ -9,9 +9,9 @@
 // Both differ only in TPU-specific ways (Mosaic cannot load from an
 // unaligned HBM offset; the bf16 hi/lo operand splits and the lowbin /
 // hiprec variants are precision workarounds of the TPU's matrix unit).  A
-// thread block here reads a frame at any offset of the signal, and every
-// product runs in fp32 FMAs, so one kernel serves both: framed_fwd() is
-// K3's entry point and fused_fwd() K5's.
+// thread block here reads a frame at any offset of the signal and every
+// product runs in fp32, so framed_fwd() (K3) and fused_fwd() (K5) compute
+// one function:
 //
 // For each batch row b and frame t of the signal zero-padded by n_fft/2 on
 // both sides (row r = b * n_frames + t):
@@ -22,11 +22,36 @@
 //   mel[r, j] = sum_k (Re^2 + Im^2)[r, k] fb[k, j]  over fb's nonzeros
 //   out[b, j, t] = mel[r, j]
 //
-// The phase is the exact integer (m k) mod N, indexed into an N-entry
-// cos / -sin table built in float64 and rounded once to fp32: a float
-// angle 2 pi m k / N loses several bits at N = 4096.
+// Re|Im is written in fp32 as the backward's residual, (rows, 2 kp): Re in
+// columns [0, kp), Im in [kp, 2 kp), exact zeros past n_bins in each (the
+// TPU kept bf16 to save VMEM).  Every cos / -sin is an entry of an N-entry
+// table built in float64 and rounded once to fp32, at an exact integer
+// phase: a float angle 2 pi m k / N loses several bits at N = 4096.
 //
-// Two launches:
+// fused_fwd (K5) takes one of two spectra stages, chosen on the host from
+// n_fft alone (dmel_tpu_torch/ops/fft_plan.py) and passed as the radices
+// of its plan:
+//
+// - the FFT stage, one launch of fused_fft_kernel, for every even n_fft
+//   up to 4096 whose half has no prime factor above 5 (every bucket the
+//   fused route takes, and faithful 3000).  A block owns
+//   max(1, 4096 / n_fft) frames.  It loads them windowed straight from x,
+//   masking the centre padding, runs the shared-memory FFT of
+//   frame_fft.cuh, writes Re|Im with the zero pad columns, stages the
+//   power in the FFT's free buffer and projects it onto the mel bands.
+//   The FFT needs ~n_fft / (1.25 log2 n_fft) times fewer operations than
+//   the direct DFT (555 GFLOP at 4096 and B = 32 become ~2), so what
+//   bounds the function on this card is the bytes it must move, most of
+//   them the Re|Im residual written once (262 MB at 4096 and B = 32;
+//   chip_smoke.py:framed_bound).  The design writes that residual once,
+//   coalesced, and reads nothing back: the power goes from shared memory
+//   to the mel output in the same block, where the direct stage reads the
+//   residual again.
+// - the direct stage, two launches, for any other even n_fft (faithful
+//   1400 = 2^3 5^2 7): frame_dft_kernel then power_mel_kernel, as below.
+//
+// framed_fwd (K3) always takes the direct stage (an FFT for it is later
+// work):
 //
 // 1. frame_dft_kernel: Re|Im as one fp32 GEMM, windowed frames (rows,
 //    n_fft) times the bases (n_fft, 2 kp), cos plane in columns [0, kp),
@@ -35,20 +60,16 @@
 //    centre padding, and multiplies by the window as it loads.  The bases
 //    are never materialised either: each B element is a table entry at a
 //    running phase index.  This is 4 rows n_fft kp flops, so the kernel is
-//    limited by fp32 FMA throughput.  The function itself needs an FFT per
-//    frame, ~n_fft / (1.25 log2 n_fft) times fewer operations, and those
-//    set its least time (chip_smoke.py:framed_bound); an FFT and the tensor
-//    cores are later work.  The design answer here is K1's register-blocked
-//    SIMT GEMM: 128x128 block tiles, 8x8 outputs a thread, a 16-deep
-//    contraction step staged through shared memory with the next step's
-//    loads in flight in registers.  Re|Im is written in fp32 as the
-//    backward's residual (the TPU kept bf16 to save VMEM).
+//    limited by fp32 FMA throughput.  The design answer is K1's
+//    register-blocked SIMT GEMM: 128x128 block tiles, 8x8 outputs a
+//    thread, a 16-deep contraction step staged through shared memory with
+//    the next step's loads in flight in registers.
 // 2. power_mel_kernel: one block owns FR frame rows, stages their power in
 //    shared memory and projects it onto each mel band over the band's
 //    contiguous range of nonzero filterbank rows (a triangular filter has
 //    at most two nonzeros a bin), writing (B, n_mels, n_frames) directly.
 //
-// C interface: framed_fwd() and fused_fwd() launch both kernels on the
+// C interface: framed_fwd() and fused_fwd() launch their kernels on the
 // given stream and return cudaGetLastError(); they do not synchronise.
 
 #include <cuda_runtime.h>
@@ -64,6 +85,34 @@ constexpr int A_PAD = 4;         // keeps the transposed A stores conflict-free
 
 constexpr int FR = 8;            // frame rows per block in power_mel_kernel
 constexpr int MEL_THREADS = 256;
+
+#include "frame_fft.cuh"
+
+// Projects the power p (nf frame rows of n_bins, rows row0 ..) onto each
+// mel band over its nonzero bin range [mel_lo, mel_hi), writing (B,
+// n_mels, nfr).  (mel j, frame f) pairs with f fastest: neighbouring
+// threads write neighbouring frames of one mel band.  NT threads.
+template <int NT>
+__device__ __forceinline__ void mel_project(
+    const float* p, const float* __restrict__ fb,
+    const int* __restrict__ mel_lo, const int* __restrict__ mel_hi,
+    float* __restrict__ out, int row0, int nf, int rows, int nfr,
+    int n_bins, int n_mels) {
+  for (int i = threadIdx.x; i < nf * n_mels; i += NT) {
+    const int j = i / nf;
+    const int f = i - j * nf;
+    const int r = row0 + f;
+    if (r >= rows) continue;
+    const float* pf = p + f * n_bins;
+    float acc = 0.f;
+    const int hi = __ldg(mel_hi + j);
+    for (int k = __ldg(mel_lo + j); k < hi; ++k)
+      acc = fmaf(pf[k], __ldg(fb + (size_t)k * n_mels + j), acc);
+    const int b = r / nfr;
+    const int t = r - b * nfr;
+    out[((size_t)b * n_mels + j) * nfr + t] = acc;
+  }
+}
 
 __global__ void __launch_bounds__(GEMM_THREADS)
 frame_dft_kernel(const float* __restrict__ x, const float* __restrict__ w,
@@ -217,29 +266,53 @@ power_mel_kernel(const float* __restrict__ reim, const float* __restrict__ fb,
     p[i] = v;
   }
   __syncthreads();
-
-  // (mel j, frame f) pairs with f fastest: neighbouring threads write
-  // neighbouring frames of one mel band.
-  for (int i = tid; i < FR * n_mels; i += MEL_THREADS) {
-    const int j = i / FR;
-    const int f = i - j * FR;
-    const int r = row0 + f;
-    if (r >= rows) continue;
-    const float* pf = p + f * n_bins;
-    float acc = 0.f;
-    const int hi = __ldg(mel_hi + j);
-    for (int k = __ldg(mel_lo + j); k < hi; ++k)
-      acc = fmaf(pf[k], __ldg(fb + (size_t)k * n_mels + j), acc);
-    const int b = r / nfr;
-    const int t = r - b * nfr;
-    out[((size_t)b * n_mels + j) * nfr + t] = acc;
-  }
+  mel_project<MEL_THREADS>(p, fb, mel_lo, mel_hi, out, row0, FR, rows, nfr,
+                           n_bins, n_mels);
 }
 
-int launch(const float* x, const float* w, const float* table,
-           const float* fb, const int* mel_lo, const int* mel_hi,
-           float* reim, float* out, int batch, int sig_len, int nfr, int hop,
-           int n_fft, int kp, int n_bins, int n_mels, cudaStream_t s) {
+// K5's FFT stage: fr frames a block, windowed, through the shared-memory
+// FFT; Re|Im with its zero pad columns to the residual, the power to the
+// FFT's free buffer, then the mel projection.
+__global__ void __launch_bounds__(FFT_THREADS)
+fused_fft_kernel(const float* __restrict__ x, const float* __restrict__ w,
+                 const float* __restrict__ table,
+                 const float* __restrict__ fb, const int* __restrict__ mel_lo,
+                 const int* __restrict__ mel_hi, float* __restrict__ reim,
+                 float* __restrict__ out, int rows, int sig_len, int nfr,
+                 int hop, int n_fft, int kp, int n_bins, int n_mels, int fr,
+                 FftPlan plan) {
+  extern __shared__ __align__(16) float2 fft_buf[];   // 2 x fr x n_fft/2
+  const int m = n_fft / 2;
+  const int row0 = blockIdx.x * fr;
+  float2* a = fft_buf;
+  float2* b = fft_buf + fr * m;
+  fft_load_frames(a, x, w, row0, fr, rows, sig_len, nfr, hop, n_fft);
+  const float2* z = fft_frames(a, b, fr, n_fft, plan, table);
+  // fr x n_bins power in the buffer the FFT left free (fr n_fft floats)
+  float* p = reinterpret_cast<float*>(z == a ? b : a);
+  for_frame_columns(fr, kp, [&](int f, int k) {
+    const int r = row0 + f;
+    if (r >= rows) return;
+    float2 v = make_float2(0.f, 0.f);
+    if (k < n_bins) {
+      v = rfft_bin(z + f * m, n_fft, k, table);
+      p[f * n_bins + k] = v.x * v.x + v.y * v.y;
+    }
+    float* dst = reim + (size_t)r * 2 * kp;
+    dst[k] = v.x;
+    dst[kp + k] = v.y;
+  });
+  __syncthreads();
+  mel_project<FFT_THREADS>(p, fb, mel_lo, mel_hi, out, row0, fr, rows, nfr,
+                           n_bins, n_mels);
+}
+
+// The direct stage: frame_dft_kernel, then power_mel_kernel.
+int launch_direct(const float* x, const float* w, const float* table,
+                  const float* fb, const int* mel_lo, const int* mel_hi,
+                  float* reim, float* out, int batch, int sig_len, int nfr,
+                  int hop, int n_fft, int kp, int n_bins, int n_mels,
+                  cudaStream_t s) {
   const int rows = batch * nfr;
   dim3 grid1((rows + BM - 1) / BM, (2 * kp) / BN);
   frame_dft_kernel<<<grid1, GEMM_THREADS, 0, s>>>(
@@ -254,6 +327,25 @@ int launch(const float* x, const float* w, const float* table,
   if (err != cudaSuccess) return static_cast<int>(err);
   power_mel_kernel<<<(rows + FR - 1) / FR, MEL_THREADS, smem, s>>>(
       reim, fb, mel_lo, mel_hi, out, rows, nfr, kp, n_bins, n_mels);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// The FFT stage: one launch of fused_fft_kernel.
+int launch_fft(const float* x, const float* w, const float* table,
+               const float* fb, const int* mel_lo, const int* mel_hi,
+               float* reim, float* out, int batch, int sig_len, int nfr,
+               int hop, int n_fft, int kp, int n_bins, int n_mels,
+               const FftPlan& plan, cudaStream_t s) {
+  const int rows = batch * nfr;
+  const int fr = fft_frames_per_block(n_fft);
+  const size_t smem = fft_smem_bytes(n_fft);
+  cudaError_t err = cudaFuncSetAttribute(
+      fused_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return static_cast<int>(err);
+  fused_fft_kernel<<<(rows + fr - 1) / fr, FFT_THREADS, smem, s>>>(
+      x, w, table, fb, mel_lo, mel_hi, reim, out, rows, sig_len, nfr, hop,
+      n_fft, kp, n_bins, n_mels, fr, plan);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -287,24 +379,35 @@ int framed_fwd(const float* x, const float* w, const float* table,
       n_fft % 128 != 0 || n_fft > 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch(x, w, table, fb, mel_lo, mel_hi, reim, out, batch, sig_len,
-                nfr, hop, n_fft, kp, n_bins, n_mels,
-                static_cast<cudaStream_t>(stream));
+  return launch_direct(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
+                       sig_len, nfr, hop, n_fft, kp, n_bins, n_mels,
+                       static_cast<cudaStream_t>(stream));
 }
 
 // K5: any even n_fft up to 4096; w is the window centred in n_fft.
+// radices (n_stages ints, host memory) is the FFT stage's plan, or null
+// with n_stages = -1 for the direct stage; a plan that is not one of the
+// complex FFT of length n_fft / 2 is refused.
 int fused_fwd(const float* x, const float* w, const float* table,
               const float* fb, const int* mel_lo, const int* mel_hi,
               float* reim, float* out, int batch, int sig_len, int nfr,
               int hop, int n_fft, int kp, int n_bins, int n_mels,
-              void* stream) {
+              const int* radices, int n_stages, void* stream) {
   if (bad_geometry(batch, nfr, hop, n_fft, kp, n_bins, n_mels) ||
       n_fft > 4096) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch(x, w, table, fb, mel_lo, mel_hi, reim, out, batch, sig_len,
-                nfr, hop, n_fft, kp, n_bins, n_mels,
-                static_cast<cudaStream_t>(stream));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (n_stages < 0) {
+    return launch_direct(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
+                         sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, s);
+  }
+  FftPlan plan;
+  if (!fft_plan_from(radices, n_stages, n_fft, &plan)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_fft(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
+                    sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, plan, s);
 }
 
 }  // extern "C"

@@ -16,26 +16,41 @@
 // The spectra X' do not depend on the window, so all K sigmas share one
 // pass of the expensive part, as on the TPU ("marginal cost per sigma: one
 // banded GEMM per output tile"); each sigma adds only its band convolution
-// on the bins under its own mel bands.  In three launches:
+// on the bins under its own mel bands.  X' is written to the xext buffer
+// (rows, 2 kp), cos plane then sin plane, exact zeros from k_ext on; the
+// band stage and K2 (specband_bwd.cu) read it.  In three launches:
 //
 // 0. sigma_range_kernel (sigma_ranges.cuh): each sigma's bin range [lo, hi)
 //    from the filterbank and band_map.
-// 1. ext_dft_kernel: X' as one fp32 GEMM, frames (rows = B*n_frames, n_fft)
-//    times the phase-flipped bases (n_fft, 2*kp), cos plane then sin plane.
-//    The frames are never materialised: each block reads its rows straight
-//    from x, masking the centre padding.  This is 4*rows*n_fft*k_ext flops,
-//    ~93% of what this kernel computes, so the kernel is limited by fp32
-//    FMA throughput, not by memory (it reads ~25 MB and writes ~16 MB at
-//    the bench shape).  The function itself needs ~20x fewer operations
-//    (an FFT per frame instead of a direct DFT), and those set its least
-//    time on the card (chip_smoke.py:k1_bound); replacing the direct DFT
-//    is a later optimisation.  The design answer here is a register-blocked
-//    SIMT GEMM:
-//    128x128 block tiles, 8x8 outputs per thread, a 16-deep contraction
-//    step staged through shared memory with the next step's global loads
-//    in flight in registers.  The bases (2.3 MB per plane at n_fft 1024)
-//    do not fit a block's shared memory as the TPU kept them in VMEM; they
-//    are streamed tile by tile and stay resident in the 50 MB L2.
+// 1. the spectra stage, one of two, chosen on the host from n_fft alone
+//    (dmel_tpu_torch/ops/fft_plan.py) and passed as the radices of its
+//    plan:
+//    - ext_fft_kernel, for every n_fft whose half has no prime factor
+//      above 5 (all but 896 of the n_fft K1 takes: every power of two,
+//      384, 640, 768).  A block owns max(1, 4096 / n_fft) frames, loads
+//      them straight from x (centre padding masked), runs the
+//      shared-memory FFT of frame_fft.cuh and writes each extended bin
+//      from its FFT bin through a map kept on the host beside the plan
+//      (fft_plan.ext_bin_map): bin k for 0 <= k <= N/2, the conjugate of
+//      bin -k below and of N - k above, times (-1)^k.  The direct DFT was
+//      ~93 % of K1's operations; with the FFT the function needs
+//      2.5 N log2 N a frame for its spectra and (6J + 5) a bin for the
+//      band convolution and power, and what bounds it on this card is
+//      operations or bytes as chip_smoke.py:k1_bound finds: operations
+//      at 1024 and 2048, bytes at 4096, where the xext write (2 k_ext
+//      floats a frame, 266 MB at B = 32) sets the bound.  The design keeps
+//      that buffer, written once and read once more by the band stage,
+//      because K2 reads it as its residual.
+//    - ext_dft_kernel, the direct DFT, for any other n_fft (896): X' as
+//      one fp32 GEMM, frames (rows = B*n_frames, n_fft) times the
+//      phase-flipped bases (n_fft, 2*kp), cos plane then sin plane.  The
+//      frames are never materialised: each block reads its rows straight
+//      from x, masking the centre padding.  This is 4*rows*n_fft*k_ext
+//      flops, limited by fp32 FMA throughput: a register-blocked SIMT
+//      GEMM, 128x128 block tiles, 8x8 outputs per thread, a 16-deep
+//      contraction step staged through shared memory with the next step's
+//      global loads in flight in registers; the bases are streamed tile by
+//      tile and stay resident in the 50 MB L2.
 // 2. band_mel_kernel: one block owns FR frames and stages their X' rows in
 //    shared memory.  Then, one sigma at a time, it convolves the bins of
 //    [lo, hi) with that sigma's 2J+1 taps, squares them into one power
@@ -49,11 +64,11 @@
 //    every bin (the products left out are exact zeros).
 //
 // What the TPU design needed and this one drops: the sliding-DFT
-// recurrence and hop-delta GEMMs (fewer operations; a later optimisation
-// here), the bf16 hi/lo operand splits (fp32 FMAs need none), the
-// phase-major row layout and Nyquist split (128-lane tiling), and spectra
-// carried between sequential grid steps (blocks here run in any order and
-// own their output).
+// recurrence and hop-delta GEMMs (the FFT needs fewer operations still),
+// the bf16 hi/lo operand splits (fp32 needs none), the phase-major row
+// layout and Nyquist split (128-lane tiling), and spectra carried between
+// sequential grid steps (blocks here run in any order and own their
+// output).
 //
 // C interface: specband_fwd() launches the three kernels on the given
 // stream and returns cudaGetLastError(); it does not synchronise.
@@ -74,6 +89,38 @@ constexpr int BAND_THREADS = 256;
 constexpr int MAX_TAPS = 128;    // taps a sigma: 2J + 1 with 2J < 128
 
 #include "sigma_ranges.cuh"
+#include "frame_fft.cuh"
+
+// X' by the FFT stage: fr unwindowed frames a block through the
+// shared-memory FFT; column j of each plane is FFT bin bins[j] times
+// signs[plane, j] (zero where bins[j] < 0).
+__global__ void __launch_bounds__(FFT_THREADS)
+ext_fft_kernel(const float* __restrict__ x, const float* __restrict__ table,
+               const int* __restrict__ bins, const float* __restrict__ signs,
+               float* __restrict__ xext, int rows, int sig_len, int nfr,
+               int hop, int n_fft, int kp, int fr, FftPlan plan) {
+  extern __shared__ __align__(16) float2 fft_buf[];   // 2 x fr x n_fft/2
+  const int m = n_fft / 2;
+  const int row0 = blockIdx.x * fr;
+  float2* a = fft_buf;
+  float2* b = fft_buf + fr * m;
+  fft_load_frames(a, x, nullptr, row0, fr, rows, sig_len, nfr, hop, n_fft);
+  const float2* z = fft_frames(a, b, fr, n_fft, plan, table);
+  for_frame_columns(fr, kp, [&](int f, int j) {
+    const int r = row0 + f;
+    if (r >= rows) return;
+    const int k = __ldg(bins + j);
+    float re = 0.f, im = 0.f;
+    if (k >= 0) {
+      const float2 v = rfft_bin(z + f * m, n_fft, k, table);
+      re = __ldg(signs + j) * v.x;
+      im = __ldg(signs + kp + j) * v.y;
+    }
+    float* dst = xext + (size_t)r * 2 * kp;
+    dst[j] = re;
+    dst[kp + j] = im;
+  });
+}
 
 __global__ void __launch_bounds__(GEMM_THREADS)
 ext_dft_kernel(const float* __restrict__ x, const float* __restrict__ basis,
@@ -259,22 +306,36 @@ const char* specband_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x (batch, sig_len); basis (n_fft, 2*kp); rho (k_sig, n_taps), one tap
-// vector a sigma; fb (n_bins, n_mels); band_map (n_mels) int32, each mel
-// band's sigma in [0, k_sig), or null for k_sig = 1; sig_range scratch
-// (k_sig, 2) int32; xext scratch (batch*nfr, 2*kp); out (batch, n_mels,
-// nfr).  All fp32 unless stated, contiguous, on the current device.
-int specband_fwd(const float* x, const float* basis, const float* rho,
+// x (batch, sig_len); rho (k_sig, n_taps), one tap vector a sigma; fb
+// (n_bins, n_mels); band_map (n_mels) int32, each mel band's sigma in
+// [0, k_sig), or null for k_sig = 1; sig_range scratch (k_sig, 2) int32;
+// xext scratch (batch*nfr, 2*kp); out (batch, n_mels, nfr).  The spectra
+// stage: radices (n_stages ints, host memory), the FFT's plan, with table
+// (2, n_fft), cos then -sin of 2 pi i / n_fft, bins (kp) int32 and signs
+// (2, kp), the extended-bin map; or radices null and n_stages = -1 for
+// the direct DFT with basis (n_fft, 2*kp).  Operands the stage does not
+// read may be null.  All fp32 unless stated, contiguous, on the current
+// device.
+int specband_fwd(const float* x, const float* basis, const float* table,
+                 const int* bins, const float* signs, const float* rho,
                  const float* fb, const int* band_map, int* sig_range,
                  float* xext, float* out, int batch, int sig_len, int nfr,
                  int hop, int n_fft, int kp, int k_ext, int n_bins,
                  int n_taps, int n_mels, int k_sig, int log_out,
-                 void* stream) {
+                 const int* radices, int n_stages, void* stream) {
   const int rows = batch * nfr;
-  if (batch <= 0 || nfr <= 0 || rows / nfr != batch || n_fft % BK != 0 ||
+  if (batch <= 0 || nfr <= 0 || rows / nfr != batch ||
       (2 * kp) % BN != 0 || k_ext > kp || n_taps > MAX_TAPS ||
-      n_bins + n_taps - 1 != k_ext || n_mels <= 0 || k_sig < 1 ||
-      k_sig > MAX_SIGMA || (k_sig > 1 && band_map == nullptr)) {
+      n_bins != n_fft / 2 + 1 || n_bins + n_taps - 1 != k_ext ||
+      n_mels <= 0 || k_sig < 1 || k_sig > MAX_SIGMA ||
+      (k_sig > 1 && band_map == nullptr)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  FftPlan plan;
+  const bool fft = n_stages >= 0;
+  if (fft ? !fft_plan_from(radices, n_stages, n_fft, &plan) ||
+                table == nullptr || bins == nullptr || signs == nullptr
+          : n_fft % BK != 0 || basis == nullptr) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
@@ -284,9 +345,21 @@ int specband_fwd(const float* x, const float* basis, const float* rho,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  dim3 grid1((rows + BM - 1) / BM, (2 * kp) / BN);
-  ext_dft_kernel<<<grid1, GEMM_THREADS, 0, s>>>(x, basis, xext, rows, sig_len,
-                                                nfr, hop, n_fft, 2 * kp);
+  if (fft) {
+    const int fr = fft_frames_per_block(n_fft);
+    const size_t smem = fft_smem_bytes(n_fft);
+    err = cudaFuncSetAttribute(ext_fft_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    ext_fft_kernel<<<(rows + fr - 1) / fr, FFT_THREADS, smem, s>>>(
+        x, table, bins, signs, xext, rows, sig_len, nfr, hop, n_fft, kp, fr,
+        plan);
+  } else {
+    dim3 grid1((rows + BM - 1) / BM, (2 * kp) / BN);
+    ext_dft_kernel<<<grid1, GEMM_THREADS, 0, s>>>(
+        x, basis, xext, rows, sig_len, nfr, hop, n_fft, 2 * kp);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 

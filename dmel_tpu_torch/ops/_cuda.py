@@ -89,3 +89,12 @@ def load(name: str) -> Lib:
         path, seconds, log = _build(name)
         lib = _libs[name] = Lib(ctypes.CDLL(str(path)), path, seconds, log)
     return lib
+
+
+def plan_args(radices: tuple[int, ...] | None):
+    """A spectra stage's two C arguments: the FFT plan's radices as a
+    ctypes int array and their count, or ``(None, -1)`` for the direct
+    DFT."""
+    if radices is None:
+        return None, -1
+    return (ctypes.c_int * len(radices))(*radices), len(radices)

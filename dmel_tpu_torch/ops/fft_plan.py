@@ -1,0 +1,184 @@
+"""The spectra stage of the forward kernels K1 (``csrc/specband_fwd.cu``)
+and K5 (``csrc/framed_fwd.cu``, entry ``fused_fwd``), decided on the
+host.
+
+Both kernels take the real DFT of each frame either with an FFT in
+shared memory (``csrc/frame_fft.cuh``) or with the direct-DFT GEMM they
+ran before.  :func:`plan` picks one from the geometry alone, before the
+launch, and the wrapper passes it to the kernel: the radices of the
+complex FFT of length ``n_fft / 2`` in stage order, or ``None`` for the
+direct stage.  The FFT takes every even ``n_fft`` up to 4096 whose half
+has no prime factor above 5 (every power of two, and e.g. 384 or 3000);
+the rest (e.g. 896 = 2^7 7, faithful mode's 1400 = 2^3 5^2 7) keeps the
+direct stage.
+
+Beside the plan live the pieces of the FFT stage that the CPU tests
+check, since the CUDA code cannot run there:
+
+- :func:`rfft_mirror`, the kernel's arithmetic step by step in PyTorch
+  (Stockham stages, then the real-FFT post-pass), at the same float32
+  table entries and integer phases;
+- :func:`ext_bin_map`, K1's map from its extended bins ``-J .. n_bins -
+  1 + J`` to FFT bins, with the sign of each plane.
+"""
+
+from __future__ import annotations
+
+import functools
+
+import numpy as np
+import torch
+
+#: largest n_fft the FFT stage takes (both kernels' cap)
+MAX_N_FFT = 4096
+#: most stages of one plan (``FFT_MAX_STAGES`` in ``frame_fft.cuh``)
+MAX_STAGES = 12
+
+
+@functools.lru_cache(maxsize=16)
+def table_np(n_fft: int) -> np.ndarray:
+    """``(2, n_fft)``: ``cos`` and ``-sin`` of ``2 pi i / n_fft``, built
+    in float64 and rounded once to float32: the kernels' table, for the
+    direct DFT's bases and the FFT's twiddles alike."""
+    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
+    tab = np.stack([np.cos(ang), -np.sin(ang)]).astype(np.float32)
+    tab.flags.writeable = False
+    return tab
+
+
+@functools.lru_cache(maxsize=64)
+def plan(n_fft: int) -> tuple[int, ...] | None:
+    """The radices of the FFT stage at ``n_fft``, in stage order: radix
+    4 as long as it divides ``n_fft / 2``, then one radix 2, then 3s,
+    then 5s.  ``None`` (the direct-DFT stage) where ``n_fft`` is odd,
+    outside ``[2, 4096]``, or ``n_fft / 2`` has a prime factor above 5."""
+    if n_fft < 2 or n_fft % 2 or n_fft > MAX_N_FFT:
+        return None
+    m = n_fft // 2
+    radices = []
+    for r in (4, 2, 3, 5):
+        while m % r == 0:
+            radices.append(r)
+            m //= r
+            if r == 2:
+                break
+    return tuple(radices) if m == 1 else None
+
+
+def stage_name(n_fft: int) -> str:
+    """``"fft"`` or ``"direct"``: the stage the kernels run at ``n_fft``."""
+    return "direct" if plan(n_fft) is None else "fft"
+
+
+def _cmul(ar, ai, wr, wi):
+    return ar * wr - ai * wi, ar * wi + ai * wr
+
+
+def _butterfly(r: int, a: list, w: list):
+    """The radix-``r`` DFT of ``a`` (``r`` pairs ``(re, im)``), as the
+    kernel computes it; ``w[q]`` is the table entry ``W_r^q``."""
+    if r == 2:
+        (a0r, a0i), (a1r, a1i) = a
+        return [(a0r + a1r, a0i + a1i), (a0r - a1r, a0i - a1i)]
+    if r == 4:
+        (a0r, a0i), (a1r, a1i), (a2r, a2i), (a3r, a3i) = a
+        t0r, t0i = a0r + a2r, a0i + a2i
+        t1r, t1i = a0r - a2r, a0i - a2i
+        t2r, t2i = a1r + a3r, a1i + a3i
+        t3r, t3i = a1r - a3r, a1i - a3i
+        return [(t0r + t2r, t0i + t2i), (t1r + t3i, t1i - t3r),
+                (t0r - t2r, t0i - t2i), (t1r - t3i, t1i + t3r)]
+    if r == 3:
+        (a0r, a0i), (a1r, a1i), (a2r, a2i) = a
+        c, s = w[1]
+        sr, si = a1r + a2r, a1i + a2i
+        dr, di = a1r - a2r, a1i - a2i
+        mr, mi = a0r + c * sr, a0i + c * si
+        return [(a0r + sr, a0i + si), (mr - s * di, mi + s * dr),
+                (mr + s * di, mi - s * dr)]
+    # r == 5
+    (a0r, a0i), (a1r, a1i), (a2r, a2i), (a3r, a3i), (a4r, a4i) = a
+    (c1, s1), (c2, s2) = w[1], w[2]
+    p1r, p1i = a1r + a4r, a1i + a4i
+    d1r, d1i = a1r - a4r, a1i - a4i
+    p2r, p2i = a2r + a3r, a2i + a3i
+    d2r, d2i = a2r - a3r, a2i - a3i
+    m1r, m1i = a0r + c1 * p1r + c2 * p2r, a0i + c1 * p1i + c2 * p2i
+    m2r, m2i = a0r + c2 * p1r + c1 * p2r, a0i + c2 * p1i + c1 * p2i
+    n1r, n1i = s1 * d1r + s2 * d2r, s1 * d1i + s2 * d2i
+    n2r, n2i = s2 * d1r - s1 * d2r, s2 * d1i - s1 * d2i
+    return [(a0r + p1r + p2r, a0i + p1i + p2i), (m1r - n1i, m1i + n1r),
+            (m2r - n2i, m2i + n2r), (m2r + n2i, m2i - n2r),
+            (m1r + n1i, m1i - n1r)]
+
+
+def rfft_mirror(frames: torch.Tensor, radices: tuple[int, ...],
+                table: torch.Tensor):
+    """``(re, im)``, each ``(rows, n_fft / 2 + 1)``: the real DFT of the
+    float32 ``frames`` (rows, n_fft) as the FFT stage computes it, with
+    ``table`` the ``(2, n_fft)`` cos / -sin table (:func:`table_np`).
+
+    The frame's samples, read in pairs, are ``m = n_fft / 2`` complex
+    values ``z[n] = x[2n] + i x[2n+1]``.  Each Stockham stage of radix
+    ``R``, after stages whose radices multiply to ``L``, takes butterfly
+    ``i < m / R`` with ``k = i mod L``: inputs ``z[i + r m / R]`` times
+    the twiddle ``table[r k n_fft / (L R)]``, a radix-``R`` DFT, outputs
+    to ``(i - k) R + k + q L``.  The post-pass gives bin ``k <= m``:
+    ``X[k] = E + W^k O`` with ``E = (Z[k] + conj Z[m-k]) / 2``, ``O =
+    (Z[k] - conj Z[m-k]) / 2i`` and ``Z[m] = Z[0]``."""
+    rows, n = frames.shape
+    m = n // 2
+    tc, ts = table[0], table[1]
+    z = frames.reshape(rows, m, 2)
+    zr, zi = z[..., 0], z[..., 1]
+    ell = 1
+    for r in radices:
+        stride, ls = m // r, ell * r
+        i = torch.arange(stride)
+        k = i % ell
+        w = [(tc[q * n // r], ts[q * n // r]) for q in range(r)]
+        a = []
+        for q in range(r):
+            t = q * k * (n // ls)
+            a.append(_cmul(zr[:, i + q * stride], zi[:, i + q * stride],
+                           tc[t], ts[t]))
+        b = _butterfly(r, a, w)
+        yr, yi = torch.empty_like(zr), torch.empty_like(zi)
+        base = (i - k) * r + k
+        for q in range(r):
+            yr[:, base + q * ell], yi[:, base + q * ell] = b[q]
+        zr, zi, ell = yr, yi, ls
+    k = torch.arange(m + 1)
+    kk = torch.where(k == m, 0, k)
+    km = torch.where(k == 0, 0, m - k)
+    er, ei = 0.5 * (zr[:, kk] + zr[:, km]), 0.5 * (zi[:, kk] - zi[:, km])
+    orr, oi = 0.5 * (zi[:, kk] + zi[:, km]), -0.5 * (zr[:, kk] - zr[:, km])
+    wr, wi = tc[k], ts[k]
+    return er + (wr * orr - wi * oi), ei + (wr * oi + wi * orr)
+
+
+@functools.lru_cache(maxsize=16)
+def ext_bin_map(n_fft: int, j_taps: int, kp: int):
+    """K1's extended bins as FFT bins: ``(bins, signs)`` with ``bins``
+    (kp,) int32 and ``signs`` (2, kp) float32.
+
+    Column ``j`` holds extended bin ``k = j - J`` of the phase-flipped
+    spectrum ``(-1)^k Y[k]`` of an unwindowed frame, ``Y = rfft``: bin
+    ``k`` for ``0 <= k <= n_fft/2``, ``conj Y[-k]`` for ``k < 0`` and
+    ``conj Y[n_fft - k]`` above.  So the cos plane is ``signs[0, j] Re
+    Y[bins[j]]`` and the sin plane ``signs[1, j] Im Y[bins[j]]``;
+    ``bins`` is -1 and both signs 0 at the zero columns ``j >=
+    n_bins + 2J``."""
+    n_bins = n_fft // 2 + 1
+    k = np.arange(kp) - j_taps
+    valid = k < n_bins + j_taps
+    conj = (k < 0) | (k > n_fft // 2)
+    bins = np.where(k < 0, -k, np.where(k > n_fft // 2, n_fft - k, k))
+    flip = np.where(k % 2 == 0, 1.0, -1.0)
+    signs = np.stack([np.where(valid, flip, 0.0),
+                      np.where(valid, np.where(conj, -flip, flip), 0.0)])
+    bins = np.where(valid, bins, -1).astype(np.int32)
+    signs = signs.astype(np.float32)
+    bins.flags.writeable = False
+    signs.flags.writeable = False
+    return bins, signs

@@ -40,6 +40,7 @@ import numpy as np
 import torch
 
 from dmel_tpu_torch.ops import _cuda
+from dmel_tpu_torch.ops.fft_plan import table_np as _table_np
 from dmel_tpu_torch.ops.mel import melscale_fbanks_np
 from dmel_tpu_torch.ops.stft import frame_signal, num_frames
 
@@ -75,16 +76,6 @@ def kp_of(n_fft: int) -> int:
     """Columns of one plane of the Re|Im residual: the ``n_fft // 2 + 1``
     bins padded to a multiple of 64."""
     return -(-(n_fft // 2 + 1) // _KP_ALIGN) * _KP_ALIGN
-
-
-@functools.lru_cache(maxsize=16)
-def _table_np(n_fft: int) -> np.ndarray:
-    """``(2, n_fft)``: ``cos`` and ``-sin`` of ``2 pi i / n_fft``, built
-    in float64 and rounded once to float32."""
-    ang = 2.0 * np.pi * np.arange(n_fft) / n_fft
-    tab = np.stack([np.cos(ang), -np.sin(ang)]).astype(np.float32)
-    tab.flags.writeable = False
-    return tab
 
 
 @functools.lru_cache(maxsize=16)
@@ -227,9 +218,11 @@ def _fwd_lib() -> ctypes.CDLL:
     the stream as ``c_void_p`` (ctypes would pass a bare Python int as a
     32-bit int), sizes as ``c_int``."""
     lib = _cuda.load("framed_fwd").cdll
+    args = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+    lib.framed_fwd.argtypes = args + [ctypes.c_void_p]
+    lib.fused_fwd.argtypes = args + [ctypes.c_void_p, ctypes.c_int,
+                                     ctypes.c_void_p]
     for entry in (lib.framed_fwd, lib.fused_fwd):
-        entry.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-                          + [ctypes.c_void_p])
         entry.restype = ctypes.c_int
     lib.framed_fwd_error_string.argtypes = [ctypes.c_int]
     lib.framed_fwd_error_string.restype = ctypes.c_char_p
@@ -264,12 +257,14 @@ def _check_operands(name: str, device: torch.device, *tensors):
 
 
 def launch_fwd(entry: str, x2: torch.Tensor, window: torch.Tensor,
-               g: Geom):
+               g: Geom, radices: tuple[int, ...] | None = None):
     """Launch the forward kernel's entry point ``entry`` (``"framed_fwd"``
     for K3, ``"fused_fwd"`` for K5) on the current stream, without
     synchronising: ``(out, reim)`` as :func:`fwd_plain` gives them.
-    Checks device, dtype, shape and contiguity; a failed build or launch
-    raises.  The caller counts the launch."""
+    ``radices`` is K5's spectra stage, the FFT of that plan
+    (:func:`fft_plan.plan`) or ``None`` for the direct DFT; K3 always
+    takes the direct DFT.  Checks device, dtype, shape and contiguity; a
+    failed build or launch raises.  The caller counts the launch."""
     _check_operands(entry, x2.device, x2, window)
     if x2.dim() != 2 or window.shape != (g.n_fft,):
         raise ValueError(f"{entry}: x (B, T) and window ({g.n_fft},), got "
@@ -284,12 +279,17 @@ def launch_fwd(entry: str, x2: torch.Tensor, window: torch.Tensor,
         out = torch.empty((b, g.n_mels, nfr), dtype=torch.float32,
                           device=x2.device)
         lib = _fwd_lib()
-        rc = getattr(lib, entry)(
-            x2.data_ptr(), window.data_ptr(), c.table.data_ptr(),
-            c.fb.data_ptr(), c.mel_lo.data_ptr(), c.mel_hi.data_ptr(),
-            reim.data_ptr(), out.data_ptr(), b, t, nfr, g.hop_length,
-            g.n_fft, kp, n_bins, g.n_mels,
-            torch.cuda.current_stream(x2.device).cuda_stream)
+        args = (x2.data_ptr(), window.data_ptr(), c.table.data_ptr(),
+                c.fb.data_ptr(), c.mel_lo.data_ptr(), c.mel_hi.data_ptr(),
+                reim.data_ptr(), out.data_ptr(), b, t, nfr, g.hop_length,
+                g.n_fft, kp, n_bins, g.n_mels)
+        stream = torch.cuda.current_stream(x2.device).cuda_stream
+        if entry == "framed_fwd":
+            if radices is not None:
+                raise ValueError("framed_fwd takes the direct DFT only")
+            rc = lib.framed_fwd(*args, stream)
+        else:
+            rc = lib.fused_fwd(*args, *_cuda.plan_args(radices), stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: "
                            + lib.framed_fwd_error_string(rc).decode())

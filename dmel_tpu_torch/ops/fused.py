@@ -7,7 +7,9 @@ point of the framed forward kernel (``csrc/framed_fwd.cu``,
 ``fused_fwd``): it reads each frame at its own offset of the signal, so
 no frames tensor is built, and takes an n_fft that is not a lane multiple
 (faithful mode's ``2 T``) and a window centred in n_fft
-(:func:`pad_window`).
+(:func:`pad_window`).  Its spectra stage is an FFT per frame in shared
+memory wherever :func:`fft_plan.plan` has a plan for n_fft (every power
+of two), else the direct DFT that K3 runs.
 
 The backward into the window is, by default, not a kernel, in the JAX
 package either (``USE_FUSED_BWD = False``): it is the adjoint chain
@@ -25,7 +27,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
-from dmel_tpu_torch.ops import framed
+from dmel_tpu_torch.ops import fft_plan, framed
 from dmel_tpu_torch.ops.window import gaussian_window
 
 #: largest n_fft the kernel serves (the JAX package's cap)
@@ -88,11 +90,17 @@ def fused_fwd(x2: torch.Tensor, window: torch.Tensor, g: framed.Geom):
     """K5's wrapper: ``(out, reim)`` as :func:`framed.fwd_plain` gives
     them, ``window`` already centred in n_fft.  CPU tensors take
     :func:`framed.fwd_plain`; CUDA tensors launch ``csrc/framed_fwd.cu``
-    (entry ``fused_fwd``) and add one to ``dmel_power.launches``."""
+    (entry ``fused_fwd``) with the spectra stage
+    :func:`fft_plan.plan` picks for n_fft, and add one to
+    ``dmel_power.launches`` and, on the FFT stage, to
+    ``dmel_power.fft_launches``."""
     if x2.device.type == "cpu":
         return framed.fwd_plain(x2, window, g)
-    res = framed.launch_fwd("fused_fwd", x2, window, g)
+    radices = fft_plan.plan(g.n_fft)
+    res = framed.launch_fwd("fused_fwd", x2, window, g, radices)
     dmel_power.launches += 1
+    if radices is not None:
+        dmel_power.fft_launches += 1
     return res
 
 
@@ -124,7 +132,8 @@ def dmel_power(x: torch.Tensor, lambd, *, win_length: int, n_fft: int,
     ``n_fft <= 4096``, else ``ValueError``.
 
     Differentiable in ``lambd`` (through the window) and ``x``.  CUDA
-    tensors launch K5 (adding one to ``dmel_power.launches``) on the
+    tensors launch K5 (adding one to ``dmel_power.launches``, and to
+    ``dmel_power.fft_launches`` where n_fft takes the FFT stage) on the
     current stream, without synchronising, and float32 only
     (``TypeError`` otherwise); CPU tensors run the same autograd function
     over the plain forward.  The window's gradient comes from K6 when
@@ -146,3 +155,4 @@ def dmel_power(x: torch.Tensor, lambd, *, win_length: int, n_fft: int,
 
 
 dmel_power.launches = 0
+dmel_power.fft_launches = 0

@@ -18,7 +18,9 @@ Two versions of the function live here:
   is the yardstick the kernels are held against.
 - :func:`specband_mel_power`, an autograd function over two
   hand-written CUDA kernels: K1 (``csrc/specband_fwd.cu``, the
-  forward) and K2 (``csrc/specband_bwd.cu``, the gradient in the taps,
+  forward, whose spectra stage is an FFT per frame in shared memory
+  wherever :func:`fft_plan.plan` has a plan for n_fft, else the direct
+  DFT) and K2 (``csrc/specband_bwd.cu``, the gradient in the taps,
   wrapped by :func:`specband_drho` with its plain version
   :func:`specband_drho_plain`).  CUDA tensors launch the kernels; CPU
   tensors take the plain version.
@@ -42,7 +44,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dmel_tpu_torch.ops import _cuda
+from dmel_tpu_torch.ops import _cuda, fft_plan
 from dmel_tpu_torch.ops.mel import melscale_fbanks_np
 from dmel_tpu_torch.ops.stft import SPECGEMM_J_TAPS, frame_signal, num_frames
 
@@ -308,25 +310,53 @@ def specband_mel_power_multi_plain(x: torch.Tensor, windows: torch.Tensor,
     return mel.reshape(lead + mel.shape[-2:])
 
 
+def _kp(n_fft: int, j_taps: int) -> int:
+    """Columns of one plane of the kernels' spectra buffer: the ``k_ext``
+    extended bins padded to a multiple of 64."""
+    return _round_up(_geom(n_fft, j_taps)[1], _KP_ALIGN)
+
+
+@functools.lru_cache(maxsize=8)
+def _fb_dense(n_fft: int, n_mels: int, sample_rate: int, f_min: float,
+              f_max: float, device: torch.device) -> torch.Tensor:
+    """The dense ``(n_bins, n_mels)`` filterbank on ``device``."""
+    return torch.tensor(melscale_fbanks_np(n_fft // 2 + 1, f_min, f_max,
+                                           n_mels, sample_rate),
+                        device=device)
+
+
+def _fb(g: _Geom, device: torch.device) -> torch.Tensor:
+    return _fb_dense(g.n_fft, g.n_mels, g.sample_rate, g.f_min, g.f_max,
+                     device)
+
+
 @functools.lru_cache(maxsize=8)
 def _kernel_consts(n_fft: int, j_taps: int, n_mels: int, sample_rate: int,
                    f_min: float, f_max: float, device: torch.device):
-    """The kernels' constant operands on ``device``: the bases as one
-    ``(n_fft, 2 kp)`` matrix (cos plane, then sin plane, each padded
+    """The direct stage's constant operands on ``device``: the bases as
+    one ``(n_fft, 2 kp)`` matrix (cos plane, then sin plane, each padded
     with zero columns to ``kp``), the dense ``(n_bins, n_mels)``
     filterbank, and ``kp``."""
-    n_bins, k_ext, _, _ = _geom(n_fft, j_taps)
-    kp = _round_up(k_ext, _KP_ALIGN)
+    kp = _kp(n_fft, j_taps)
     bc, bs = _bases_np(n_fft, j_taps, kp)
     basis = torch.tensor(np.concatenate([bc, bs], axis=1), device=device)
-    fb = torch.tensor(melscale_fbanks_np(n_bins, f_min, f_max, n_mels,
-                                         sample_rate), device=device)
-    return basis, fb, kp
+    return (basis, _fb_dense(n_fft, n_mels, sample_rate, f_min, f_max,
+                             device), kp)
 
 
 def _consts(g: _Geom, device: torch.device):
     return _kernel_consts(g.n_fft, g.j_taps, g.n_mels, g.sample_rate,
                           g.f_min, g.f_max, device)
+
+
+@functools.lru_cache(maxsize=8)
+def _fft_consts(n_fft: int, j_taps: int, device: torch.device):
+    """The FFT stage's constant operands on ``device``: the ``(2, n_fft)``
+    cos / -sin table and the extended-bin map ``(bins, signs)`` of
+    :func:`fft_plan.ext_bin_map`."""
+    bins, signs = fft_plan.ext_bin_map(n_fft, j_taps, _kp(n_fft, j_taps))
+    return tuple(torch.tensor(a, device=device) for a in
+                 (fft_plan.table_np(n_fft), bins, signs))
 
 
 def _band_sum(plane: torch.Tensor, rho: torch.Tensor,
@@ -346,10 +376,21 @@ def _fwd_plain(x2: torch.Tensor, rho: torch.Tensor, g: _Geom):
     vector ``g.band_map[m]``."""
     b, t = x2.shape
     nfr = num_frames(t, g.hop_length)
-    n_bins = g.n_fft // 2 + 1
-    basis, fb, kp = _consts(g, x2.device)
+    basis = _consts(g, x2.device)[0]
     frames = frame_signal(x2, g.n_fft, g.hop_length)
     xext = frames.reshape(b * nfr, g.n_fft) @ basis
+    return band_mel_plain(xext, rho, g, b), xext
+
+
+def band_mel_plain(xext: torch.Tensor, rho: torch.Tensor, g: _Geom,
+                   batch: int) -> torch.Tensor:
+    """K1's band stage in plain PyTorch: ``out`` (B, n_mels, n_frames)
+    from the ``(B n_frames, 2 kp)`` spectra buffer ``xext`` and the taps,
+    as :func:`_fwd_plain` computes it after its spectra."""
+    kp = xext.shape[1] // 2
+    n_bins = g.n_fft // 2 + 1
+    nfr = xext.shape[0] // batch
+    fb = _fb(g, xext.device)
     mels = []
     for r in _taps2(rho):
         s_re = _band_sum(xext[:, :kp], r, n_bins)
@@ -357,12 +398,12 @@ def _fwd_plain(x2: torch.Tensor, rho: torch.Tensor, g: _Geom):
         mels.append((s_re * s_re + s_im * s_im) @ fb)
     mel = mels[0]
     if g.band_map is not None:
-        bands = torch.arange(g.n_mels, device=x2.device)
-        sigma = _band_map_tensor(g.band_map, x2.device).long()
+        bands = torch.arange(g.n_mels, device=xext.device)
+        sigma = _band_map_tensor(g.band_map, xext.device).long()
         mel = torch.stack(mels)[sigma, :, bands].T
     if g.log_epilogue:
         mel = torch.log(mel + LOG_EPS)
-    return mel.reshape(b, nfr, g.n_mels).transpose(1, 2).contiguous(), xext
+    return mel.reshape(batch, nfr, g.n_mels).transpose(1, 2).contiguous()
 
 
 def _fwd_lib() -> ctypes.CDLL:
@@ -370,8 +411,9 @@ def _fwd_lib() -> ctypes.CDLL:
     stream as ``c_void_p`` (ctypes would pass a bare Python int as a
     32-bit int), sizes as ``c_int``."""
     lib = _cuda.load("specband_fwd").cdll
-    lib.specband_fwd.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 12
-                                 + [ctypes.c_void_p])
+    lib.specband_fwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
+                                 + [ctypes.c_void_p, ctypes.c_int,
+                                    ctypes.c_void_p])
     lib.specband_fwd.restype = ctypes.c_int
     lib.specband_error_string.argtypes = [ctypes.c_int]
     lib.specband_error_string.restype = ctypes.c_char_p
@@ -391,21 +433,26 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
-def _fwd(x2: torch.Tensor, rho: torch.Tensor, g: _Geom):
-    """K1's wrapper: ``(out, xext)`` as :func:`_fwd_plain` gives them.
-    CPU tensors take :func:`_fwd_plain`; CUDA tensors launch
-    ``csrc/specband_fwd.cu`` at ``k_sig`` = the taps' rows, on the
-    current stream and without synchronising, and add one to
-    ``specband_mel_power.launches`` (or, with ``g.band_map``, to
-    ``specband_mel_power_multi.launches``)."""
-    if x2.device.type == "cpu":
-        return _fwd_plain(x2, rho, g)
+def launch_fwd(x2: torch.Tensor, rho: torch.Tensor, g: _Geom,
+               radices: tuple[int, ...] | None):
+    """Launch K1 (``csrc/specband_fwd.cu``) at ``k_sig`` = the taps' rows
+    on the current stream, without synchronising: ``(out, xext)`` as
+    :func:`_fwd_plain` gives them.  ``radices`` is the spectra stage, the
+    FFT of that plan (:func:`fft_plan.plan`) or ``None`` for the direct
+    DFT.  A failed build or launch raises.  The caller counts the
+    launch."""
     b, t = x2.shape
     nfr = num_frames(t, g.hop_length)
     n_bins, k_ext, _, _ = _geom(g.n_fft, g.j_taps)
+    kp = _kp(g.n_fft, g.j_taps)
     k_sig = _taps2(rho).shape[0]
     with torch.cuda.device(x2.device):
-        basis, fb, kp = _consts(g, x2.device)
+        fb = _fb(g, x2.device)
+        basis = table = bins = signs = None
+        if radices is None:
+            basis = _consts(g, x2.device)[0]
+        else:
+            table, bins, signs = _fft_consts(g.n_fft, g.j_taps, x2.device)
         band_map = (None if g.band_map is None
                     else _band_map_tensor(g.band_map, x2.device))
         rho = rho.contiguous()
@@ -417,20 +464,39 @@ def _fwd(x2: torch.Tensor, rho: torch.Tensor, g: _Geom):
                           device=x2.device)
         lib = _fwd_lib()
         rc = lib.specband_fwd(
-            x2.data_ptr(), basis.data_ptr(), rho.data_ptr(), fb.data_ptr(),
+            x2.data_ptr(), *(None if a is None else a.data_ptr()
+                             for a in (basis, table, bins, signs)),
+            rho.data_ptr(), fb.data_ptr(),
             None if band_map is None else band_map.data_ptr(),
             sig_range.data_ptr(), xext.data_ptr(), out.data_ptr(), b, t,
             nfr, g.hop_length, g.n_fft, kp, k_ext, n_bins,
             2 * g.j_taps + 1, g.n_mels, k_sig, int(g.log_epilogue),
+            *_cuda.plan_args(radices),
             torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("specband_fwd launch failed: "
                            + lib.specband_error_string(rc).decode())
-    if g.band_map is None:
-        specband_mel_power.launches += 1
-    else:
-        specband_mel_power_multi.launches += 1
     return out, xext
+
+
+def _fwd(x2: torch.Tensor, rho: torch.Tensor, g: _Geom):
+    """K1's wrapper: ``(out, xext)`` as :func:`_fwd_plain` gives them.
+    CPU tensors take :func:`_fwd_plain`; CUDA tensors launch
+    ``csrc/specband_fwd.cu`` (:func:`launch_fwd`) with the spectra stage
+    :func:`fft_plan.plan` picks for n_fft, and add one to
+    ``specband_mel_power.launches`` (or, with ``g.band_map``, to
+    ``specband_mel_power_multi.launches``) and, on the FFT stage, to that
+    function's ``fft_launches``."""
+    if x2.device.type == "cpu":
+        return _fwd_plain(x2, rho, g)
+    radices = fft_plan.plan(g.n_fft)
+    res = launch_fwd(x2, rho, g, radices)
+    counter = (specband_mel_power if g.band_map is None
+               else specband_mel_power_multi)
+    counter.launches += 1
+    if radices is not None:
+        counter.fft_launches += 1
+    return res
 
 
 def specband_drho_plain(xext: torch.Tensor, rho: torch.Tensor,
@@ -583,7 +649,7 @@ class _SpecbandMel(torch.autograd.Function):
         dout = dout.contiguous()
         dx = drho = None
         if ctx.needs_input_grad[1]:
-            _, fb, _ = _consts(g, xext.device)
+            fb = _fb(g, xext.device)
             drho = specband_drho(xext, rho.contiguous(), fb, dout, logmel,
                                  g.band_map)
         if ctx.needs_input_grad[0]:
@@ -608,7 +674,8 @@ def specband_mel_power(x: torch.Tensor, window: torch.Tensor, *,
 
     CPU tensors take :func:`specband_mel_power_plain` (autograd through
     it gives every gradient).  CUDA tensors launch K1 (adding one to
-    ``specband_mel_power.launches``), on the current stream and without
+    ``specband_mel_power.launches``, and to its ``fft_launches`` where
+    n_fft takes the FFT stage), on the current stream and without
     synchronising; a failed build or launch raises.  The gradient in
     ``window`` comes from K2 through the taps (:func:`window_taps_sym`
     is differentiable), the gradient in ``x`` from the plain rebuild.
@@ -636,6 +703,7 @@ def specband_mel_power(x: torch.Tensor, window: torch.Tensor, *,
 
 
 specband_mel_power.launches = 0
+specband_mel_power.fft_launches = 0
 
 
 def specband_mel_power_multi(x: torch.Tensor, windows: torch.Tensor,
@@ -652,7 +720,8 @@ def specband_mel_power_multi(x: torch.Tensor, windows: torch.Tensor,
 
     CPU tensors take :func:`specband_mel_power_multi_plain`.  CUDA
     tensors launch K1 at ``k_sig = K`` (adding one to
-    ``specband_mel_power_multi.launches``), float32 only, on the current
+    ``specband_mel_power_multi.launches``, and to its ``fft_launches`` on
+    the FFT stage), float32 only, on the current
     stream and without synchronising; the gradient in ``windows`` comes
     from K2 at ``k_sig = K`` through the ``(K, 2J + 1)`` taps.
     """
@@ -680,3 +749,4 @@ def specband_mel_power_multi(x: torch.Tensor, windows: torch.Tensor,
 
 
 specband_mel_power_multi.launches = 0
+specband_mel_power_multi.fft_launches = 0

@@ -19,7 +19,7 @@ import torch
 from dmel_tpu_torch import (build_optimizer, get_model_by_config, ops,
                             precision_scope)
 from dmel_tpu_torch.data import get_dataset_by_config
-from dmel_tpu_torch.ops import framed, fused, specband
+from dmel_tpu_torch.ops import fft_plan, framed, fused, specband
 from dmel_tpu_torch.training import fit, train_step
 
 pytestmark = pytest.mark.gpu
@@ -57,7 +57,13 @@ CASES = [
     (2, 3000, 2048, 80, 64, 250.0, 12),
     (2, 9000, 4096, 80, 64, 400.0, 12),
     (4, 2000, 384, 32, 40, 40.0, 24),
+    (2, 3000, 896, 80, 64, 112.0, 24),
 ]
+
+
+def _fft_planned(n_fft):
+    """1 where the kernels take the FFT stage at ``n_fft``, else 0."""
+    return int(fft_plan.plan(n_fft) is not None)
 
 
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"nfft{c[2]}-b{c[0]}")
@@ -68,11 +74,15 @@ def test_kernel_matches_plain(cuda, case, log):
     w = ops.gaussian_window(torch.tensor(lam, device=cuda), n_fft)
     kw = dict(n_fft=n_fft, hop_length=hop, n_mels=n_mels, sample_rate=8000,
               j_taps=j, log_epilogue=log)
-    before = specband.specband_mel_power.launches
+    before = (specband.specband_mel_power.launches,
+              specband.specband_mel_power.fft_launches)
     got = specband.specband_mel_power(x, w, **kw)
     want = specband.specband_mel_power_plain(x, w, **kw)
     torch.cuda.synchronize()
-    assert specband.specband_mel_power.launches == before + 1
+    # the FFT stage at every n_fft of CASES but 896 = 2^7 7 (direct DFT)
+    assert (specband.specband_mel_power.launches,
+            specband.specband_mel_power.fft_launches) == (
+                before[0] + 1, before[1] + _fft_planned(n_fft))
     assert got.shape == want.shape == (b, n_mels, ops.num_frames(t, hop))
     assert torch.isfinite(got).all()
     if log:
@@ -342,7 +352,7 @@ def test_k5_matches_plain(cuda, case):
     kw = dict(win_length=win, n_fft=n_fft, hop_length=hop, n_mels=n_mels,
               sample_rate=8000)
     lam_t = torch.tensor(lam, device=cuda)
-    before = fused.dmel_power.launches
+    before = (fused.dmel_power.launches, fused.dmel_power.fft_launches)
     got = fused.dmel_power(x, lam_t, **kw)
     want = fused.dmel_power_plain(x, lam_t, **kw)
     exact = ops.mel_spectrogram(
@@ -350,11 +360,83 @@ def test_k5_matches_plain(cuda, case):
         optimized=win == n_fft, window_length=n_fft, subtract_mean=False,
         impl="exact")
     torch.cuda.synchronize()
-    assert fused.dmel_power.launches == before + 1
+    # the FFT stage at 2048, 4096 and 3000 (radices 4, 3, 5); the direct
+    # DFT at 1400 = 2^3 5^2 7
+    assert (fused.dmel_power.launches, fused.dmel_power.fft_launches) == (
+        before[0] + 1, before[1] + _fft_planned(n_fft))
     assert got.shape == want.shape == (b, n_mels, ops.num_frames(t, hop))
     lg = torch.log(got + 1e-10)
     assert float((lg - torch.log(want + 1e-10)).abs().max()) <= GATE
     assert float((lg - torch.log(exact + 1e-10)).abs().max()) <= GATE
+
+
+#: (kernel, n_fft, lambd, J): the FFT stage's residuals at the buckets
+#: the auto dispatch takes it at
+FFT_CASES = [(k, n, lam, j) for k in ("K1", "K5")
+             for n, lam, j in ((1024, 128.0, 24), (2048, 250.0, 12),
+                               (4096, 400.0, 12))]
+
+
+@pytest.mark.parametrize("case", FFT_CASES, ids=lambda c: f"{c[0]}-nfft{c[1]}")
+def test_fft_stage_residual_matches_plain(cuda, case):
+    """K1's spectra buffer and K5's Re|Im residual from the FFT stage
+    against the plain version (the direct DFT in torch) within 1e-5 of
+    its largest entry, with exact zero pad columns, and bit-identical on
+    repeat; the launches count on the FFT counter."""
+    kernel, n_fft, lam, j = case
+    x = _signal((2, 9000)).to(cuda)
+    w = ops.gaussian_window(torch.tensor(lam, device=cuda), n_fft)
+    if kernel == "K1":
+        g = specband._Geom(n_fft, 80, 64, 8000, 0.0, 4000.0, j, True)
+        rho = specband.window_taps_sym(w, n_fft, j)
+        counter = specband.specband_mel_power
+        before = counter.fft_launches
+        (_, got), (_, again) = specband._fwd(x, rho, g), specband._fwd(
+            x, rho, g)
+        _, want = specband._fwd_plain(x, rho, g)
+        kp, width = specband._kp(n_fft, j), specband._geom(n_fft, j)[1]
+    else:
+        g = framed.Geom(n_fft, 80, 64, 8000, 0.0, 4000.0)
+        counter = fused.dmel_power
+        before = counter.fft_launches
+        (_, got), (_, again) = fused.fused_fwd(x, w, g), fused.fused_fwd(
+            x, w, g)
+        _, want = framed.fwd_plain(x, w, g)
+        kp, width = framed.kp_of(n_fft), n_fft // 2 + 1
+    torch.cuda.synchronize()
+    assert counter.fft_launches == before + 2
+    assert got.shape == want.shape == (2 * ops.num_frames(9000, 80), 2 * kp)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= 1e-5, err
+    assert not got[:, width:kp].any() and not got[:, kp + width:].any()
+    assert torch.equal(got, again)
+
+
+def test_direct_stage_at_planned_nfft_and_bad_plans(cuda):
+    """The direct stage, launched through the C entries at an n_fft the
+    wrappers take the FFT for, computes the same function; a plan that is
+    not one of n_fft / 2 is refused, never replaced."""
+    x = _signal((2, 6000)).to(cuda)
+    w = ops.gaussian_window(torch.tensor(128.0, device=cuda), 1024)
+    g5 = framed.Geom(1024, 80, 64, 8000, 0.0, 4000.0)
+    out_d, reim_d = framed.launch_fwd("fused_fwd", x, w, g5, None)
+    out_f, reim_f = fused.fused_fwd(x, w, g5)
+    assert float((reim_d - reim_f).abs().max() / reim_f.abs().max()) <= 1e-5
+    assert float((torch.log(out_d + 1e-10) - torch.log(out_f + 1e-10))
+                 .abs().max()) <= GATE
+    g1 = specband._Geom(1024, 80, 64, 8000, 0.0, 4000.0, 24, True)
+    rho = specband.window_taps_sym(w, 1024, 24)
+    out_d, xext_d = specband.launch_fwd(x, rho, g1, None)
+    out_f, xext_f = specband._fwd(x, rho, g1)
+    assert float((xext_d - xext_f).abs().max() / xext_f.abs().max()) <= 1e-5
+    assert float((out_d - out_f).abs().max()) <= GATE
+    for bad in ((4, 4), (4, 4, 4, 4, 4, 2), (4, 4, 4, 4, 8), (7,) * 3):
+        with pytest.raises(RuntimeError, match="fused_fwd launch failed"):
+            framed.launch_fwd("fused_fwd", x, w, g5, bad)
+        with pytest.raises(RuntimeError, match="specband_fwd launch failed"):
+            specband.launch_fwd(x, rho, g1, bad)
+    with pytest.raises(ValueError, match="direct DFT only"):
+        framed.launch_fwd("framed_fwd", x, w, g5, fft_plan.plan(1024))
 
 
 def _k4_operands(cuda, case, seed=0):
@@ -449,26 +531,33 @@ def test_faithful_auto_route_uses_fused_kernel(cuda):
 
 
 @pytest.mark.parametrize("impl,n_fft,lam", [
-    ("specband", 1024, 128.0), ("framed", 512, 46.7), ("fused", 4096, 600.0)])
+    ("specband", 1024, 128.0), ("framed", 512, 46.7), ("fused", 4096, 600.0),
+    ("specband", 4096, 400.0), ("fused", 2048, 300.0)])
 def test_kernel_routes_do_not_synchronise(cuda, impl, n_fft, lam):
     """Forward and backward into lambda through each kernel route issue
     no operation that makes the host wait for the card, once the
-    route's constants are on the card."""
+    route's constants are on the card; the specband and fused forwards
+    take the FFT stage."""
     x = _signal((2, 6000)).to(cuda)
     lam_t = torch.tensor(lam, device=cuda, requires_grad=True)
     kw = dict(n_mels=64, sample_rate=8000, hop_length=80, optimized=True,
               window_length=n_fft, impl=impl)
+    counter = {"specband": specband.specband_mel_power,
+               "fused": fused.dmel_power}.get(impl)
 
     def run():
         ops.log_mel_spectrogram(x, lam_t, **kw).sum().backward()
 
     run()
     torch.cuda.synchronize()
+    before = counter.fft_launches if counter else 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         run()
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    if counter:
+        assert counter.fft_launches == before + 1
 
 
 def test_explicit_fused_above_cap_takes_exact_route(cuda):
@@ -760,11 +849,16 @@ def test_new_routes_do_not_synchronise(cuda, monkeypatch, route):
 
     run()
     torch.cuda.synchronize()
+    counter = {"multi": specband.specband_mel_power_multi,
+               "fused_bwd": fused.dmel_power}.get(route)
+    before = counter.fft_launches if counter else 0
     torch.cuda.set_sync_debug_mode("error")
     try:
         run()
     finally:
         torch.cuda.set_sync_debug_mode("default")
+    if counter:
+        assert counter.fft_launches == before + 1
 
 
 def test_failed_launches_raise(cuda):
