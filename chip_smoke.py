@@ -49,9 +49,12 @@ Phases, each announced by a flushed line when it starts and ends:
    ``framed_dwindow_plain`` on K3's residual (1e-3 of the largest entry,
    two runs bit-identical), dlambda through the kernels against autograd
    of the plain chain and of the exact route (1e-2).  Times as for
-   K1/K2; the exact route's backward is K4's yardstick.  K3 runs the
-   direct stage; its ``direct_ms`` is the same two kernels launched
-   through K5's entry at K3's shape, a control of the timing.
+   K1/K2; the exact route's backward is K4's yardstick.  K3 takes the
+   FFT stage (K5's kernel); ``direct_ms`` and ``split_direct`` are K3's
+   own entry with no plan.  K4 takes the direct adjoint.  Each
+   yardstick's card time also comes from ``torch.profiler``
+   (``library_device_ms``, ``library_bwd_device_ms``), where the host
+   is slower to issue it than the card to run it.
 6. K5 against its plain version: the fused route at lambda 300 (2048)
    and 600 (4096), B=32, and faithful mode at T=1500 (n_fft 3000, the
    window centred in it; radices 4, 3, 5, 5, 5).  The same forward
@@ -71,9 +74,13 @@ Phases, each announced by a flushed line when it starts and ends:
    into lambda.  ``stage``, ``direct_ms``, the splits and the ``xext``
    gates as for K1.
 8. K6 against its plain version (the torch adjoint) on K5's residual at
-   lambda 300 (2048), 600 (4096) and faithful mode (T=1500, n_fft 3000):
-   dw within 1e-3 of its largest entry, bit-identical on repeat; the
-   exact route's backward as the yardstick.
+   lambda 300 (2048), 600 (4096) and faithful mode (T=1500, n_fft 3000;
+   T=700, n_fft 1400): dw within 1e-3 of its largest entry, bit-identical
+   on repeat; the exact route's backward as the yardstick (and its
+   profiler card time).  K6 takes the inverse-FFT stage at 2048, 4096
+   and 3000 and the direct adjoint at 1400 (``stage``); the direct
+   adjoint through the same entry is gated and timed at every shape
+   (``direct_ms``, ``split``, ``split_direct``).
 9. model paths: MelPANNsNet (DMEL + CNN6, esc50_synth geometry) built
    from its config with a seeded init, eval-mode inference through
    ``predict`` over 3 batches of 32, at lambda 128 (specband) and 46.7
@@ -94,7 +101,7 @@ Phases, each announced by a flushed line when it starts and ends:
    and K2m likewise on a multi-sigma epoch); on a framed epoch K4 once
    per train step and K3 once per train step and valid batch; on a fused
    epoch K5 once per train step and valid batch, and K6 once per train
-   step with the flag; K1, K1m and K5 also on their FFT counters
+   step with the flag; K1, K1m, K3, K5 and K6 also on their FFT counters
    (``fft_launches``) wherever the epoch's window takes the FFT stage.
    Losses finite; every group's lambda moved.  At
    lambda 128, on one batch, the gradients of lambda and of
@@ -169,9 +176,12 @@ COUNTERS = {"K1": (specband.specband_mel_power, "launches"),
             "K6": (fused.fused_dwindow, "launches"),
             "K1fft": (specband.specband_mel_power, "fft_launches"),
             "K1mfft": (specband.specband_mel_power_multi, "fft_launches"),
-            "K5fft": (fused.dmel_power, "fft_launches")}
+            "K3fft": (framed.framed_mel_power, "fft_launches"),
+            "K5fft": (fused.dmel_power, "fft_launches"),
+            "K6fft": (fused.fused_dwindow, "fft_launches")}
 #: the kernels that count their FFT-stage launches apart, and the counter
-FFT_COUNTER = {"K1": "K1fft", "K1m": "K1mfft", "K5": "K5fft"}
+FFT_COUNTER = {"K1": "K1fft", "K1m": "K1mfft", "K3": "K3fft", "K5": "K5fft",
+               "K6": "K6fft"}
 SR, HOP, N_MELS, T = 8000, 80, 64, 40000
 N_BATCHES, BATCH = 3, 32
 #: one H100 SXM: fp32 outside the tensor cores, and HBM3 bandwidth
@@ -305,6 +315,20 @@ def stage_split(fn, calls: int = 5):
             out[_kernel_name(ev.key)] = [(ms * n + us / 1e3) / (n + ev.count),
                                          n + ev.count]
     return out or "not measured"
+
+
+def device_ms(fn, calls: int = 10) -> float | str:
+    """The card's time for one call of ``fn``: from ``torch.profiler``
+    over ``calls`` calls after one warm-up, each kernel's device ms a
+    launch (:func:`stage_split`) times its launches a call (the launches
+    recorded over ``calls``, rounded up: the profiler can miss the first
+    ones).  Unlike :func:`timing`'s events it holds no gap in which the
+    card waits on the host; ``"not measured"`` where the profiler saw no
+    device time."""
+    split = stage_split(fn, calls)
+    if isinstance(split, str):
+        return split
+    return sum(ms * math.ceil(n / calls) for ms, n in split.values())
 
 
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -954,9 +978,10 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
     geometry: ``n_fft`` is the optimized-mode bucket, or None for
     faithful mode (``n_fft = 2 t``, the window ``t`` samples centred in
     it).  The forward kernel against its plain version and the exact
-    STFT; on the framed route K4 against its plain version on the
-    kernel's residual; dlambda through the route against autograd of the
-    plain chain and of the exact route; errors and times."""
+    STFT, and its direct stage through the same entry; on the framed
+    route K4 against its plain version on the kernel's residual; dlambda
+    through the route against autograd of the plain chain and of the
+    exact route; errors and times."""
     optimized = n_fft is not None
     win, nfft = (n_fft, n_fft) if optimized else (t, 2 * t)
     hint = (stft.pallas_compile_hint(lambd, nfft, HOP) if optimized
@@ -981,10 +1006,12 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
         return torch.log((p.transpose(-1, -2) @ fb).transpose(-1, -2)
                          + LOG_EPS)
 
+    entry = "framed_fwd" if route == "framed" else "fused_fwd"
+
     def direct():
-        """The direct-DFT stage through K5's C entry (K3's two kernels):
-        K5's same-run reference, and K3's timing control."""
-        return framed.launch_fwd("fused_fwd", xm, w, g, None)
+        """The direct-DFT stage through the kernel's own C entry: its
+        same-run reference."""
+        return framed.launch_fwd(entry, xm, w, g, None)
 
     with torch.no_grad():
         (mel_k, reim), (_, reim2) = kernel(xm, w, g), kernel(xm, w, g)
@@ -1006,6 +1033,7 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
         direct_ms = time_ms(direct)
         plain_ms = time_ms(lambda: framed.fwd_plain(xm, w, g))
         library_t = timed("library_ms", library)
+        library_dev = device_ms(library)
         split = stage_split(lambda: kernel(xm, w, g))
         split_direct = stage_split(direct)
         if route == "framed":
@@ -1059,6 +1087,8 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
     exact_out = mel_spectrogram(x, lam, impl="exact", **kw).sum()
     library_bwd = timed("library_bwd_ms", lambda: torch.autograd.grad(
         exact_out, lam, retain_graph=True))
+    library_bwd_dev = device_ms(lambda: torch.autograd.grad(
+        exact_out, lam, retain_graph=True))
     del exact_out
     chain_ms = time_ms(kernel_chain)
     plain_chain_ms = time_ms(plain_chain)
@@ -1067,10 +1097,8 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
     fb_nnz = int((fb != 0).sum())
     bound_ms, bound_by, least_gflop = framed_bound(batch, t, nfft, fb_nnz)
     res = dict(route=route, batch=batch, t=t, win_length=win, n_fft=nfft,
-               lambd=lambd,
-               stage=("direct" if route == "framed"
-                      else fft_plan.stage_name(nfft)),
-               radices=None if route == "framed" else fft_plan.plan(nfft),
+               lambd=lambd, stage=fft_plan.stage_name(nfft),
+               radices=fft_plan.plan(nfft),
                logmel_max_abs_err=err, logmel_err_vs_exact_stft=err_exact,
                logmel_err_direct_stage=err_direct, reim_err_of_max=reim_err,
                reim_repeat_bit_identical=reim_repeat, direct_ms=direct_ms,
@@ -1079,9 +1107,11 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
                dlambd_rel_err_vs_exact=dlam_rel_exact,
                dlambd_repeat_bit_identical=bool(torch.equal(g_k, g_k2)),
                **kernel_t, plain_ms=plain_ms, **library_t,
+               library_device_ms=library_dev,
                bound_ms=bound_ms, bound_by=bound_by, least_gflop=least_gflop,
                direct_dft_gflop=4 * batch * nfr * nfft * framed.kp_of(nfft)
-               / 1e9, **library_bwd, chain_ms=chain_ms,
+               / 1e9, **library_bwd, library_bwd_device_ms=library_bwd_dev,
+               chain_ms=chain_ms,
                plain_chain_ms=plain_chain_ms, exact_chain_ms=exact_chain_ms)
     if route == "framed":
         k4_bound_ms, k4_bound_by, k4_gflop = k4_bound(batch, t, nfft, fb_nnz)
@@ -1113,8 +1143,10 @@ def k6_case(seed: int, batch: int, lambd: float, dev: torch.device,
     or None for faithful mode's 2 t with the window centred in it)
     against its plain version, the torch adjoint
     ``framed.framed_dwindow_plain`` (of its largest entry, bit-identical
-    on repeat).  Times: K6, the torch adjoint, and the exact route's
-    backward into lambda at this geometry (as K4's yardstick)."""
+    on repeat), and the direct adjoint through K6's entry against it
+    too.  Times: K6, the direct adjoint, the torch adjoint, and the
+    exact route's backward into lambda at this geometry (as K4's
+    yardstick, by events and by the profiler)."""
     optimized = n_fft is not None
     win, nfft = (n_fft, n_fft) if optimized else (t, 2 * t)
     hint = (stft.pallas_compile_hint(lambd, nfft, HOP) if optimized
@@ -1141,13 +1173,19 @@ def k6_case(seed: int, batch: int, lambd: float, dev: torch.device,
         def k6_plain():
             return framed.framed_dwindow_plain(xm, reim, dmel, g)
 
-        d_k, d_k2, d_p = k6(), k6(), k6_plain()
+        def direct():
+            return framed.launch_bwd("fused_bwd", xm, reim, dmel, g, None)
+
+        d_k, d_k2, d_p, d_d = k6(), k6(), k6_plain(), direct()
         torch.cuda.synchronize()
         check(d_k.shape == (nfft,), f"dw shape {d_k.shape}")
         check(bool(torch.isfinite(d_k).all()), "non-finite dw")
-        dw_rel = float((d_k - d_p).abs().max() / d_p.abs().max())
+        dw_rel = rel_err(d_k, d_p)
+        dw_rel_direct = rel_err(d_d, d_p)
         kernel_t = timed("ms", k6)
+        direct_ms = time_ms(direct)
         plain_ms = time_ms(k6_plain)
+        split, split_direct = stage_split(k6), stage_split(direct)
     lam = torch.tensor(lambd, device=dev, requires_grad=True)
     exact_out = mel_spectrogram(x, lam, impl="exact", n_mels=N_MELS,
                                 sample_rate=SR, hop_length=HOP,
@@ -1155,18 +1193,25 @@ def k6_case(seed: int, batch: int, lambd: float, dev: torch.device,
                                 log_output=True, device=dev).sum()
     library_bwd = timed("library_bwd_ms", lambda: torch.autograd.grad(
         exact_out, lam, retain_graph=True))
+    library_bwd_dev = device_ms(lambda: torch.autograd.grad(
+        exact_out, lam, retain_graph=True))
     del exact_out
     fb_nnz = int((framed._fb(g, dev) != 0).sum())
     bound_ms, bound_by, least_gflop = k4_bound(batch, t, nfft, fb_nnz)
     res = dict(batch=batch, t=t, win_length=win, n_fft=nfft, lambd=lambd,
-               dw_err_of_max=dw_rel,
+               stage=fft_plan.stage_name(nfft), radices=fft_plan.plan(nfft),
+               dw_err_of_max=dw_rel, dw_err_of_max_direct_stage=dw_rel_direct,
                dw_repeat_bit_identical=bool(torch.equal(d_k, d_k2)),
-               **kernel_t, plain_ms=plain_ms, **library_bwd,
+               **kernel_t, direct_ms=direct_ms, split=split,
+               split_direct=split_direct, plain_ms=plain_ms, **library_bwd,
+               library_bwd_device_ms=library_bwd_dev,
                bound_ms=bound_ms, bound_by=bound_by, least_gflop=least_gflop,
                direct_gflop=4 * batch * stft.num_frames(t, HOP) * nfft
                * framed.kp_of(nfft) / 1e9)
     say("K6 " + json.dumps(res))
     check(dw_rel <= DW_GATE, f"K6 vs plain {dw_rel:.3e} of max")
+    check(dw_rel_direct <= DW_GATE,
+          f"K6 direct stage vs plain {dw_rel_direct:.3e} of max")
     check(res["dw_repeat_bit_identical"], "K6 differs on repeat")
     return res
 
@@ -1508,9 +1553,15 @@ def _kernel_entry(name, source, replaces, launches_by_path, err, err_of,
 def _library(case: dict, key: str) -> dict:
     """The ``library_ms`` fields of a kernels entry from ``case``'s
     yardstick ``key``: the median, the blocks' range and the host's
-    enqueue time (:func:`timing`)."""
-    return dict(library_ms=case[key], library_ms_range=case[key + "_range"],
-                library_ms_enqueue=case[key + "_enqueue"])
+    enqueue time (:func:`timing`).  Where the case also has the
+    profiler's card time (``key`` with ``_device`` before ``_ms``), that
+    is ``library_ms`` and the events' median ``library_ms_events``."""
+    out = dict(library_ms=case[key], library_ms_range=case[key + "_range"],
+               library_ms_enqueue=case[key + "_enqueue"])
+    device = case.get(key[:-3] + "_device_ms")
+    if isinstance(device, float):
+        out.update(library_ms=device, library_ms_events=case[key])
+    return out
 
 
 def main():
@@ -1580,7 +1631,8 @@ def main():
     with phase("K6 vs plain"):
         cases6 = [k6_case(seed, BATCH, 300.0, dev, 2048),
                   k6_case(seed, BATCH, 600.0, dev, 4096),
-                  k6_case(seed, BATCH, 300.0, dev, None, t=1500)]
+                  k6_case(seed, BATCH, 300.0, dev, None, t=1500),
+                  k6_case(seed, BATCH, 140.0, dev, None, t=700)]
 
     paths = {}
     with phase("model path"):
@@ -1642,8 +1694,9 @@ def main():
             "framed_fwd", "framed_fwd.cu",
             "dmel_tpu/ops/pallas/framed_dmel.py:138", by_path("K3"),
             max(c["logmel_max_abs_err"] for c in cases34), "log-mel", GATE,
-            main34, **_library(main34, "library_ms"), stage="direct",
-            direct_ms=main34["direct_ms"], split=main34["split"]),
+            main34, **_library(main34, "library_ms"),
+            **fft_fields("K3", main34, cases34),
+            reim_err_of_max=max(c["reim_err_of_max"] for c in cases34)),
         _kernel_entry(
             "framed_bwd", "framed_bwd.cu",
             "dmel_tpu/ops/pallas/framed_dmel.py:247", by_path("K4"),
@@ -1683,7 +1736,9 @@ def main():
             "dmel_tpu/ops/pallas/fused_dmel.py:152", by_path("K6"),
             max(c["dw_err_of_max"] for c in cases6), "dw / max |dw|",
             DW_GATE, main6, **_library(main6, "library_bwd_ms"),
-            stage="direct"),
+            **fft_fields("K6", main6, cases6),
+            dw_err_of_max_direct_stage=max(
+                c["dw_err_of_max_direct_stage"] for c in cases6)),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on a path")

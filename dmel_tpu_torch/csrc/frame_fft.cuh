@@ -1,6 +1,6 @@
-// A real FFT of each frame of a block, in shared memory, in fp32; included
-// by framed_fwd.cu (K5's fused_fwd) and specband_fwd.cu (K1) inside their
-// anonymous namespaces.
+// A real FFT of each frame of a block, in shared memory, in fp32, and its
+// adjoint; included by framed_fwd.cu (K3 and K5), specband_fwd.cu (K1) and
+// framed_bwd.cu (K6) inside their anonymous namespaces.
 //
 // A real frame x of even length N is read in pairs as M = N/2 complex
 // values z[n] = x[2n] + i x[2n+1]: the float view of the complex buffer is
@@ -16,6 +16,20 @@
 //   X[k] = E + W_N^k O,  E = (Z[k] + conj Z[M-k]) / 2,
 //                        O = (Z[k] - conj Z[M-k]) / 2i,  Z[M] = Z[0].
 //
+// The adjoint of the real DFT (K6: dfw[m] = sum_k dRe[k] cos(2 pi m k / N)
+// - dIm[k] sin(2 pi m k / N), k <= N/2) is N irfft(Y) with Y[k] = (dRe + i
+// dIm)[k] / 2 for 0 < k < M, Y[0] = dRe[0], Y[M] = dRe[M].  Its real
+// pre-pass, the inverse of the post-pass above, gives the M complex inputs
+//
+//   Z[k] = A + i W_N^-k B,  A = Y[k] + conj Y[M-k],  B = Y[k] - conj Y[M-k]
+//
+// (irfft_prepass), and the inverse complex DFT of Z, read in pairs, is the
+// frame: dfw[2n] + i dfw[2n+1] = sum_k Z[k] W_M^-nk.  That inverse runs as
+// the forward stages on conj Z, the output conjugated as it is read:
+// conj FFT(conj Z) is the FFT with conjugate twiddles to the bit (the
+// same products and sums with flipped signs), so fft_frames and
+// fft_butterfly serve both directions unchanged.
+//
 // Every twiddle is an entry of the kernels' float32 table (cos and -sin of
 // 2 pi i / N, built in float64 and rounded once) at an exact integer
 // phase: W_{LR}^{rk} is entry r k N / (L R), W_R^q entry q N / R.  No angle
@@ -24,8 +38,9 @@
 //
 // The plan (the radices in stage order) is decided on the host
 // (dmel_tpu_torch/ops/fft_plan.py), checked by fft_plan_from() and passed
-// by value.  dmel_tpu_torch/ops/fft_plan.py:rfft_mirror is this arithmetic
-// step by step in PyTorch, held to numpy's rfft by the CPU tests.
+// by value.  dmel_tpu_torch/ops/fft_plan.py:rfft_mirror and
+// irfft_adjoint_mirror are this arithmetic step by step in PyTorch, held
+// to numpy's rfft and irfft by the CPU tests.
 //
 // On the card the stages are bound by issue and latency, not by bytes or
 // flops: each stage is a pass through shared memory and a barrier, with a
@@ -206,6 +221,23 @@ __device__ __forceinline__ float2 rfft_bin(const float2* z, int n, int k,
   const float oi = -0.5f * (zk.x - zm.x);
   const float2 w = fft_tw(tab, n, k);
   return make_float2(er + (w.x * orr - w.y * oi), ei + (w.x * oi + w.y * orr));
+}
+
+// conj Z[k] (0 <= k < m = n / 2): the input of the forward stages whose
+// conjugated output is the inverse real FFT of the half spectrum y, with
+// y[k] = Y[k] for 0 < k < m and y[0] = (Y[0], Y[m]), both real.
+__device__ __forceinline__ float2 irfft_prepass(const float2* y, int n, int k,
+                                               const float* __restrict__ tab) {
+  const int m = n / 2;
+  const float2 yk = k == 0 ? make_float2(y[0].x, 0.f) : y[k];
+  const float2 ym = k == 0 ? make_float2(y[0].y, 0.f) : y[m - k];
+  const float ar = yk.x + ym.x;
+  const float ai = yk.y - ym.y;
+  const float br = yk.x - ym.x;
+  const float bi = yk.y + ym.y;
+  const float2 w = fft_tw(tab, n, k);      // W_N^k; W_N^-k = (w.x, -w.y)
+  return make_float2(ar - (w.x * bi - w.y * br),
+                     -(ai + (w.x * br + w.y * bi)));
 }
 
 // Loads the fr frames of rows row0 .. row0 + fr - 1 (row b nfr + t is

@@ -25,12 +25,40 @@
 // padding).  This is the gradient in the window; lambda's follows by
 // autograd through gaussian_window, as in XLA there.
 //
-// What bounds it on this card: operations.  The adjoint DFT is a GEMM of
-// (rows, 2 kp) by (2 kp, n_fft), 4 rows kp n_fft flops, ~38 GFLOP at
-// n_fft 1024 and batch 32 (~555 GFLOP at 4096, where the frame count
-// stays and kp and n_fft grow 4x each), run in fp32 FMAs; the function
-// itself needs an inverse real FFT a frame (chip_smoke.py:k4_bound).  The
-// design keeps dfw on chip, as the TPU kernels did:
+// Two stages compute dfw, chosen on the host from n_fft alone
+// (dmel_tpu_torch/ops/fft_plan.py) and passed as the radices of the FFT's
+// plan: fused_bwd (K6) takes the FFT stage wherever n_fft has a plan
+// (2048, 4096, faithful 3000) and the direct stage elsewhere (faithful
+// 1400 = 2^3 5^2 7); framed_bwd (K4) is passed no plan and takes the
+// direct stage (its FFT stage is the same kernel, later work).
+//
+// The FFT stage: one launch of adjoint_fft_dw_kernel, then dw_sum_kernel.
+// dfw is the inverse real FFT of each frame's dRe|dIm (frame_fft.cuh: the
+// real pre-pass, then the Stockham stages on conjugated data), ~2.5 N
+// log2 N flops a frame where the direct adjoint takes 4 kp N, so what
+// bounds the function on this card is the bytes it must move, most of
+// them the Re|Im residual read once (263 MB at 4096 and batch 32;
+// chip_smoke.py:k4_bound).  A block of 256 threads owns
+// max(1, 4096 / n_fft) frames at a time, as K5's forward does.  For each
+// it reads the residual and the cotangent, forms dP over each bin's
+// nonzero mel bands (the filterbank read transposed, so that neighbouring
+// bins read neighbouring floats) and the half spectrum Y = dP (Re + i Im)
+// in shared memory (dRe|dIm never reaches device memory), runs the
+// pre-pass and the stages, and multiplies each dfw sample by its frame
+// sample into one of 16 running sums a thread.  The grid is fixed,
+// DW_BLOCKS blocks (a constant, not read from the device, so dw does not
+// depend on the card) that each walk the frame groups blockIdx.x,
+// blockIdx.x + DW_BLOCKS, ... in order: one partial of n_fft floats a
+// block, 8.7 MB at 4096 where one a frame group would write as many bytes
+// as the residual.  __launch_bounds__(256, 4) caps the registers at 64,
+// so the 4 x 132 blocks of the H100 are all resident at once: ptxas gives
+// 64 registers with 168 bytes of spills, and the block takes 32 KB of
+// shared memory (chip_smoke.py's build phase prints both).  Keeping the 16
+// sums in shared memory instead (48 KB a block, 56 bytes of spills) was
+// no faster on the H100 (PERF.md, Findings).
+//
+// The direct stage, three launches, for n_fft without a plan and for K4;
+// the design keeps dfw on chip, as the TPU kernels did:
 //
 // 1. dreim_kernel: one block owns FR frame rows, stages their cotangent in
 //    shared memory, forms dP over each bin's contiguous range of nonzero
@@ -39,23 +67,26 @@
 // 2. adjoint_dw_kernel: K1's register-blocked SIMT GEMM (128x128 tiles,
 //    8x8 outputs a thread, 16-deep steps through shared memory) of dRe|dIm
 //    against the bases, generated from an N-entry cos / -sin table at the
-//    exact integer phase (m k) mod N.  Its epilogue multiplies each dfw
-//    element by its frame sample, sums the block's 128 rows per column in
-//    a fixed order and writes one partial sum per (column, row block) to a
-//    (n_fft, blocks) buffer: dfw never reaches device memory.
-// 3. dw_sum_kernel: one block per window sample sums its partials in a
-//    fixed order and a shared-memory tree.  No float atomics anywhere, so
-//    two runs give bit-identical dw (the TPU package likewise summed its
-//    per-block parts outside the kernel).
+//    exact integer phase (m k) mod N: 4 rows kp n_fft fp32 FMA flops,
+//    ~38 GFLOP at n_fft 1024 and batch 32, so operations bound it.  Its
+//    epilogue multiplies each dfw element by its frame sample, sums the
+//    block's 128 rows per column in a fixed order and writes one partial
+//    sum per (column, row block) to a (n_fft, blocks) buffer: dfw never
+//    reaches device memory.
+//
+// Both end in dw_sum_kernel: one block per window sample sums its partials
+// in a fixed order and a shared-memory tree.  No float atomics anywhere,
+// so two runs give bit-identical dw (the TPU package likewise summed its
+// per-block parts outside the kernel).
 //
 // What the TPU design needed and this one drops: the group-row layout and
 // the phase-major row order (Mosaic's aligned loads), the bf16 residuals
 // and the single-pass bf16 adjoint GEMMs (fp32 throughout), the Nyquist
-// split (128-lane tiling).  The tensor cores are later work.
+// split (128-lane tiling).
 //
-// C interface: framed_bwd() and fused_bwd() check their geometry, launch
-// the three kernels on the given stream and return cudaGetLastError();
-// they do not synchronise.
+// C interface: framed_bwd() and fused_bwd() check their geometry and the
+// plan, launch the stage's kernels on the given stream and return
+// cudaGetLastError(); they do not synchronise.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -71,6 +102,14 @@ constexpr int A_PAD = 4;
 constexpr int FR = 8;            // frame rows per block in dreim_kernel
 constexpr int DP_THREADS = 256;
 constexpr int SUM_THREADS = 256;
+
+#include "frame_fft.cuh"
+
+// The FFT stage's fixed grid: 4 blocks on each of the H100's 132 SMs.
+constexpr int DW_BLOCKS = 528;
+// dw sums a thread keeps: a block's frames hold at most FFT_BLOCK_POINTS
+// samples
+constexpr int DW_SLOTS = FFT_BLOCK_POINTS / FFT_THREADS;
 
 __global__ void __launch_bounds__(DP_THREADS)
 dreim_kernel(const float* __restrict__ reim, const float* __restrict__ fb,
@@ -282,12 +321,159 @@ dw_sum_kernel(const float* __restrict__ partials, float* __restrict__ dw,
   if (threadIdx.x == 0) dw[blockIdx.x] = red[0];
 }
 
-// The three launches on the given stream; returns cudaGetLastError().
+// dP of bin k of one frame row: the sum over the bin's nonzero mel bands
+// of g[j] fb[k, j], in dreim_kernel's order; g points at the row's
+// cotangent of band 0, its bands nfr floats apart, and fb_t is the
+// filterbank transposed, (n_mels, n_bins).
+__device__ __forceinline__ float bin_dp(const float* __restrict__ g,
+                                        const float* __restrict__ fb_t,
+                                        const int* __restrict__ bin_lo,
+                                        const int* __restrict__ bin_hi, int k,
+                                        int nfr, int n_bins) {
+  float dp = 0.f;
+  const int hi = __ldg(bin_hi + k);
+  for (int j = __ldg(bin_lo + k); j < hi; ++j)
+    dp = fmaf(__ldg(g + (size_t)j * nfr), __ldg(fb_t + (size_t)j * n_bins + k),
+              dp);
+  return dp;
+}
+
+// The FFT stage: fr frames a group, groups blockIdx.x + i gridDim.x in
+// order; a partial dw of n_fft floats a block.
+__global__ void __launch_bounds__(FFT_THREADS, 4)
+adjoint_fft_dw_kernel(const float* __restrict__ x,
+                      const float* __restrict__ reim,
+                      const float* __restrict__ table,
+                      const float* __restrict__ fb_t,
+                      const int* __restrict__ bin_lo,
+                      const int* __restrict__ bin_hi,
+                      const float* __restrict__ dmel,
+                      float* __restrict__ partials, int rows, int sig_len,
+                      int nfr, int hop, int n_fft, int kp, int n_mels, int fr,
+                      FftPlan plan) {
+  extern __shared__ __align__(16) float2 fft_buf[];   // 2 x fr x n_fft/2
+  const int m = n_fft / 2;
+  const int n_bins = m + 1;
+  float2* a = fft_buf;
+  float2* y = fft_buf + fr * m;
+  const int n_groups = (rows + fr - 1) / fr;
+  // This thread's samples: flat index s FFT_THREADS + threadIdx.x of the
+  // group's fr x n_fft samples, walked as (frame f, sample mm) pairs.  As
+  // n_fft is even, the sample's parity is threadIdx.x's: odd samples are
+  // the imaginary parts of the conjugated output, so they change sign.
+  const int f0 = threadIdx.x / n_fft;
+  const int mm0 = threadIdx.x - f0 * n_fft;
+  const int df = FFT_THREADS / n_fft;
+  const int dm = FFT_THREADS - df * n_fft;
+  const float sign = (threadIdx.x & 1) ? -1.f : 1.f;
+  float acc[DW_SLOTS];
+  #pragma unroll
+  for (int s = 0; s < DW_SLOTS; ++s) acc[s] = 0.f;
+
+  for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
+    const int row0 = grp * fr;
+    __syncthreads();               // the last group's reads are done
+    // Y = dP (Re + i Im) at 0 < k < m; slot 0 holds (dRe[0], dRe[m])
+    int f_src = -1;
+    const float* g = dmel;
+    const float* src = reim;
+    for_frame_columns(fr, m, [&](int f, int k) {
+      const int r = row0 + f;
+      float2 v = make_float2(0.f, 0.f);
+      if (r < rows) {
+        if (f != f_src) {
+          const int b = r / nfr;
+          g = dmel + (size_t)b * n_mels * nfr + (r - b * nfr);
+          src = reim + (size_t)r * 2 * kp;
+          f_src = f;
+        }
+        const float dp = bin_dp(g, fb_t, bin_lo, bin_hi, k, nfr, n_bins);
+        if (k == 0) {
+          const float dpm = bin_dp(g, fb_t, bin_lo, bin_hi, m, nfr, n_bins);
+          v = make_float2(2.f * dp * __ldg(src), 2.f * dpm * __ldg(src + m));
+        } else {
+          v = make_float2(dp * __ldg(src + k), dp * __ldg(src + kp + k));
+        }
+      }
+      y[f * m + k] = v;
+    });
+    __syncthreads();
+    for_frame_columns(fr, m, [&](int f, int k) {
+      a[f * m + k] = irfft_prepass(y + f * m, n_fft, k, table);
+    });
+    const float* z =
+        reinterpret_cast<const float*>(fft_frames(a, y, fr, n_fft, plan,
+                                                  table));
+    // dw sums: frame sample times dfw, dfw the conjugated output read as
+    // floats at the flat index
+    int f = f0;
+    int mm = mm0;
+    int f_row = -1;
+    const float* xb = x;
+    int base = 0;
+    bool row_ok = false;
+    #pragma unroll
+    for (int s = 0; s < DW_SLOTS; ++s) {
+      if (s > 0) {
+        f += df;
+        mm += dm;
+        if (mm >= n_fft) {
+          mm -= n_fft;
+          ++f;
+        }
+      }
+      if (f < fr) {
+        if (f != f_row) {
+          const int r = row0 + f;
+          row_ok = r < rows;
+          if (row_ok) {
+            const int b = r / nfr;
+            xb = x + (size_t)b * sig_len;
+            base = (r - b * nfr) * hop - m;
+          }
+          f_row = f;
+        }
+        const int p = base + mm;
+        if (row_ok && p >= 0 && p < sig_len)
+          acc[s] = fmaf(__ldg(xb + p), sign * z[s * FFT_THREADS + threadIdx.x],
+                        acc[s]);
+      }
+    }
+  }
+
+  // the block's partial: each sample's sums over the group's frames
+  __syncthreads();
+  float* red = reinterpret_cast<float*>(fft_buf);      // fr x n_fft
+  #pragma unroll
+  for (int s = 0; s < DW_SLOTS; ++s) {
+    const int i = s * FFT_THREADS + threadIdx.x;
+    if (i < fr * n_fft) red[i] = acc[s];
+  }
+  __syncthreads();
+  for (int mm = threadIdx.x; mm < n_fft; mm += FFT_THREADS) {
+    float v = 0.f;
+    for (int f = 0; f < fr; ++f) v += red[f * n_fft + mm];
+    partials[(size_t)mm * gridDim.x + blockIdx.x] = v;
+  }
+}
+
+// Columns of the partials buffer: blocks of adjoint_fft_dw_kernel (FFT
+// stage) or row blocks of adjoint_dw_kernel (direct stage).
+int partial_blocks(int rows, int n_fft, bool fft) {
+  if (!fft) return (rows + BM - 1) / BM;
+  const int fr = fft_frames_per_block(n_fft);
+  const int groups = (rows + fr - 1) / fr;
+  return groups < DW_BLOCKS ? groups : DW_BLOCKS;
+}
+
+// The stage's launches on the given stream, then dw_sum_kernel; returns
+// cudaGetLastError().  plan == nullptr takes the direct stage.
 int launch_bwd(const float* x, const float* reim, const float* table,
-               const float* fb, const int* bin_lo, const int* bin_hi,
-               const float* dmel, float* dreim, float* partials, float* dw,
-               int batch, int sig_len, int nfr, int hop, int n_fft, int kp,
-               int n_bins, int n_mels, void* stream) {
+               const float* fb, const float* fb_t, const int* bin_lo,
+               const int* bin_hi, const float* dmel, float* dreim,
+               float* partials, float* dw, int batch, int sig_len, int nfr,
+               int hop, int n_fft, int kp, int n_bins, int n_mels,
+               const FftPlan* plan, void* stream) {
   const int rows = batch * nfr;
   if (batch <= 0 || nfr <= 0 || rows / nfr != batch || hop <= 0 ||
       n_bins != n_fft / 2 + 1 || kp < n_bins || kp % BK != 0 ||
@@ -295,26 +481,48 @@ int launch_bwd(const float* x, const float* reim, const float* table,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-
-  const size_t smem = sizeof(float) * (size_t)FR * n_mels;
-  cudaError_t err = cudaFuncSetAttribute(
-      dreim_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  dreim_kernel<<<(rows + FR - 1) / FR, DP_THREADS, smem, s>>>(
-      reim, fb, bin_lo, bin_hi, dmel, dreim, rows, nfr, kp, n_bins, n_mels);
-  err = cudaGetLastError();
-  if (err != cudaSuccess) return static_cast<int>(err);
-
-  const int n_blocks = (rows + BM - 1) / BM;
-  dim3 grid(n_blocks, (n_fft + BN - 1) / BN);
-  adjoint_dw_kernel<<<grid, GEMM_THREADS, 0, s>>>(
-      dreim, table, x, partials, rows, sig_len, nfr, hop, n_fft, kp, n_bins);
+  const int n_blocks = partial_blocks(rows, n_fft, plan != nullptr);
+  cudaError_t err;
+  if (plan != nullptr) {
+    const size_t smem = fft_smem_bytes(n_fft);
+    err = cudaFuncSetAttribute(adjoint_fft_dw_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    adjoint_fft_dw_kernel<<<n_blocks, FFT_THREADS, smem, s>>>(
+        x, reim, table, fb_t, bin_lo, bin_hi, dmel, partials, rows, sig_len,
+        nfr, hop, n_fft, kp, n_mels, fft_frames_per_block(n_fft), *plan);
+  } else {
+    const size_t smem = sizeof(float) * (size_t)FR * n_mels;
+    err = cudaFuncSetAttribute(dreim_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dreim_kernel<<<(rows + FR - 1) / FR, DP_THREADS, smem, s>>>(
+        reim, fb, bin_lo, bin_hi, dmel, dreim, rows, nfr, kp, n_bins, n_mels);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return static_cast<int>(err);
+    dim3 grid(n_blocks, (n_fft + BN - 1) / BN);
+    adjoint_dw_kernel<<<grid, GEMM_THREADS, 0, s>>>(
+        dreim, table, x, partials, rows, sig_len, nfr, hop, n_fft, kp, n_bins);
+  }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
   dw_sum_kernel<<<n_fft, SUM_THREADS, 0, s>>>(partials, dw, n_blocks);
   return static_cast<int>(cudaGetLastError());
+}
+
+// The plan from the host's radices, or the direct stage (n_stages < 0);
+// false where the radices are not a plan of n_fft.
+bool stage_of(const int* radices, int n_stages, int n_fft, FftPlan* plan,
+              const FftPlan** chosen) {
+  if (n_stages < 0) {
+    *chosen = nullptr;
+    return true;
+  }
+  *chosen = plan;
+  return fft_plan_from(radices, n_stages, n_fft, plan);
 }
 
 }  // namespace
@@ -325,41 +533,57 @@ const char* framed_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Frame rows per block of adjoint_dw_kernel: the caller sizes partials as
-// (n_fft, ceil(rows / framed_bwd_rows_per_block())).
-int framed_bwd_rows_per_block() { return BM; }
+// Columns of the partials scratch the caller allocates, (n_fft, columns),
+// for rows = batch * nfr frame rows on the FFT stage (fft != 0) or the
+// direct stage.
+int framed_bwd_partial_blocks(int rows, int n_fft, int fft) {
+  return partial_blocks(rows, n_fft, fft != 0);
+}
 
 // x (batch, sig_len); reim (rows, 2*kp) as framed_fwd / fused_fwd wrote it;
-// table (2, n_fft) as there; fb (n_bins, n_mels) dense; bin_lo / bin_hi
-// (n_bins) int32, each bin's nonzero mel range; dmel (batch, n_mels, nfr);
-// dreim scratch (rows, 2*kp); partials scratch (n_fft, n_blocks); dw
+// table (2, n_fft) as there; fb (n_bins, n_mels) dense and fb_t, its
+// transpose (n_mels, n_bins); bin_lo / bin_hi (n_bins) int32, each bin's
+// nonzero mel range; dmel (batch, n_mels, nfr); dreim scratch (rows,
+// 2*kp), read only by the direct stage (null on the FFT stage); partials
+// scratch (n_fft, framed_bwd_partial_blocks(rows, n_fft, stage)); dw
 // (n_fft).  All fp32 unless stated, contiguous, on the current device.
+// radices (n_stages ints, host memory) is the FFT stage's plan, or null
+// with n_stages = -1 for the direct stage; a plan that is not one of the
+// complex FFT of length n_fft / 2 is refused.
 
 // K4: n_fft a multiple of 128, at most 1024 (the framed route's geometry).
 int framed_bwd(const float* x, const float* reim, const float* table,
-               const float* fb, const int* bin_lo, const int* bin_hi,
-               const float* dmel, float* dreim, float* partials, float* dw,
-               int batch, int sig_len, int nfr, int hop, int n_fft, int kp,
-               int n_bins, int n_mels, void* stream) {
-  if (n_fft < 128 || n_fft % 128 != 0 || n_fft > 1024)
+               const float* fb, const float* fb_t, const int* bin_lo,
+               const int* bin_hi, const float* dmel, float* dreim,
+               float* partials, float* dw, int batch, int sig_len, int nfr,
+               int hop, int n_fft, int kp, int n_bins, int n_mels,
+               const int* radices, int n_stages, void* stream) {
+  FftPlan plan;
+  const FftPlan* chosen;
+  if (n_fft < 128 || n_fft % 128 != 0 || n_fft > 1024 ||
+      !stage_of(radices, n_stages, n_fft, &plan, &chosen))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bwd(x, reim, table, fb, bin_lo, bin_hi, dmel, dreim,
+  return launch_bwd(x, reim, table, fb, fb_t, bin_lo, bin_hi, dmel, dreim,
                     partials, dw, batch, sig_len, nfr, hop, n_fft, kp,
-                    n_bins, n_mels, stream);
+                    n_bins, n_mels, chosen, stream);
 }
 
 // K6: any even n_fft from 2 to 4096 (the fused route's geometry), the
 // window centred in it by the caller.
 int fused_bwd(const float* x, const float* reim, const float* table,
-              const float* fb, const int* bin_lo, const int* bin_hi,
-              const float* dmel, float* dreim, float* partials, float* dw,
-              int batch, int sig_len, int nfr, int hop, int n_fft, int kp,
-              int n_bins, int n_mels, void* stream) {
-  if (n_fft < 2 || n_fft % 2 != 0 || n_fft > 4096)
+              const float* fb, const float* fb_t, const int* bin_lo,
+              const int* bin_hi, const float* dmel, float* dreim,
+              float* partials, float* dw, int batch, int sig_len, int nfr,
+              int hop, int n_fft, int kp, int n_bins, int n_mels,
+              const int* radices, int n_stages, void* stream) {
+  FftPlan plan;
+  const FftPlan* chosen;
+  if (n_fft < 2 || n_fft % 2 != 0 || n_fft > 4096 ||
+      !stage_of(radices, n_stages, n_fft, &plan, &chosen))
     return static_cast<int>(cudaErrorInvalidValue);
-  return launch_bwd(x, reim, table, fb, bin_lo, bin_hi, dmel, dreim,
+  return launch_bwd(x, reim, table, fb, fb_t, bin_lo, bin_hi, dmel, dreim,
                     partials, dw, batch, sig_len, nfr, hop, n_fft, kp,
-                    n_bins, n_mels, stream);
+                    n_bins, n_mels, chosen, stream);
 }
 
 }  // extern "C"

@@ -28,13 +28,14 @@
 // table built in float64 and rounded once to fp32, at an exact integer
 // phase: a float angle 2 pi m k / N loses several bits at N = 4096.
 //
-// fused_fwd (K5) takes one of two spectra stages, chosen on the host from
+// Both entries take one of two spectra stages, chosen on the host from
 // n_fft alone (dmel_tpu_torch/ops/fft_plan.py) and passed as the radices
 // of its plan:
 //
 // - the FFT stage, one launch of fused_fft_kernel, for every even n_fft
-//   up to 4096 whose half has no prime factor above 5 (every bucket the
-//   fused route takes, and faithful 3000).  A block owns
+//   up to 4096 whose half has no prime factor above 5: every bucket the
+//   fused route takes and faithful 3000 (K5), every n_fft of the framed
+//   route but 896 = 2^7 7 (K3: 128 to 1024).  A block owns
 //   max(1, 4096 / n_fft) frames.  It loads them windowed straight from x,
 //   masking the centre padding, runs the shared-memory FFT of
 //   frame_fft.cuh, writes Re|Im with the zero pad columns, stages the
@@ -47,11 +48,13 @@
 //   coalesced, and reads nothing back: the power goes from shared memory
 //   to the mel output in the same block, where the direct stage reads the
 //   residual again.
-// - the direct stage, two launches, for any other even n_fft (faithful
-//   1400 = 2^3 5^2 7): frame_dft_kernel then power_mel_kernel, as below.
+// - the direct stage, two launches, for any other even n_fft (K5 at
+//   faithful 1400 = 2^3 5^2 7, K3 at 896), and wherever the caller passes
+//   no plan: frame_dft_kernel then power_mel_kernel.
 //
-// framed_fwd (K3) always takes the direct stage (an FFT for it is later
-// work):
+// fused_fft_kernel takes 256 threads, 48 registers (no spills) and 32 KB
+// of shared memory a block at every n_fft (frame_fft.cuh; chip_smoke.py's
+// build phase prints ptxas's counts): 5 blocks an SM.  The direct stage:
 //
 // 1. frame_dft_kernel: Re|Im as one fp32 GEMM, windowed frames (rows,
 //    n_fft) times the bases (n_fft, 2 kp), cos plane in columns [0, kp),
@@ -356,6 +359,28 @@ bool bad_geometry(int batch, int nfr, int hop, int n_fft, int kp, int n_bins,
          kp < n_bins || (2 * kp) % BN != 0 || n_mels <= 0;
 }
 
+// Either stage, from the host's radices (n_stages < 0: the direct
+// stage); a plan that is not one of n_fft is refused.
+int launch_stage(const float* x, const float* w, const float* table,
+                 const float* fb, const int* mel_lo, const int* mel_hi,
+                 float* reim, float* out, int batch, int sig_len, int nfr,
+                 int hop, int n_fft, int kp, int n_bins, int n_mels,
+                 const int* radices, int n_stages, cudaStream_t s) {
+  if (bad_geometry(batch, nfr, hop, n_fft, kp, n_bins, n_mels)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  if (n_stages < 0) {
+    return launch_direct(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
+                         sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, s);
+  }
+  FftPlan plan;
+  if (!fft_plan_from(radices, n_stages, n_fft, &plan)) {
+    return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return launch_fft(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
+                    sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, plan, s);
+}
+
 }  // namespace
 
 extern "C" {
@@ -369,45 +394,34 @@ const char* framed_fwd_error_string(int code) {
 // each band's nonzero bin range; reim (batch*nfr, 2*kp); out (batch, n_mels,
 // nfr).  All fp32 unless stated, contiguous, on the current device.
 
+// radices (n_stages ints, host memory) is the FFT stage's plan, or null
+// with n_stages = -1 for the direct stage; a plan that is not one of the
+// complex FFT of length n_fft / 2 is refused.
+
 // K3: n_fft a multiple of 128, at most 1024 (the framed route's geometry).
 int framed_fwd(const float* x, const float* w, const float* table,
                const float* fb, const int* mel_lo, const int* mel_hi,
                float* reim, float* out, int batch, int sig_len, int nfr,
                int hop, int n_fft, int kp, int n_bins, int n_mels,
-               void* stream) {
-  if (bad_geometry(batch, nfr, hop, n_fft, kp, n_bins, n_mels) ||
-      n_fft % 128 != 0 || n_fft > 1024) {
+               const int* radices, int n_stages, void* stream) {
+  if (n_fft % 128 != 0 || n_fft > 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_direct(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
-                       sig_len, nfr, hop, n_fft, kp, n_bins, n_mels,
-                       static_cast<cudaStream_t>(stream));
+  return launch_stage(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
+                      sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, radices,
+                      n_stages, static_cast<cudaStream_t>(stream));
 }
 
 // K5: any even n_fft up to 4096; w is the window centred in n_fft.
-// radices (n_stages ints, host memory) is the FFT stage's plan, or null
-// with n_stages = -1 for the direct stage; a plan that is not one of the
-// complex FFT of length n_fft / 2 is refused.
 int fused_fwd(const float* x, const float* w, const float* table,
               const float* fb, const int* mel_lo, const int* mel_hi,
               float* reim, float* out, int batch, int sig_len, int nfr,
               int hop, int n_fft, int kp, int n_bins, int n_mels,
               const int* radices, int n_stages, void* stream) {
-  if (bad_geometry(batch, nfr, hop, n_fft, kp, n_bins, n_mels) ||
-      n_fft > 4096) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (n_stages < 0) {
-    return launch_direct(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
-                         sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, s);
-  }
-  FftPlan plan;
-  if (!fft_plan_from(radices, n_stages, n_fft, &plan)) {
-    return static_cast<int>(cudaErrorInvalidValue);
-  }
-  return launch_fft(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
-                    sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, plan, s);
+  if (n_fft > 4096) return static_cast<int>(cudaErrorInvalidValue);
+  return launch_stage(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
+                      sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, radices,
+                      n_stages, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

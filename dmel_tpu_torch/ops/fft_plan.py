@@ -1,23 +1,26 @@
-"""The spectra stage of the forward kernels K1 (``csrc/specband_fwd.cu``)
-and K5 (``csrc/framed_fwd.cu``, entry ``fused_fwd``), decided on the
-host.
+"""The spectra stage of the kernels K1 (``csrc/specband_fwd.cu``), K3
+and K5 (``csrc/framed_fwd.cu``) and K6 (``csrc/framed_bwd.cu``), decided
+on the host.
 
-Both kernels take the real DFT of each frame either with an FFT in
-shared memory (``csrc/frame_fft.cuh``) or with the direct-DFT GEMM they
-ran before.  :func:`plan` picks one from the geometry alone, before the
-launch, and the wrapper passes it to the kernel: the radices of the
-complex FFT of length ``n_fft / 2`` in stage order, or ``None`` for the
-direct stage.  The FFT takes every even ``n_fft`` up to 4096 whose half
-has no prime factor above 5 (every power of two, and e.g. 384 or 3000);
-the rest (e.g. 896 = 2^7 7, faithful mode's 1400 = 2^3 5^2 7) keeps the
-direct stage.
+Each takes the real DFT of each frame (K6 its adjoint) either with an
+FFT in shared memory (``csrc/frame_fft.cuh``) or with the direct-DFT
+GEMM the port began with.  :func:`plan` picks one from the geometry
+alone, before the launch, and the wrapper passes it to the kernel: the
+radices of the complex FFT of length ``n_fft / 2`` in stage order, or
+``None`` for the direct stage.  The FFT takes every even ``n_fft`` up to
+4096 whose half has no prime factor above 5 (every power of two, and
+e.g. 384 or 3000); the rest (e.g. 896 = 2^7 7, faithful mode's 1400 =
+2^3 5^2 7) keeps the direct stage.
 
 Beside the plan live the pieces of the FFT stage that the CPU tests
 check, since the CUDA code cannot run there:
 
-- :func:`rfft_mirror`, the kernel's arithmetic step by step in PyTorch
-  (Stockham stages, then the real-FFT post-pass), at the same float32
-  table entries and integer phases;
+- :func:`rfft_mirror`, the forward kernels' arithmetic step by step in
+  PyTorch (Stockham stages, then the real-FFT post-pass), at the same
+  float32 table entries and integer phases;
+- :func:`irfft_adjoint_mirror`, K6's: the adjoint of the real DFT as an
+  inverse real FFT (the inverse post-pass, then the same stages on
+  conjugated data);
 - :func:`ext_bin_map`, K1's map from its extended bins ``-J .. n_bins -
   1 + J`` to FFT bins, with the sign of each plane.
 """
@@ -112,25 +115,16 @@ def _butterfly(r: int, a: list, w: list):
             (m1r + n1i, m1i - n1r)]
 
 
-def rfft_mirror(frames: torch.Tensor, radices: tuple[int, ...],
-                table: torch.Tensor):
-    """``(re, im)``, each ``(rows, n_fft / 2 + 1)``: the real DFT of the
-    float32 ``frames`` (rows, n_fft) as the FFT stage computes it, with
-    ``table`` the ``(2, n_fft)`` cos / -sin table (:func:`table_np`).
-
-    The frame's samples, read in pairs, are ``m = n_fft / 2`` complex
-    values ``z[n] = x[2n] + i x[2n+1]``.  Each Stockham stage of radix
-    ``R``, after stages whose radices multiply to ``L``, takes butterfly
-    ``i < m / R`` with ``k = i mod L``: inputs ``z[i + r m / R]`` times
-    the twiddle ``table[r k n_fft / (L R)]``, a radix-``R`` DFT, outputs
-    to ``(i - k) R + k + q L``.  The post-pass gives bin ``k <= m``:
-    ``X[k] = E + W^k O`` with ``E = (Z[k] + conj Z[m-k]) / 2``, ``O =
-    (Z[k] - conj Z[m-k]) / 2i`` and ``Z[m] = Z[0]``."""
-    rows, n = frames.shape
-    m = n // 2
-    tc, ts = table[0], table[1]
-    z = frames.reshape(rows, m, 2)
-    zr, zi = z[..., 0], z[..., 1]
+def _stockham(zr, zi, radices: tuple[int, ...], tc, ts):
+    """The complex FFT of length ``m`` (``zr``, ``zi``: rows, m) as the
+    kernels' Stockham stages compute it (``frame_fft.cuh:fft_frames``);
+    ``tc``, ``ts`` the ``(n,)`` cos / -sin table of ``n = 2 m``.  Each
+    stage of radix ``R``, after stages whose radices multiply to ``L``,
+    takes butterfly ``i < m / R`` with ``k = i mod L``: inputs ``z[i + r
+    m / R]`` times the twiddle ``table[r k n / (L R)]``, a radix-``R``
+    DFT, outputs to ``(i - k) R + k + q L``."""
+    m = zr.shape[1]
+    n = 2 * m
     ell = 1
     for r in radices:
         stride, ls = m // r, ell * r
@@ -148,6 +142,25 @@ def rfft_mirror(frames: torch.Tensor, radices: tuple[int, ...],
         for q in range(r):
             yr[:, base + q * ell], yi[:, base + q * ell] = b[q]
         zr, zi, ell = yr, yi, ls
+    return zr, zi
+
+
+def rfft_mirror(frames: torch.Tensor, radices: tuple[int, ...],
+                table: torch.Tensor):
+    """``(re, im)``, each ``(rows, n_fft / 2 + 1)``: the real DFT of the
+    float32 ``frames`` (rows, n_fft) as the FFT stage computes it, with
+    ``table`` the ``(2, n_fft)`` cos / -sin table (:func:`table_np`).
+
+    The frame's samples, read in pairs, are ``m = n_fft / 2`` complex
+    values ``z[n] = x[2n] + i x[2n+1]``, transformed by the Stockham
+    stages (:func:`_stockham`).  The post-pass gives bin ``k <= m``:
+    ``X[k] = E + W^k O`` with ``E = (Z[k] + conj Z[m-k]) / 2``, ``O =
+    (Z[k] - conj Z[m-k]) / 2i`` and ``Z[m] = Z[0]``."""
+    rows, n = frames.shape
+    m = n // 2
+    tc, ts = table[0], table[1]
+    z = frames.reshape(rows, m, 2)
+    zr, zi = _stockham(z[..., 0], z[..., 1], radices, tc, ts)
     k = torch.arange(m + 1)
     kk = torch.where(k == m, 0, k)
     km = torch.where(k == 0, 0, m - k)
@@ -155,6 +168,48 @@ def rfft_mirror(frames: torch.Tensor, radices: tuple[int, ...],
     orr, oi = 0.5 * (zi[:, kk] + zi[:, km]), -0.5 * (zr[:, kk] - zr[:, km])
     wr, wi = tc[k], ts[k]
     return er + (wr * orr - wi * oi), ei + (wr * oi + wi * orr)
+
+
+def irfft_adjoint_mirror(dreim, radices: tuple[int, ...],
+                         n_fft: int) -> torch.Tensor:
+    """``dfw`` (rows, n_fft): the adjoint of the real DFT applied to
+    ``dreim = (dre, dim)``, each float32 ``(rows, n_fft / 2 + 1)``, as
+    K6's FFT stage computes it::
+
+        dfw[r, m] = sum_k dre[r, k] cos(2 pi m k / N)
+                        - dim[r, k] sin(2 pi m k / N)
+
+    That sum is ``N irfft(Y)`` with ``Y[k] = (dre + i dim)[k] / 2`` for
+    ``0 < k < N/2`` and ``Y[0] = dre[0]``, ``Y[N/2] = dre[N/2]`` (the
+    imaginary parts of those two drop out).  The kernel keeps ``Y`` in
+    ``m = N/2`` complex slots, ``(Y[0], Y[m])`` sharing slot 0, and runs
+    the inverse of :func:`rfft_mirror`'s post-pass::
+
+        Z[k] = A + i W^-k B,  A = Y[k] + conj Y[m-k],  B = Y[k] - conj Y[m-k]
+
+    then the complex inverse DFT of length ``m`` as the forward Stockham
+    stages on ``conj Z`` (``conj FFT(conj Z)`` is the FFT with conjugate
+    twiddles, to the bit); ``dfw[2n] + i dfw[2n+1]`` is its ``n``-th
+    output.  Every twiddle is an entry of the float32 table
+    (:func:`table_np`) at an integer phase."""
+    dre, dim = dreim
+    m = n_fft // 2
+    tc, ts = torch.tensor(table_np(n_fft))
+    k = torch.arange(m)
+    first = k == 0
+    # Y[k] and conj Y[m - k]; slot 0 holds the real Y[0] and Y[m]
+    yr = torch.where(first, dre[:, :1], 0.5 * dre[:, :m])
+    yi = torch.where(first, 0.0, 0.5 * dim[:, :m])
+    km = torch.where(first, 0, m - k)
+    cr = torch.where(first, dre[:, m:m + 1], yr[:, km])
+    ci = torch.where(first, 0.0, -yi[:, km])
+    ar, ai = yr + cr, yi + ci
+    br, bi = yr - cr, yi - ci
+    wr, wi = tc[k], ts[k]                   # W^k; W^-k = (wr, -wi)
+    zr = ar - (wr * bi - wi * br)
+    zi = ai + (wr * br + wi * bi)
+    outr, outi = _stockham(zr, -zi, radices, tc, ts)
+    return torch.stack([outr, -outi], -1).reshape(dre.shape[0], n_fft)
 
 
 @functools.lru_cache(maxsize=16)

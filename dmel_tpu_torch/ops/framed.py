@@ -19,9 +19,11 @@ Three versions of each half of the function live here:
   :func:`framed_dwindow_plain` (the window's gradient from the Re|Im
   residual, the JAX package's XLA adjoint written in torch);
 - hand-written CUDA kernels: K3 (``csrc/framed_fwd.cu``, wrapped by
-  :func:`framed_fwd`) and K4 (``csrc/framed_bwd.cu``, wrapped by
-  :func:`framed_dwindow`).  CUDA tensors launch them; CPU tensors take
-  the plain versions;
+  :func:`framed_fwd`; an FFT per frame wherever
+  :func:`fft_plan.plan` has a plan for n_fft, every framed n_fft but
+  896) and K4 (``csrc/framed_bwd.cu``, wrapped by
+  :func:`framed_dwindow`; the direct adjoint DFT).  CUDA tensors launch
+  them; CPU tensors take the plain versions;
 - :func:`framed_mel_power`, the public function: :class:`WindowedMel`,
   an autograd function, over K3 and K4.
 
@@ -39,7 +41,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from dmel_tpu_torch.ops import _cuda
+from dmel_tpu_torch.ops import _cuda, fft_plan
 from dmel_tpu_torch.ops.fft_plan import table_np as _table_np
 from dmel_tpu_torch.ops.mel import melscale_fbanks_np
 from dmel_tpu_torch.ops.stft import frame_signal, num_frames
@@ -124,6 +126,7 @@ class _Consts(NamedTuple):
     """The kernels' constant operands on one device."""
     table: torch.Tensor       # (2, n_fft) float32
     fb: torch.Tensor          # (n_bins, n_mels) float32
+    fb_t: torch.Tensor        # (n_mels, n_bins) float32, fb transposed
     mel_lo: torch.Tensor      # (n_mels,) int32
     mel_hi: torch.Tensor
     bin_lo: torch.Tensor      # (n_bins,) int32
@@ -135,8 +138,8 @@ def _kernel_consts(g: Geom, device: torch.device) -> _Consts:
     fb, mel_lo, mel_hi, bin_lo, bin_hi = _fb_ranges_np(
         g.n_fft, g.n_mels, g.sample_rate, g.f_min, g.f_max)
     return _Consts(*(torch.tensor(a, device=device) for a in
-                     (_table_np(g.n_fft), fb, mel_lo, mel_hi, bin_lo,
-                      bin_hi)))
+                     (_table_np(g.n_fft), fb, np.ascontiguousarray(fb.T),
+                      mel_lo, mel_hi, bin_lo, bin_hi)))
 
 
 @functools.lru_cache(maxsize=8)
@@ -218,11 +221,9 @@ def _fwd_lib() -> ctypes.CDLL:
     the stream as ``c_void_p`` (ctypes would pass a bare Python int as a
     32-bit int), sizes as ``c_int``."""
     lib = _cuda.load("framed_fwd").cdll
-    args = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
-    lib.framed_fwd.argtypes = args + [ctypes.c_void_p]
-    lib.fused_fwd.argtypes = args + [ctypes.c_void_p, ctypes.c_int,
-                                     ctypes.c_void_p]
     for entry in (lib.framed_fwd, lib.fused_fwd):
+        entry.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+                          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         entry.restype = ctypes.c_int
     lib.framed_fwd_error_string.argtypes = [ctypes.c_int]
     lib.framed_fwd_error_string.restype = ctypes.c_char_p
@@ -234,11 +235,11 @@ def _bwd_lib() -> ctypes.CDLL:
     :func:`_fwd_lib`)."""
     lib = _cuda.load("framed_bwd").cdll
     for entry in (lib.framed_bwd, lib.fused_bwd):
-        entry.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
-                          + [ctypes.c_void_p])
+        entry.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+                          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         entry.restype = ctypes.c_int
-    lib.framed_bwd_rows_per_block.argtypes = []
-    lib.framed_bwd_rows_per_block.restype = ctypes.c_int
+    lib.framed_bwd_partial_blocks.argtypes = [ctypes.c_int] * 3
+    lib.framed_bwd_partial_blocks.restype = ctypes.c_int
     lib.framed_bwd_error_string.argtypes = [ctypes.c_int]
     lib.framed_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -261,10 +262,11 @@ def launch_fwd(entry: str, x2: torch.Tensor, window: torch.Tensor,
     """Launch the forward kernel's entry point ``entry`` (``"framed_fwd"``
     for K3, ``"fused_fwd"`` for K5) on the current stream, without
     synchronising: ``(out, reim)`` as :func:`fwd_plain` gives them.
-    ``radices`` is K5's spectra stage, the FFT of that plan
-    (:func:`fft_plan.plan`) or ``None`` for the direct DFT; K3 always
-    takes the direct DFT.  Checks device, dtype, shape and contiguity; a
-    failed build or launch raises.  The caller counts the launch."""
+    ``radices`` is the spectra stage, the FFT of that plan
+    (:func:`fft_plan.plan`) or ``None`` for the direct DFT.  Checks
+    device, dtype, shape and contiguity; a failed build or launch (a plan
+    that is not one of n_fft included) raises.  The caller counts the
+    launch."""
     _check_operands(entry, x2.device, x2, window)
     if x2.dim() != 2 or window.shape != (g.n_fft,):
         raise ValueError(f"{entry}: x (B, T) and window ({g.n_fft},), got "
@@ -283,13 +285,9 @@ def launch_fwd(entry: str, x2: torch.Tensor, window: torch.Tensor,
                 c.fb.data_ptr(), c.mel_lo.data_ptr(), c.mel_hi.data_ptr(),
                 reim.data_ptr(), out.data_ptr(), b, t, nfr, g.hop_length,
                 g.n_fft, kp, n_bins, g.n_mels)
-        stream = torch.cuda.current_stream(x2.device).cuda_stream
-        if entry == "framed_fwd":
-            if radices is not None:
-                raise ValueError("framed_fwd takes the direct DFT only")
-            rc = lib.framed_fwd(*args, stream)
-        else:
-            rc = lib.fused_fwd(*args, *_cuda.plan_args(radices), stream)
+        rc = getattr(lib, entry)(
+            *args, *_cuda.plan_args(radices),
+            torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: "
                            + lib.framed_fwd_error_string(rc).decode())
@@ -299,12 +297,17 @@ def launch_fwd(entry: str, x2: torch.Tensor, window: torch.Tensor,
 def framed_fwd(x2: torch.Tensor, window: torch.Tensor, g: Geom):
     """K3's wrapper: ``(out, reim)`` as :func:`fwd_plain` gives them.
     CPU tensors take :func:`fwd_plain`; CUDA tensors launch
-    ``csrc/framed_fwd.cu`` (entry ``framed_fwd``) and add one to
-    ``framed_mel_power.launches``."""
+    ``csrc/framed_fwd.cu`` (entry ``framed_fwd``) with the spectra stage
+    :func:`fft_plan.plan` picks for n_fft, and add one to
+    ``framed_mel_power.launches`` and, on the FFT stage, to
+    ``framed_mel_power.fft_launches``."""
     if x2.device.type == "cpu":
         return fwd_plain(x2, window, g)
-    res = launch_fwd("framed_fwd", x2, window, g)
+    radices = fft_plan.plan(g.n_fft)
+    res = launch_fwd("framed_fwd", x2, window, g, radices)
     framed_mel_power.launches += 1
+    if radices is not None:
+        framed_mel_power.fft_launches += 1
     return res
 
 
@@ -329,12 +332,16 @@ def framed_dwindow_plain(x2: torch.Tensor, reim: torch.Tensor,
 
 
 def launch_bwd(entry: str, x2: torch.Tensor, reim: torch.Tensor,
-               dmel: torch.Tensor, g: Geom) -> torch.Tensor:
+               dmel: torch.Tensor, g: Geom,
+               radices: tuple[int, ...] | None = None) -> torch.Tensor:
     """Launch the backward kernels' entry point ``entry`` (``"framed_bwd"``
     for K4, ``"fused_bwd"`` for K6) on the current stream, without
     synchronising: the window's gradient ``(n_fft,)`` as
-    :func:`framed_dwindow_plain` defines it.  Checks device, dtype, shape
-    and contiguity; a failed build or launch raises.  The caller counts
+    :func:`framed_dwindow_plain` defines it.  ``radices`` is the stage
+    that computes dfw: the inverse FFT of that plan
+    (:func:`fft_plan.plan`) or ``None`` for the direct adjoint DFT.
+    Checks device, dtype, shape and contiguity; a failed build or launch
+    (a plan that is not one of n_fft included) raises.  The caller counts
     the launch."""
     _check_operands(entry, x2.device, x2, reim, dmel)
     b, t = x2.shape
@@ -349,17 +356,21 @@ def launch_bwd(entry: str, x2: torch.Tensor, reim: torch.Tensor,
     with torch.cuda.device(x2.device):
         c = _kernel_consts(g, x2.device)
         lib = _bwd_lib()
-        n_blocks = -(-rows // lib.framed_bwd_rows_per_block())
-        dreim = torch.empty_like(reim)
+        n_blocks = lib.framed_bwd_partial_blocks(rows, g.n_fft,
+                                                 int(radices is not None))
+        # dRe|dIm scratch: the direct stage's only
+        dreim = torch.empty_like(reim) if radices is None else None
         partials = torch.empty((g.n_fft, n_blocks), dtype=torch.float32,
                                device=x2.device)
         dw = torch.empty(g.n_fft, dtype=torch.float32, device=x2.device)
         rc = getattr(lib, entry)(
             x2.data_ptr(), reim.data_ptr(), c.table.data_ptr(),
-            c.fb.data_ptr(), c.bin_lo.data_ptr(), c.bin_hi.data_ptr(),
-            dmel.data_ptr(), dreim.data_ptr(), partials.data_ptr(),
-            dw.data_ptr(), b, t, nfr, g.hop_length, g.n_fft, kp, n_bins,
-            g.n_mels, torch.cuda.current_stream(x2.device).cuda_stream)
+            c.fb.data_ptr(), c.fb_t.data_ptr(), c.bin_lo.data_ptr(),
+            c.bin_hi.data_ptr(), dmel.data_ptr(),
+            None if dreim is None else dreim.data_ptr(),
+            partials.data_ptr(), dw.data_ptr(), b, t, nfr, g.hop_length,
+            g.n_fft, kp, n_bins, g.n_mels, *_cuda.plan_args(radices),
+            torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: "
                            + lib.framed_bwd_error_string(rc).decode())
@@ -371,11 +382,11 @@ def framed_dwindow(x2: torch.Tensor, reim: torch.Tensor, dmel: torch.Tensor,
     """K4's wrapper: the window's gradient ``(n_fft,)`` as
     :func:`framed_dwindow_plain` defines it.  CPU tensors take
     :func:`framed_dwindow_plain`; CUDA tensors launch
-    ``csrc/framed_bwd.cu`` (entry ``framed_bwd``) and add one to
-    ``framed_dwindow.launches``."""
+    ``csrc/framed_bwd.cu`` (entry ``framed_bwd``, the direct adjoint DFT)
+    and add one to ``framed_dwindow.launches``."""
     if x2.device.type == "cpu":
         return framed_dwindow_plain(x2, reim, dmel, g)
-    dw = launch_bwd("framed_bwd", x2, reim, dmel, g)
+    dw = launch_bwd("framed_bwd", x2, reim, dmel, g, None)
     framed_dwindow.launches += 1
     return dw
 
@@ -431,7 +442,8 @@ def framed_mel_power(x: torch.Tensor, window: torch.Tensor, *, n_fft: int,
 
     Raises ``ValueError`` where ``win_length != n_fft`` or the geometry
     fails :func:`supported`.  CUDA tensors launch K3 (adding one to
-    ``framed_mel_power.launches``) on the current stream and without
+    ``framed_mel_power.launches``, and to ``framed_mel_power.fft_launches``
+    where n_fft takes the FFT stage) on the current stream and without
     synchronising, and take the window's gradient from K4; CPU tensors
     run the same autograd function over the plain versions.  Float32
     only on CUDA (``TypeError`` otherwise).
@@ -453,3 +465,4 @@ def framed_mel_power(x: torch.Tensor, window: torch.Tensor, *, n_fft: int,
 
 
 framed_mel_power.launches = 0
+framed_mel_power.fft_launches = 0

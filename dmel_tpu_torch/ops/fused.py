@@ -9,7 +9,7 @@ no frames tensor is built, and takes an n_fft that is not a lane multiple
 (faithful mode's ``2 T``) and a window centred in n_fft
 (:func:`pad_window`).  Its spectra stage is an FFT per frame in shared
 memory wherever :func:`fft_plan.plan` has a plan for n_fft (every power
-of two), else the direct DFT that K3 runs.
+of two), else the direct DFT.
 
 The backward into the window is, by default, not a kernel, in the JAX
 package either (``USE_FUSED_BWD = False``): it is the adjoint chain
@@ -19,7 +19,8 @@ part of XLA's GEMMs.  With :data:`USE_FUSED_BWD` set it is K6
 (:func:`fused_dwindow`), the counterpart of the JAX package's fused dw
 kernel: the second entry point of the framed backward kernel
 (``csrc/framed_bwd.cu``, ``fused_bwd``), whose plain version is that same
-torch adjoint.
+torch adjoint: an inverse real FFT per frame wherever n_fft has a plan,
+else the direct adjoint DFT.
 """
 
 from __future__ import annotations
@@ -109,16 +110,22 @@ def fused_dwindow(x2: torch.Tensor, reim: torch.Tensor, dmel: torch.Tensor,
     """K6's wrapper: the window's gradient ``(n_fft,)`` from K5's residual,
     as :func:`framed.framed_dwindow_plain` defines it.  CPU tensors take
     that plain version; CUDA tensors launch ``csrc/framed_bwd.cu`` (entry
-    ``fused_bwd``, any even n_fft up to 4096) and add one to
-    ``fused_dwindow.launches``."""
+    ``fused_bwd``, any even n_fft up to 4096) with the stage
+    :func:`fft_plan.plan` picks for n_fft, and add one to
+    ``fused_dwindow.launches`` and, on the FFT stage, to
+    ``fused_dwindow.fft_launches``."""
     if x2.device.type == "cpu":
         return framed.framed_dwindow_plain(x2, reim, dmel, g)
-    dw = framed.launch_bwd("fused_bwd", x2, reim, dmel, g)
+    radices = fft_plan.plan(g.n_fft)
+    dw = framed.launch_bwd("fused_bwd", x2, reim, dmel, g, radices)
     fused_dwindow.launches += 1
+    if radices is not None:
+        fused_dwindow.fft_launches += 1
     return dw
 
 
 fused_dwindow.launches = 0
+fused_dwindow.fft_launches = 0
 
 
 def dmel_power(x: torch.Tensor, lambd, *, win_length: int, n_fft: int,

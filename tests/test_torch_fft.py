@@ -1,4 +1,4 @@
-"""The FFT spectra stage of K1 and K5 (``dmel_tpu_torch/ops/fft_plan.py``,
+"""The FFT stage of K1, K3, K5 and K6 (``dmel_tpu_torch/ops/fft_plan.py``,
 ``csrc/frame_fft.cuh``) on the CPU.
 
 The CUDA kernels run only on a card (``tests/test_torch_gpu.py``).  Here
@@ -11,15 +11,22 @@ held against independent references:
 - ``rfft_mirror``, the kernel's Stockham stages and real post-pass step
   by step at the same float32 table entries, against ``numpy.fft.rfft``
   in float64 at every planned n_fft (within 1e-5 of the largest
-  magnitude; float32 sums of up to 4096 terms);
+  magnitude; float32 sums of up to 4096 terms), and
+  ``irfft_adjoint_mirror``, K6's inverse, against ``N numpy.fft.irfft``
+  and the plain direct adjoint likewise;
 - K1's extended-bin map applied to ``torch.fft.rfft`` of the frames
   against the plain version's ``xext``, and K5's packed Re|Im against
   the plain version's residual, zero columns included (1e-5 of the
   largest entry);
-- K1 and K5 emulated end to end through the mirror, against their plain
-  versions, dmel_tpu's plain reference ``_specband_xla_ref`` and its
-  fused kernel in Pallas interpret mode (log-mel 1e-4, bench.py's gate;
-  1e-5 against the fused kernel, which also runs its DFT in float32);
+- K1 and K5 (and K3, which launches K5's kernel) emulated end to end
+  through the mirror, against their plain versions, dmel_tpu's plain
+  reference ``_specband_xla_ref``, its fused kernel and its framed kernel
+  in Pallas interpret mode (log-mel 1e-4, bench.py's gate; 1e-5 against
+  the fused kernel, which also runs its DFT in float32);
+- K6 emulated through the inverse mirror, its dw summed in the kernel's
+  block order, against the torch adjoint and dmel_tpu's fused dw kernel
+  in interpret mode (1e-3 of the largest entry, ``chip_smoke.py``'s
+  ``DW_GATE``: float32 sums over every frame in another order);
 - the FFT stage's accuracy against a float64 reference, beside the
   direct DFT's, on a band-limited clip.
 """
@@ -31,15 +38,21 @@ import numpy as np
 import pytest
 import torch
 
+import jax
+
+from dmel_tpu import ops as jops
+from dmel_tpu.ops.pallas import framed_dmel as jfr
 from dmel_tpu.ops.pallas import fused_dmel as jfu
 from dmel_tpu_torch import ops as tops
 from dmel_tpu_torch.data import make_esc50_synth_dataset
 from dmel_tpu_torch.ops import _cuda, fft_plan, framed, fused, specband
 from dmel_tpu_torch.ops.stft import frame_signal, num_frames
+from tests.test_torch_framed import _constants, _frames_from_signal
 from tests.test_torch_specband import _jax_ref_logmel
 
 GATE = 1e-4
 RESIDUAL_GATE = 1e-5
+DW_GATE = 1e-3
 SR = 8000
 POW2 = [128, 256, 512, 1024, 2048, 4096]
 
@@ -87,7 +100,8 @@ def test_plan_of_other_nffts(n_fft, want):
 def test_planned_nffts_are_plans_the_kernel_accepts():
     """Every plan is one ``fft_plan_from`` accepts: radices in {2, 3, 4,
     5} whose product is n_fft / 2, at most MAX_STAGES of them, the
-    header's own limit; the n_fft K1 takes are all planned but 896."""
+    header's own limit; the n_fft K1 and K3 take are all planned but
+    896."""
     header = (_cuda.SRC_DIR / "frame_fft.cuh").read_text()
     max_stages = int(re.search(r"FFT_MAX_STAGES = (\d+);", header)[1])
     assert max_stages == fft_plan.MAX_STAGES
@@ -98,6 +112,9 @@ def test_planned_nffts_are_plans_the_kernel_accepts():
     k1 = [n for n in range(128, 4097, 128)
           if specband.supported(n, 80, 64)]
     assert [n for n in k1 if n not in PLANNED] == [896]
+    k3 = [n for n in range(128, 4097, 128) if framed.supported(n, 80, 64)]
+    assert k3 == list(range(128, 1025, 128))
+    assert [n for n in k3 if n not in PLANNED] == [896]
 
 
 # --- the arithmetic --------------------------------------------------------
@@ -116,6 +133,30 @@ def test_mirror_matches_numpy_rfft(n_fft):
     assert re_.dtype == torch.float32 and re_.shape == want.shape
     assert np.abs(re_.numpy() - want.real).max() <= RESIDUAL_GATE * scale
     assert np.abs(im.numpy() - want.imag).max() <= RESIDUAL_GATE * scale
+
+
+@pytest.mark.parametrize("n_fft", PLANNED)
+def test_adjoint_mirror_matches_numpy_irfft_and_direct_adjoint(n_fft):
+    """K6's inverse FFT against ``N irfft(Y)`` (``Y = (dRe + i dIm) / 2``
+    inside, ``dRe`` itself at DC and Nyquist) in float64 and against the
+    plain direct adjoint ``dre C^T + dim S^T`` of
+    ``framed.framed_dwindow_plain``, at every planned n_fft (odd n_fft /
+    2 included, where no bin pairs with itself)."""
+    rng = np.random.default_rng(n_fft)
+    n_bins = n_fft // 2 + 1
+    dre, dim = rng.standard_normal((2, 3, n_bins)).astype(np.float32)
+    got = fft_plan.irfft_adjoint_mirror(
+        (torch.from_numpy(dre), torch.from_numpy(dim)),
+        fft_plan.plan(n_fft), n_fft)
+    y = (dre + 1j * dim.astype(np.float64)) / 2
+    y[:, 0], y[:, -1] = dre[:, 0], dre[:, -1]
+    want = n_fft * np.fft.irfft(y, n=n_fft)
+    scale = np.abs(want).max()
+    assert got.dtype == torch.float32 and got.shape == want.shape
+    assert np.abs(got.numpy() - want).max() <= RESIDUAL_GATE * scale
+    c, s = (torch.tensor(b) for b in framed._bases_np.__wrapped__(n_fft))
+    direct = torch.from_numpy(dre) @ c.T + torch.from_numpy(dim) @ s.T
+    assert float((got - direct).abs().max()) <= RESIDUAL_GATE * scale
 
 
 def _k1_geom(n_fft, hop, n_mels, j, log=False, band_map=None):
@@ -235,8 +276,9 @@ def test_emulated_k1_fft_stage_matches_plain(case):
 
 @pytest.mark.parametrize("n_fft,win,hop,t", [
     (128, 128, 20, 1000), (1024, 1024, 80, 4000), (3000, 1500, 80, 1500),
-    (4096, 4096, 400, 6000)])
+    (4096, 4096, 400, 6000), (512, 512, 80, 3000)])
 def test_emulated_k5_fft_stage_matches_plain(n_fft, win, hop, t):
+    """K5's FFT stage, which K3 launches too (512, 1024)."""
     x = torch.from_numpy(_signal(4, (2, t)))
     w = fused.pad_window(tops.gaussian_window(win / 8, win), n_fft)
     g = _k5_geom(n_fft, hop, 64)
@@ -276,6 +318,96 @@ def test_emulated_k5_matches_jax_kernel(t, win, n_fft, hop, n_mels):
                   - np.log(want + 1e-10)).max() <= RESIDUAL_GATE
 
 
+@pytest.mark.parametrize("n_fft,hop,n_mels,t,lam", [
+    (512, 80, 64, 3000, 46.7), (1024, 80, 64, 4000, 150.0)])
+def test_emulated_k3_matches_jax_kernel(n_fft, hop, n_mels, t, lam):
+    """K3 launches K5's FFT kernel: emulated through the mirror, against
+    dmel_tpu's framed kernel in interpret mode (bf16 hi/lo splits there)
+    at bench.py's gate, and the plain version's residual."""
+    x = _signal(8, (2, t))
+    w = tops.gaussian_window(lam, n_fft)
+    g = _k5_geom(n_fft, hop, n_mels)
+    got, reim = emulate_k5_fft(torch.from_numpy(x), w, g)
+    _, reim_p = framed.fwd_plain(torch.from_numpy(x), w, g)
+    assert _rel(reim, reim_p) <= RESIDUAL_GATE
+    want = np.asarray(jfr.framed_mel_power(
+        jnp.asarray(x), jops.gaussian_window(lam, n_fft), n_fft=n_fft,
+        hop_length=hop, n_mels=n_mels, sample_rate=SR, interpret=True))
+    assert got.shape == want.shape
+    assert np.abs(np.log(got.numpy() + 1e-10)
+                  - np.log(want + 1e-10)).max() <= GATE
+
+
+def emulate_k6_fft(x2, reim, dmel, g):
+    """K6 with the FFT stage, step by step: dP over each bin's nonzero mel
+    bands, the half spectrum dRe|dIm, the inverse mirror to dfw, the
+    frame product; then the sums in the kernel's order: frame groups of
+    ``max(1, FFT_BLOCK_POINTS / n_fft)`` rows, group ``i`` to block ``i
+    mod blocks`` (``blocks = min(DW_BLOCKS, groups)``), a block's groups
+    in order, then its frames, then the blocks' partials."""
+    n, nfr = g.n_fft, num_frames(x2.shape[1], g.hop_length)
+    n_bins, kp, rows = n // 2 + 1, framed.kp_of(n), x2.shape[0] * nfr
+    c = framed._kernel_consts(g, x2.device)
+    r = torch.arange(rows)
+    g2 = dmel[r // nfr, :, r % nfr]                    # (rows, n_mels)
+    dp = torch.zeros((rows, n_bins))
+    for k, (lo, hi) in enumerate(zip(c.bin_lo.tolist(), c.bin_hi.tolist())):
+        dp[:, k] = (g2[:, lo:hi] * c.fb[k, lo:hi]).sum(1)
+    dre, dim = 2.0 * reim[:, :n_bins] * dp, 2.0 * reim[:, kp:kp + n_bins] * dp
+    dfw = fft_plan.irfft_adjoint_mirror((dre, dim), fft_plan.plan(n), n)
+    prod = _frames_from_signal(x2, n, g.hop_length, n) * dfw
+    header = (_cuda.SRC_DIR / "frame_fft.cuh").read_text()
+    points = int(re.search(r"FFT_BLOCK_POINTS = (\d+);", header)[1])
+    fr = max(1, points // n)
+    groups = -(-rows // fr)
+    blocks = min(_constants("framed_bwd")["DW_BLOCKS"], groups)
+    walks = -(-groups // blocks)
+    prod = torch.nn.functional.pad(prod, (0, 0, 0, walks * blocks * fr - rows))
+    partials = prod.reshape(walks, blocks, fr, n).sum(0).sum(1)
+    return partials.sum(0)
+
+
+#: (n_fft, win, hop, n_mels, T, B): fused buckets, faithful 3000, K4's
+#: 512 (8 frames a group), and 4096 with more groups than DW_BLOCKS
+K6_CASES = [(1024, 1024, 80, 64, 3000, 2), (2048, 2048, 160, 64, 4000, 2),
+            (3000, 1500, 80, 64, 1500, 2), (512, 512, 40, 32, 2000, 3),
+            (4096, 4096, 40, 64, 11000, 2)]
+
+
+def _k6_operands(n_fft, win, hop, n_mels, t, b, seed=9):
+    x = torch.from_numpy(_signal(seed, (b, t)))
+    w = fused.pad_window(tops.gaussian_window(win / 8, win), n_fft)
+    g = _k5_geom(n_fft, hop, n_mels)
+    out, reim = emulate_k5_fft(x, w, g)
+    dmel = torch.from_numpy(np.random.default_rng(seed + 1).standard_normal(
+        tuple(out.shape)).astype(np.float32))
+    return x, w, g, reim, dmel
+
+
+@pytest.mark.parametrize("case", K6_CASES, ids=lambda c: f"nfft{c[0]}")
+def test_emulated_k6_fft_stage_matches_plain(case):
+    x, _, g, reim, dmel = _k6_operands(*case)
+    got = emulate_k6_fft(x, reim, dmel, g)
+    want = framed.framed_dwindow_plain(x, reim, dmel, g)
+    assert _rel(got, want) <= DW_GATE
+
+
+@pytest.mark.parametrize("case", K6_CASES[:3], ids=lambda c: f"nfft{c[0]}")
+def test_emulated_k6_matches_jax_fused_bwd(case, monkeypatch):
+    """The window's gradient from emulated K5 and K6 against dmel_tpu's
+    fused forward and its fused dw kernel (``USE_FUSED_BWD``), both in
+    interpret mode, for the same cotangent."""
+    x, w, g, reim, dmel = _k6_operands(*case)
+    got = emulate_k6_fft(x, reim, dmel, g)
+    monkeypatch.setattr(jfu, "USE_FUSED_BWD", True)
+    fb = jops.melscale_fbanks(g.n_fft // 2 + 1, 0.0, SR // 2, g.n_mels, SR)
+    _, vjp = jax.vjp(lambda wj: jfu._dmel_from_window(
+        jnp.asarray(x.numpy()), wj, fb, g.n_fft, g.hop_length, True,
+        jnp.float32), jnp.asarray(w.numpy()))
+    want = np.asarray(vjp(jnp.asarray(dmel.transpose(1, 2).numpy()))[0])
+    assert np.abs(got.numpy() - want).max() <= DW_GATE * np.abs(want).max()
+
+
 def test_fft_stage_is_closer_to_float64_than_the_direct_dft():
     """On band-limited clips (esc50_synth, whose quietest mel band sits
     ~1e-7 below the loudest) the FFT stage's spectra are at least twice
@@ -295,6 +427,40 @@ def test_fft_stage_is_closer_to_float64_than_the_direct_dft():
     err_fft = float((xext_fft.double() - ref).abs().max())
     err_direct = float((xext_direct.double() - ref).abs().max())
     assert err_fft * 2 <= err_direct, (err_fft, err_direct)
+
+
+@pytest.mark.parametrize("n_fft,lam", [(512, 46.7), (1024, 150.0)])
+def test_k3_fft_stage_against_float64_on_band_limited_clips(n_fft, lam):
+    """K3's FFT stage on the framed model path's input (esc50_synth clips,
+    windowed): its spectra at least twice as near a float64 reference as
+    the plain direct DFT's, and its log-mel, like the direct DFT's,
+    within half bench.py's gate of the float64 log-mel.  The quietest
+    bands set the log-mel error, so there the FFT need not be the nearer
+    of the two."""
+    x = make_esc50_synth_dataset(seed=0, n_samples=4).xs
+    x = torch.from_numpy(np.asarray(x, np.float32))
+    x = x - x.mean(-1, keepdim=True)
+    w = tops.gaussian_window(lam, n_fft)
+    g = _k5_geom(n_fft, 80, 64)
+    frames = (frame_signal(x, n_fft, 80) * w).reshape(-1, n_fft)
+    ref = torch.fft.rfft(frames.double())
+    re_, im = _mirror_bins(frames, n_fft)
+    n_bins, kp = n_fft // 2 + 1, framed.kp_of(n_fft)
+    _, reim = framed.fwd_plain(x, w, g)
+    fb = framed._fb(g, x.device).double()
+
+    def errs(re_, im):
+        re_, im = re_.double(), im.double()
+        spec = max(float((re_ - ref.real).abs().max()),
+                   float((im - ref.imag).abs().max()))
+        mel = torch.log((re_ ** 2 + im ** 2) @ fb + 1e-10)
+        mel_ref = torch.log((ref.real ** 2 + ref.imag ** 2) @ fb + 1e-10)
+        return spec, float((mel - mel_ref).abs().max())
+
+    spec_fft, mel_fft = errs(re_, im)
+    spec_dir, mel_dir = errs(reim[:, :n_bins], reim[:, kp:kp + n_bins])
+    assert spec_fft * 2 <= spec_dir, (spec_fft, spec_dir)
+    assert max(mel_fft, mel_dir) <= GATE / 2, (mel_fft, mel_dir)
 
 
 def test_cpu_tensors_take_the_plain_versions_and_count_nothing():

@@ -262,9 +262,11 @@ def test_k6_index_walk_matches_plain_bases(n_fft):
     (1500, 1500, 3000, 80, 64), (700, 700, 1400, 40, 32),
     (1000, 128, 128, 20, 16)], ids=lambda v: str(v))
 def test_k6_launcher_layout_matches_plain(rng, t, win, n_fft, hop, n_mels):
-    """K6 runs K4's kernels through their second entry point: the same
-    emulated launcher on K5's residual at the fused geometries (a window
-    centred in n_fft, ragged column blocks) against the torch adjoint."""
+    """K6's direct stage is K4's kernels through their second entry
+    point (the stage at 1400, and the direct stage at every n_fft): the
+    same emulated launcher on K5's residual at the fused geometries (a
+    window centred in n_fft, ragged column blocks) against the torch
+    adjoint.  K6's FFT stage is emulated in ``test_torch_fft.py``."""
     x = torch.from_numpy(rng.standard_normal((3, t)).astype(np.float32))
     w = tfu.pad_window(tops.gaussian_window(win / 8.0, win), n_fft)
     g = tfr.Geom(n_fft, hop, n_mels, SR, 0.0, float(SR // 2))

@@ -297,13 +297,15 @@ def test_bad_inputs_raise(cuda):
 # --- framed (K3, K4) and fused (K5) ------------------------------------
 
 # (batch, T, n_fft, hop, n_mels, lambd): ragged frame counts, 128-row GEMM
-# blocks that straddle batch rows, every framed bucket
+# blocks that straddle batch rows, every framed bucket, and 896 (no FFT
+# plan: the direct stage)
 FRAMED_CASES = [
     (3, 1001, 128, 16, 32, 12.0),
     (2, 1500, 256, 32, 40, 30.0),
     (5, 4000, 512, 80, 64, 46.7),
     (1, 4000, 512, 80, 64, 30.0),
     (2, 4000, 1024, 80, 64, 150.0),
+    (2, 3000, 896, 80, 64, 112.0),
 ]
 # (batch, T, win_length, n_fft, hop, n_mels, lambd): the fused buckets,
 # and faithful mode's short window in an n_fft that is not a lane multiple
@@ -327,11 +329,14 @@ def test_k3_matches_plain(cuda, case):
     x = _signal((b, t)).to(cuda)
     w = ops.gaussian_window(torch.tensor(lam, device=cuda), n_fft)
     g = _framed_geom(case)
-    before = framed.framed_mel_power.launches
+    counter = framed.framed_mel_power
+    before = (counter.launches, counter.fft_launches)
     out, reim = framed.framed_fwd(x, w, g)
     want, reim_p = framed.fwd_plain(x, w, g)
     torch.cuda.synchronize()
-    assert framed.framed_mel_power.launches == before + 1
+    # the FFT stage at every n_fft but 896 = 2^7 7
+    assert (counter.launches, counter.fft_launches) == (
+        before[0] + 1, before[1] + _fft_planned(n_fft))
     assert out.shape == want.shape == (b, n_mels, ops.num_frames(t, hop))
     assert reim.shape == reim_p.shape
     assert torch.isfinite(out).all()
@@ -419,24 +424,30 @@ def test_direct_stage_at_planned_nfft_and_bad_plans(cuda):
     x = _signal((2, 6000)).to(cuda)
     w = ops.gaussian_window(torch.tensor(128.0, device=cuda), 1024)
     g5 = framed.Geom(1024, 80, 64, 8000, 0.0, 4000.0)
-    out_d, reim_d = framed.launch_fwd("fused_fwd", x, w, g5, None)
-    out_f, reim_f = fused.fused_fwd(x, w, g5)
-    assert float((reim_d - reim_f).abs().max() / reim_f.abs().max()) <= 1e-5
-    assert float((torch.log(out_d + 1e-10) - torch.log(out_f + 1e-10))
-                 .abs().max()) <= GATE
+    for entry, wrapper in (("fused_fwd", fused.fused_fwd),
+                           ("framed_fwd", framed.framed_fwd)):
+        out_d, reim_d = framed.launch_fwd(entry, x, w, g5, None)
+        out_f, reim_f = wrapper(x, w, g5)
+        assert float((reim_d - reim_f).abs().max()
+                     / reim_f.abs().max()) <= 1e-5
+        assert float((torch.log(out_d + 1e-10) - torch.log(out_f + 1e-10))
+                     .abs().max()) <= GATE
     g1 = specband._Geom(1024, 80, 64, 8000, 0.0, 4000.0, 24, True)
     rho = specband.window_taps_sym(w, 1024, 24)
     out_d, xext_d = specband.launch_fwd(x, rho, g1, None)
     out_f, xext_f = specband._fwd(x, rho, g1)
     assert float((xext_d - xext_f).abs().max() / xext_f.abs().max()) <= 1e-5
     assert float((out_d - out_f).abs().max()) <= GATE
+    dmel = _signal((2, 64, ops.num_frames(6000, 80)), seed=3).to(cuda)
     for bad in ((4, 4), (4, 4, 4, 4, 4, 2), (4, 4, 4, 4, 8), (7,) * 3):
-        with pytest.raises(RuntimeError, match="fused_fwd launch failed"):
-            framed.launch_fwd("fused_fwd", x, w, g5, bad)
+        for entry in ("fused_fwd", "framed_fwd"):
+            with pytest.raises(RuntimeError, match=f"{entry} launch failed"):
+                framed.launch_fwd(entry, x, w, g5, bad)
         with pytest.raises(RuntimeError, match="specband_fwd launch failed"):
             specband.launch_fwd(x, rho, g1, bad)
-    with pytest.raises(ValueError, match="direct DFT only"):
-        framed.launch_fwd("framed_fwd", x, w, g5, fft_plan.plan(1024))
+        for entry in ("fused_bwd", "framed_bwd"):
+            with pytest.raises(RuntimeError, match=f"{entry} launch failed"):
+                framed.launch_bwd(entry, x, reim_f, dmel, g5, bad)
 
 
 def _k4_operands(cuda, case, seed=0):
@@ -453,11 +464,18 @@ def _k4_operands(cuda, case, seed=0):
 @pytest.mark.parametrize("case", FRAMED_CASES,
                          ids=lambda c: f"nfft{c[2]}-b{c[0]}-lam{c[5]}")
 def test_k4_matches_plain(cuda, case):
+    """K4 (the direct adjoint) against its plain version; and the FFT
+    stage through K4's entry wherever n_fft has a plan (several frames a
+    block: the stage K4 is to take), bit-identical on repeat too."""
     x, reim, dmel, g = _k4_operands(cuda, case)
     before = framed.framed_dwindow.launches
     got = framed.framed_dwindow(x, reim, dmel, g)
     again = framed.framed_dwindow(x, reim, dmel, g)
     want = framed.framed_dwindow_plain(x, reim, dmel, g)
+    radices = fft_plan.plan(g.n_fft)
+    if radices is not None:
+        fft = framed.launch_bwd("framed_bwd", x, reim, dmel, g, radices)
+        fft2 = framed.launch_bwd("framed_bwd", x, reim, dmel, g, radices)
     torch.cuda.synchronize()
     assert framed.framed_dwindow.launches == before + 2
     assert got.shape == want.shape == (case[2],)
@@ -465,6 +483,10 @@ def test_k4_matches_plain(cuda, case):
     assert torch.equal(got, again)
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= DW_GATE, err
+    if radices is not None:
+        assert torch.equal(fft, fft2)
+        err = float((fft - want).abs().max() / want.abs().max())
+        assert err <= DW_GATE, err
 
 
 def _dlambda(x, lam, impl, n_fft, hop, n_mels, log=True):
@@ -536,28 +558,28 @@ def test_faithful_auto_route_uses_fused_kernel(cuda):
 def test_kernel_routes_do_not_synchronise(cuda, impl, n_fft, lam):
     """Forward and backward into lambda through each kernel route issue
     no operation that makes the host wait for the card, once the
-    route's constants are on the card; the specband and fused forwards
-    take the FFT stage."""
+    route's constants are on the card; every forward takes the FFT
+    stage."""
     x = _signal((2, 6000)).to(cuda)
     lam_t = torch.tensor(lam, device=cuda, requires_grad=True)
     kw = dict(n_mels=64, sample_rate=8000, hop_length=80, optimized=True,
               window_length=n_fft, impl=impl)
     counter = {"specband": specband.specband_mel_power,
-               "fused": fused.dmel_power}.get(impl)
+               "framed": framed.framed_mel_power,
+               "fused": fused.dmel_power}[impl]
 
     def run():
         ops.log_mel_spectrogram(x, lam_t, **kw).sum().backward()
 
     run()
     torch.cuda.synchronize()
-    before = counter.fft_launches if counter else 0
+    before = counter.fft_launches
     torch.cuda.set_sync_debug_mode("error")
     try:
         run()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    if counter:
-        assert counter.fft_launches == before + 1
+    assert counter.fft_launches == before + 1
 
 
 def test_explicit_fused_above_cap_takes_exact_route(cuda):
@@ -782,17 +804,22 @@ def test_k6_matches_plain(cuda, case):
     out, reim = fused.fused_fwd(x, w, g)
     dmel = torch.from_numpy(np.random.default_rng(1).standard_normal(
         tuple(out.shape)).astype(np.float32)).to(cuda)
-    before = fused.fused_dwindow.launches
+    counter = fused.fused_dwindow
+    before = (counter.launches, counter.fft_launches)
     got = fused.fused_dwindow(x, reim, dmel, g)
     again = fused.fused_dwindow(x, reim, dmel, g)
     want = framed.framed_dwindow_plain(x, reim, dmel, g)
+    direct = framed.launch_bwd("fused_bwd", x, reim, dmel, g, None)
     torch.cuda.synchronize()
-    assert fused.fused_dwindow.launches == before + 2
+    # the inverse FFT at 2048, 4096 and 3000; the direct adjoint at 1400
+    assert (counter.launches, counter.fft_launches) == (
+        before[0] + 2, before[1] + 2 * _fft_planned(n_fft))
     assert got.shape == want.shape == (n_fft,)
     assert torch.isfinite(got).all()
     assert torch.equal(got, again)
-    err = float((got - want).abs().max() / want.abs().max())
-    assert err <= DW_GATE, err
+    for dw in (got, direct):
+        err = float((dw - want).abs().max() / want.abs().max())
+        assert err <= DW_GATE, err
 
 
 @pytest.mark.parametrize("n_fft,win,lam", [(2048, 2048, 300.0),
@@ -849,16 +876,16 @@ def test_new_routes_do_not_synchronise(cuda, monkeypatch, route):
 
     run()
     torch.cuda.synchronize()
-    counter = {"multi": specband.specband_mel_power_multi,
-               "fused_bwd": fused.dmel_power}.get(route)
-    before = counter.fft_launches if counter else 0
+    counters = {"multi": (specband.specband_mel_power_multi,),
+                "exact_multi": (),
+                "fused_bwd": (fused.dmel_power, fused.fused_dwindow)}[route]
+    before = [c.fft_launches for c in counters]
     torch.cuda.set_sync_debug_mode("error")
     try:
         run()
     finally:
         torch.cuda.set_sync_debug_mode("default")
-    if counter:
-        assert counter.fft_launches == before + 1
+    assert [c.fft_launches for c in counters] == [n + 1 for n in before]
 
 
 def test_failed_launches_raise(cuda):
