@@ -25,7 +25,9 @@ Phases, each announced by a flushed line when it starts and ends:
    launches (``split``, ``split_direct``: device ms a launch by kernel,
    with the launches the profiler recorded of 5 calls).
    Times with CUDA events: the kernel, the plain version and, as a
-   yardstick, one torch.stft + mel matmul of the same function.  Every
+   yardstick, one torch.stft + mel matmul of the same function, whose
+   card time from ``torch.profiler`` (``library_device_ms``) is K1's
+   ``library_ms`` where the host is slower to issue it.  Every
    such time is the median of 5 blocks of 10 calls after 3 warm-up
    calls; each kernel and yardstick time also carries its blocks' range
    and the host's time to issue a call, which shows when the card waited
@@ -41,7 +43,10 @@ Phases, each announced by a flushed line when it starts and ends:
    largest tap), and two K2 runs and two backward passes bit-identical.
    Times: K2, its plain version, the forward+backward of the kernel
    chain, of the plain chain and of the exact route (torch.stft + mel,
-   autograd) with its backward alone as K2's yardstick.
+   autograd) with its backward alone as K2's yardstick, by events and by
+   the profiler (``library_bwd_device_ms``, the card's time, K2's
+   ``library_ms``); K2's launches split by the profiler (``split``) and
+   the tap count of the kernel instance that ran (``tap_instance``).
 5. K3/K4 against their plain versions: the framed route at lambda 46.7
    (the 512 bucket, B=32), lambda 150 (1024, B=32 and B=128) and the
    deep-fade lambda 30 (512, the framed_hiprec route).  K3 (log-mel
@@ -51,7 +56,9 @@ Phases, each announced by a flushed line when it starts and ends:
    of the plain chain and of the exact route (1e-2).  Times as for
    K1/K2; the exact route's backward is K4's yardstick.  K3 takes the
    FFT stage (K5's kernel); ``direct_ms`` and ``split_direct`` are K3's
-   own entry with no plan.  K4 takes the direct adjoint.  Each
+   own entry with no plan.  K4 takes the inverse-FFT stage (K6's kernel;
+   ``k4_stage``); the direct adjoint through K4's entry is gated like it
+   and timed (``k4_direct_ms``, ``k4_split``, ``k4_split_direct``).  Each
    yardstick's card time also comes from ``torch.profiler``
    (``library_device_ms``, ``library_bwd_device_ms``), where the host
    is slower to issue it than the card to run it.
@@ -70,9 +77,9 @@ Phases, each announced by a flushed line when it starts and ends:
    (log-mel 1e-4), K2 against its plain version (1e-3 of the largest
    entry, bit-identical on repeat), dlambda (4,) through the kernels
    against autograd of the plain chain and of the exact route (1e-2 in
-   each group).  Yardsticks: the exact route's forward and its backward
-   into lambda.  ``stage``, ``direct_ms``, the splits and the ``xext``
-   gates as for K1.
+   each group).  Yardsticks (by events and by the profiler, the card's
+   time): the exact route's forward and its backward into lambda.
+   ``stage``, ``direct_ms``, the splits and the ``xext`` gates as for K1.
 8. K6 against its plain version (the torch adjoint) on K5's residual at
    lambda 300 (2048), 600 (4096) and faithful mode (T=1500, n_fft 3000;
    T=700, n_fft 1400): dw within 1e-3 of its largest entry, bit-identical
@@ -101,8 +108,9 @@ Phases, each announced by a flushed line when it starts and ends:
    and K2m likewise on a multi-sigma epoch); on a framed epoch K4 once
    per train step and K3 once per train step and valid batch; on a fused
    epoch K5 once per train step and valid batch, and K6 once per train
-   step with the flag; K1, K1m, K3, K5 and K6 also on their FFT counters
-   (``fft_launches``) wherever the epoch's window takes the FFT stage.
+   step with the flag; K1, K1m, K3, K4, K5 and K6 also on their FFT
+   counters (``fft_launches``) wherever the epoch's window takes the FFT
+   stage.
    Losses finite; every group's lambda moved.  At
    lambda 128, on one batch, the gradients of lambda and of
    ``fc_esc50.weight`` through the kernels must match the same model,
@@ -112,11 +120,13 @@ Phases, each announced by a flushed line when it starts and ends:
    the flag on (K6) against off (the torch adjoint).  ms per train step,
    first and steady, on each route; at lambda 128 also with cuDNN's
    deterministic algorithms off and on, in turns, and which gradients
-   differ between identical steps in each setting; at lambda 46.7 a
-   second ``fit`` with the same seed must be bit-identical in lambda and
-   every weight.
+   differ between identical steps in each setting; at lambda 128 and
+   46.7 a second ``fit`` with the same seed must be bit-identical in
+   lambda and every weight.
 11. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
-   ran), then the final ``{"ok": true, "device": {...}}`` line.
+   ran; K2, K2 multi and K4 also with their times, plain times, bounds
+   and yardsticks at every measured shape, ``shapes``), then the final
+   ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises, so the script exits non-zero before the final
 line.  A watchdog ends a run that hangs with a traceback.  Without a
@@ -177,11 +187,12 @@ COUNTERS = {"K1": (specband.specband_mel_power, "launches"),
             "K1fft": (specband.specband_mel_power, "fft_launches"),
             "K1mfft": (specband.specband_mel_power_multi, "fft_launches"),
             "K3fft": (framed.framed_mel_power, "fft_launches"),
+            "K4fft": (framed.framed_dwindow, "fft_launches"),
             "K5fft": (fused.dmel_power, "fft_launches"),
             "K6fft": (fused.fused_dwindow, "fft_launches")}
 #: the kernels that count their FFT-stage launches apart, and the counter
-FFT_COUNTER = {"K1": "K1fft", "K1m": "K1mfft", "K3": "K3fft", "K5": "K5fft",
-               "K6": "K6fft"}
+FFT_COUNTER = {"K1": "K1fft", "K1m": "K1mfft", "K3": "K3fft", "K4": "K4fft",
+               "K5": "K5fft", "K6": "K6fft"}
 SR, HOP, N_MELS, T = 8000, 80, 64, 40000
 N_BATCHES, BATCH = 3, 32
 #: one H100 SXM: fp32 outside the tensor cores, and HBM3 bandwidth
@@ -436,6 +447,7 @@ def k1_case(seed: int, batch: int, n_fft: int, lambd: float,
         direct_ms = time_ms(direct)
         plain_ms = time_ms(plain)
         library_t = timed("library_ms", library)
+        library_dev = device_ms(library)
         split, split_direct = stage_split(kernel), stage_split(direct)
     fb_nnz = int((fb != 0).sum())
     bound_ms, bound_by = k1_bound(batch, n_fft, j, fb_nnz)
@@ -447,7 +459,8 @@ def k1_case(seed: int, batch: int, n_fft: int, lambd: float,
                logmel_err_direct_stage=err_direct, xext_err_of_max=xext_err,
                xext_repeat_bit_identical=bool(torch.equal(xext, xext2)),
                **kernel_t, direct_ms=direct_ms, plain_ms=plain_ms,
-               **library_t, bound_ms=bound_ms, bound_by=bound_by,
+               **library_t, library_device_ms=library_dev,
+               bound_ms=bound_ms, bound_by=bound_by,
                split=split, split_direct=split_direct,
                least_gflop=least / 1e9, direct_dft_gflop=direct_flops / 1e9,
                direct_dft_tflops_achieved=direct_flops / direct_ms / 1e9)
@@ -653,10 +666,13 @@ def k2_case(seed: int, batch: int, n_fft: int, lambd: float, log: bool,
         kernel_t = timed("ms", k2)
         ms = kernel_t["ms"]
         plain_ms = time_ms(k2_plain)
+        split = stage_split(k2)
 
     lam = leaf()
     exact_out = mel_spectrogram(x, lam, impl="exact", **kw).sum()
     library_bwd = timed("library_bwd_ms", lambda: torch.autograd.grad(
+        exact_out, lam, retain_graph=True))
+    library_bwd_dev = device_ms(lambda: torch.autograd.grad(
         exact_out, lam, retain_graph=True))
     del exact_out
     chain_ms = time_ms(kernel_chain)
@@ -672,7 +688,11 @@ def k2_case(seed: int, batch: int, n_fft: int, lambd: float, log: bool,
                drho_repeat_bit_identical=bool(torch.equal(d_k, d_k2)),
                drho_max_abs_err=drho_abs, drho_err_of_max=drho_rel,
                drho_max_tap_rel_err=drho_tap_rel, **kernel_t,
-               plain_ms=plain_ms, **library_bwd, chain_ms=chain_ms,
+               plain_ms=plain_ms, split=split,
+               tap_instance=specband._bwd_lib().specband_bwd_tap_instance(
+                   2 * j + 1),
+               **library_bwd, library_bwd_device_ms=library_bwd_dev,
+               chain_ms=chain_ms,
                plain_chain_ms=plain_chain_ms, exact_chain_ms=exact_chain_ms,
                bound_ms=bound_ms, bound_by=bound_by,
                least_gflop=least_gflop,
@@ -814,6 +834,7 @@ def multi_case(seed: int, batch: int, n_fft: int, lams: tuple,
         direct_ms = time_ms(direct)
         plain_ms = time_ms(plain)
         library_t = timed("library_ms", library)
+        library_dev = device_ms(library)
         split, split_direct = stage_split(kernel), stage_split(direct)
 
         rho = specband.window_taps_sym(ws, n_fft, j)
@@ -838,6 +859,7 @@ def multi_case(seed: int, batch: int, n_fft: int, lams: tuple,
         drho_rel = float((d_k - d_p).abs().max() / d_p.abs().max())
         k2_t = timed("k2_ms", k2)
         k2_plain_ms = time_ms(k2_plain)
+        k2_split = stage_split(k2)
 
     def leaf():
         return torch.tensor(lams, device=dev, requires_grad=True)
@@ -871,6 +893,8 @@ def multi_case(seed: int, batch: int, n_fft: int, lams: tuple,
         x, lam, impl="exact", **mkw) + LOG_EPS).sum()
     library_bwd = timed("library_bwd_ms", lambda: torch.autograd.grad(
         exact_out, lam, retain_graph=True))
+    library_bwd_dev = device_ms(lambda: torch.autograd.grad(
+        exact_out, lam, retain_graph=True))
     del exact_out
     chain_ms = time_ms(kernel_chain)
     plain_chain_ms = time_ms(plain_chain)
@@ -895,10 +919,13 @@ def multi_case(seed: int, batch: int, n_fft: int, lams: tuple,
                dlambd_repeat_bit_identical=bool(torch.equal(g_k, g_k2)),
                drho_repeat_bit_identical=bool(torch.equal(d_k, d_k2)),
                drho_err_of_max=drho_rel, **kernel_t, plain_ms=plain_ms,
-               **library_t, bound_ms=bound_ms, bound_by=bound_by,
+               **library_t, library_device_ms=library_dev,
+               bound_ms=bound_ms, bound_by=bound_by,
                least_gflop=least_gflop, **k2_t, k2_plain_ms=k2_plain_ms,
-               k2_bound_ms=k2_bound_ms, k2_bound_by=k2_bound_by,
-               k2_least_gflop=k2_gflop, **library_bwd, chain_ms=chain_ms,
+               k2_split=k2_split, k2_bound_ms=k2_bound_ms,
+               k2_bound_by=k2_bound_by, k2_least_gflop=k2_gflop,
+               **library_bwd, library_bwd_device_ms=library_bwd_dev,
+               chain_ms=chain_ms,
                plain_chain_ms=plain_chain_ms, exact_chain_ms=exact_chain_ms)
     say("K1/K2 multi " + json.dumps(res))
     check(err <= GATE, f"K1 multi vs plain {err:.3e} > {GATE}")
@@ -1046,13 +1073,22 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
             def k4_plain():
                 return framed.framed_dwindow_plain(xm, reim, dmel, g)
 
-            d_k, d_k2, d_p = k4(), k4(), k4_plain()
+            def k4_direct():
+                """K4 with the direct adjoint, through its C entry."""
+                return framed.launch_bwd("framed_bwd", xm, reim, dmel, g,
+                                         None)
+
+            d_k, d_k2, d_p, d_d = k4(), k4(), k4_plain(), k4_direct()
             torch.cuda.synchronize()
             dw_abs = float((d_k - d_p).abs().max())
             dw_rel = dw_abs / float(d_p.abs().max())
+            dw_rel_direct = rel_err(d_d, d_p)
             dw_repeat = bool(torch.equal(d_k, d_k2))
             k4_t = timed("k4_ms", k4)
+            k4_direct_ms = time_ms(k4_direct)
             k4_plain_ms = time_ms(k4_plain)
+            k4_split = stage_split(k4)
+            k4_split_direct = stage_split(k4_direct)
 
     kw = dict(n_mels=N_MELS, sample_rate=SR, hop_length=HOP,
               optimized=optimized, window_length=n_fft, log_output=True,
@@ -1116,7 +1152,11 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
     if route == "framed":
         k4_bound_ms, k4_bound_by, k4_gflop = k4_bound(batch, t, nfft, fb_nnz)
         res.update(dw_max_abs_err=dw_abs, dw_err_of_max=dw_rel,
-                   dw_repeat_bit_identical=dw_repeat, **k4_t,
+                   dw_err_of_max_direct_stage=dw_rel_direct,
+                   dw_repeat_bit_identical=dw_repeat,
+                   k4_stage=fft_plan.stage_name(nfft), **k4_t,
+                   k4_direct_ms=k4_direct_ms, k4_split=k4_split,
+                   k4_split_direct=k4_split_direct,
                    k4_plain_ms=k4_plain_ms, k4_bound_ms=k4_bound_ms,
                    k4_bound_by=k4_bound_by, k4_least_gflop=k4_gflop,
                    k4_direct_gflop=4 * batch * nfr * nfft
@@ -1133,6 +1173,8 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
     check(res["dlambd_repeat_bit_identical"], "dlambda differs on repeat")
     if route == "framed":
         check(dw_rel <= DW_GATE, f"K4 vs plain {dw_rel:.3e} of max")
+        check(dw_rel_direct <= DW_GATE,
+              f"K4 direct stage vs plain {dw_rel_direct:.3e} of max")
         check(dw_repeat, "K4 differs on repeat")
     return res
 
@@ -1646,7 +1688,7 @@ def main():
                                                     n_sigma=4)
 
     with phase("train path"):
-        paths["train"] = train_path(seed, dev, 128.0)
+        paths["train"] = train_path(seed, dev, 128.0, repeat=True)
     with phase("train path, framed"):
         paths["train_framed"] = train_path(seed, dev, 46.7, repeat=True)
     with phase("train path, fused"):
@@ -1671,6 +1713,25 @@ def main():
                     split_direct=case["split_direct"],
                     fft_launches=sum(by_path(FFT_COUNTER[key]).values()))
 
+    def shapes(all_cases, prefix, lib_key):
+        """A kernel's times at every measured shape: its own, its plain
+        version's, its bound and its yardstick's card time (events where
+        the profiler saw none)."""
+        out = {}
+        for c in all_cases:
+            lib = c.get(lib_key[:-3] + "_device_ms")
+            name = f"B{c['batch']}-nfft{c['n_fft']}"
+            if "log" in c:
+                name += f"-log{int(c['log'])}"
+            elif not isinstance(c["lambd"], list):
+                name += f"-lam{c['lambd']}"
+            out[name] = dict(ms=c[prefix + "ms"],
+                             plain_ms=c[prefix + "plain_ms"],
+                             bound_ms=c[prefix + "bound_ms"],
+                             library_ms=lib if isinstance(lib, float)
+                             else c[lib_key])
+        return out
+
     main1, main2 = cases[1], cases2[2]   # the model's and the train's shape
     main34, main5 = cases34[0], cases5[1]
     main_m, main6 = cases_m[1], cases6[1]
@@ -1688,6 +1749,8 @@ def main():
             max(c["drho_err_of_max"] for c in cases2),
             "drho / max |drho|", DRHO_GATE, main2,
             **_library(main2, "library_bwd_ms"), stage="none (no DFT)",
+            tap_instance=main2["tap_instance"], split=main2["split"],
+            shapes=shapes(cases2, "", "library_bwd_ms"),
             drho_err_of_max=max(c["drho_err_of_max"] for c in cases2),
             dlambd_rel_err=max(c["dlambd_rel_err"] for c in cases2)),
         _kernel_entry(
@@ -1702,8 +1765,16 @@ def main():
             "dmel_tpu/ops/pallas/framed_dmel.py:247", by_path("K4"),
             max(c["dw_err_of_max"] for c in cases34), "dw / max |dw|",
             DW_GATE, main34, prefix="k4_",
-            **_library(main34, "library_bwd_ms"), stage="direct",
+            **_library(main34, "library_bwd_ms"), stage=main34["k4_stage"],
+            stages={f"B{c['batch']}-nfft{c['n_fft']}-lam{c['lambd']}":
+                    c["k4_stage"] for c in cases34},
+            direct_ms=main34["k4_direct_ms"], split=main34["k4_split"],
+            split_direct=main34["k4_split_direct"],
+            fft_launches=sum(by_path("K4fft").values()),
+            shapes=shapes(cases34, "k4_", "library_bwd_ms"),
             dw_err_of_max=max(c["dw_err_of_max"] for c in cases34),
+            dw_err_of_max_direct_stage=max(
+                c["dw_err_of_max_direct_stage"] for c in cases34),
             dlambd_rel_err=max(c["dlambd_rel_err"] for c in cases34)),
         _kernel_entry(
             "fused_fwd", "framed_fwd.cu",
@@ -1727,7 +1798,8 @@ def main():
             max(c["drho_err_of_max"] for c in cases_m),
             "drho / max |drho|", DRHO_GATE, main_m, prefix="k2_",
             **_library(main_m, "library_bwd_ms"), k_sig=main_m["k_sig"],
-            stage="none (no DFT)",
+            stage="none (no DFT)", split=main_m["k2_split"],
+            shapes=shapes(cases_m, "k2_", "library_bwd_ms"),
             dlambd_rel_err=max(c["dlambd_rel_err"] for c in cases_m),
             dlambd_rel_err_vs_exact=max(
                 c["dlambd_rel_err_vs_exact"] for c in cases_m)),

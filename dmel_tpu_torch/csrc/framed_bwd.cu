@@ -27,10 +27,12 @@
 //
 // Two stages compute dfw, chosen on the host from n_fft alone
 // (dmel_tpu_torch/ops/fft_plan.py) and passed as the radices of the FFT's
-// plan: fused_bwd (K6) takes the FFT stage wherever n_fft has a plan
-// (2048, 4096, faithful 3000) and the direct stage elsewhere (faithful
-// 1400 = 2^3 5^2 7); framed_bwd (K4) is passed no plan and takes the
-// direct stage (its FFT stage is the same kernel, later work).
+// plan: both entries take the FFT stage wherever n_fft has a plan
+// (framed_bwd, K4: every framed n_fft but 896 = 2^7 7; fused_bwd, K6:
+// 2048, 4096, faithful 3000) and the direct stage elsewhere (896, and
+// faithful 1400 = 2^3 5^2 7).  At the framed n_fft of 128 to 1024 a block
+// holds 32 to 4 frames (4096 samples), and K3 leaves the same Re|Im
+// layout (kp_of(n_fft) columns a plane) that K5 leaves for K6.
 //
 // The FFT stage: one launch of adjoint_fft_dw_kernel, then dw_sum_kernel.
 // dfw is the inverse real FFT of each frame's dRe|dIm (frame_fft.cuh: the
@@ -57,8 +59,9 @@
 // sums in shared memory instead (48 KB a block, 56 bytes of spills) was
 // no faster on the H100 (PERF.md, Findings).
 //
-// The direct stage, three launches, for n_fft without a plan and for K4;
-// the design keeps dfw on chip, as the TPU kernels did:
+// The direct stage, three launches, for n_fft without a plan (and, with
+// no plan passed, at any n_fft: chip_smoke.py times it as direct_ms); the
+// design keeps dfw on chip, as the TPU kernels did:
 //
 // 1. dreim_kernel: one block owns FR frame rows, stages their cotangent in
 //    shared memory, forms dP over each bin's contiguous range of nonzero

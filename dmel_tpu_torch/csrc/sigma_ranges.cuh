@@ -1,9 +1,11 @@
 // Per-sigma bin ranges of a mel filterbank, computed on the card; included
-// by specband_fwd.cu and specband_bwd.cu inside their anonymous namespaces.
+// by specband_fwd.cu (K1) inside its anonymous namespace.  K2
+// (specband_bwd.cu) finds the same ranges, and each bin's bands, with its
+// own kernel, a warp a bin over many blocks.
 //
 // A multi-sigma specband call computes mel band m from the spectrum of tap
-// vector band_map[m].  Sigma s needs its power (K1) or its dP (K2) only on
-// the bins under its bands: [lo, hi), the smallest range that holds every
+// vector band_map[m].  Sigma s needs its power only on the bins under its
+// bands: [lo, hi), the smallest range that holds every
 // nonzero fb[k, m] with band_map[m] == s ([0, 0) for a sigma without a
 // nonzero).  The ranges follow from the filterbank operand the kernels are
 // given, so they are found here rather than passed in.  One block reads the

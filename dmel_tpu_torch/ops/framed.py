@@ -22,8 +22,9 @@ Three versions of each half of the function live here:
   :func:`framed_fwd`; an FFT per frame wherever
   :func:`fft_plan.plan` has a plan for n_fft, every framed n_fft but
   896) and K4 (``csrc/framed_bwd.cu``, wrapped by
-  :func:`framed_dwindow`; the direct adjoint DFT).  CUDA tensors launch
-  them; CPU tensors take the plain versions;
+  :func:`framed_dwindow`; an inverse real FFT per frame at the same
+  n_fft (:func:`dwindow_radices`), the direct adjoint DFT at 896).  CUDA
+  tensors launch them; CPU tensors take the plain versions;
 - :func:`framed_mel_power`, the public function: :class:`WindowedMel`,
   an autograd function, over K3 and K4.
 
@@ -377,21 +378,34 @@ def launch_bwd(entry: str, x2: torch.Tensor, reim: torch.Tensor,
     return dw
 
 
+def dwindow_radices(n_fft: int) -> tuple[int, ...] | None:
+    """K4's stage at ``n_fft``: the radices of the inverse real FFT
+    (:func:`fft_plan.plan`; every framed n_fft but 896 = 2^7 7), or
+    ``None`` for the direct adjoint DFT."""
+    return fft_plan.plan(n_fft)
+
+
 def framed_dwindow(x2: torch.Tensor, reim: torch.Tensor, dmel: torch.Tensor,
                    g: Geom) -> torch.Tensor:
     """K4's wrapper: the window's gradient ``(n_fft,)`` as
     :func:`framed_dwindow_plain` defines it.  CPU tensors take
     :func:`framed_dwindow_plain`; CUDA tensors launch
-    ``csrc/framed_bwd.cu`` (entry ``framed_bwd``, the direct adjoint DFT)
-    and add one to ``framed_dwindow.launches``."""
+    ``csrc/framed_bwd.cu`` (entry ``framed_bwd``) with the stage
+    :func:`dwindow_radices` picks, and add one to
+    ``framed_dwindow.launches`` and, on the inverse-FFT stage, to
+    ``framed_dwindow.fft_launches``."""
     if x2.device.type == "cpu":
         return framed_dwindow_plain(x2, reim, dmel, g)
-    dw = launch_bwd("framed_bwd", x2, reim, dmel, g, None)
+    radices = dwindow_radices(g.n_fft)
+    dw = launch_bwd("framed_bwd", x2, reim, dmel, g, radices)
     framed_dwindow.launches += 1
+    if radices is not None:
+        framed_dwindow.fft_launches += 1
     return dw
 
 
 framed_dwindow.launches = 0
+framed_dwindow.fft_launches = 0
 
 
 def dx_plain(x2: torch.Tensor, window: torch.Tensor, dmel: torch.Tensor,

@@ -423,11 +423,11 @@ def _fwd_lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     """K2's library with its C signatures declared (as :func:`_fwd_lib`)."""
     lib = _cuda.load("specband_bwd").cdll
-    lib.specband_bwd.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 8
+    lib.specband_bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
                                  + [ctypes.c_void_p])
     lib.specband_bwd.restype = ctypes.c_int
-    lib.specband_bwd_rows_per_block.argtypes = []
-    lib.specband_bwd_rows_per_block.restype = ctypes.c_int
+    lib.specband_bwd_partial_blocks.argtypes = []
+    lib.specband_bwd_partial_blocks.restype = ctypes.c_int
     lib.specband_bwd_error_string.argtypes = [ctypes.c_int]
     lib.specband_bwd_error_string.restype = ctypes.c_char_p
     return lib
@@ -594,20 +594,22 @@ def specband_drho(xext: torch.Tensor, rho: torch.Tensor, fb: torch.Tensor,
         bm = (None if band_map is None else _band_map_tensor(
             check_band_map(band_map, n_mels, k_sig), xext.device))
         lib = _bwd_lib()
-        fr = lib.specband_bwd_rows_per_block()
         sig_range = torch.empty((k_sig, 2), dtype=torch.int32,
                                 device=xext.device)
-        partials = torch.empty((k_sig * n_taps, -(-rows // fr)),
-                               dtype=torch.float32, device=xext.device)
+        bin_range = torch.empty((n_bins, 2), dtype=torch.int32,
+                                device=xext.device)
+        partials = torch.empty(
+            (k_sig * n_taps, lib.specband_bwd_partial_blocks()),
+            dtype=torch.float32, device=xext.device)
         drho = torch.empty(rho.shape, dtype=torch.float32,
                            device=xext.device)
         rc = lib.specband_bwd(
             xext.data_ptr(), rho.data_ptr(), fb.data_ptr(), dmel.data_ptr(),
             None if logmel is None else logmel.data_ptr(),
             None if bm is None else bm.data_ptr(), sig_range.data_ptr(),
-            partials.data_ptr(), drho.data_ptr(), rows, dmel.shape[2],
-            ncol // 2, n_bins + n_taps - 1, n_bins, n_taps, n_mels, k_sig,
-            torch.cuda.current_stream(xext.device).cuda_stream)
+            bin_range.data_ptr(), partials.data_ptr(), drho.data_ptr(), rows,
+            dmel.shape[2], ncol // 2, n_bins + n_taps - 1, n_bins, n_taps,
+            n_mels, k_sig, torch.cuda.current_stream(xext.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("specband_bwd launch failed: "
                            + lib.specband_bwd_error_string(rc).decode())

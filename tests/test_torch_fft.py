@@ -408,6 +408,39 @@ def test_emulated_k6_matches_jax_fused_bwd(case, monkeypatch):
     assert np.abs(got.numpy() - want).max() <= DW_GATE * np.abs(want).max()
 
 
+@pytest.mark.parametrize("n_fft", range(128, framed.FRAMED_MAX_NFFT + 1, 128))
+def test_k4_takes_the_fft_stage_at_every_framed_nfft_but_896(n_fft):
+    """K4's stage (``framed.dwindow_radices``): the inverse FFT of the
+    forward's plan at every n_fft the framed guard takes, the direct
+    adjoint only at 896 = 2^7 7."""
+    assert framed.supported(n_fft, 80, 64)
+    radices = framed.dwindow_radices(n_fft)
+    assert radices == fft_plan.plan(n_fft)
+    assert (radices is None) == (n_fft == 896)
+
+
+@pytest.mark.parametrize("n_fft,hop,n_mels,t,b", [(512, 80, 64, 3000, 2),
+                                                  (1024, 80, 64, 3000, 2)])
+def test_emulated_k4_fft_stage_matches_jax_framed_bwd(n_fft, hop, n_mels, t,
+                                                      b):
+    """K4 on the inverse-FFT stage (K6's kernel, 8 and 4 frames a group),
+    on K3's emulated residual, against the window's gradient of
+    dmel_tpu's framed kernel through ``jax.vjp`` in interpret mode, for
+    the same cotangent: within 1e-2 of the largest entry, bench.py's
+    gradient gate (the TPU adjoint's GEMMs are single-pass bf16)."""
+    x, w, g, reim, dmel = _k6_operands(n_fft, n_fft, hop, n_mels, t, b)
+    got = emulate_k6_fft(x, reim, dmel, g)
+    assert _rel(got, framed.framed_dwindow_plain(x, reim, dmel, g)) \
+        <= DW_GATE
+    _, vjp = jax.vjp(lambda wj: jfr.framed_mel_power(
+        jnp.asarray(x.numpy()), wj, n_fft=n_fft, hop_length=hop,
+        n_mels=n_mels, sample_rate=SR, interpret=True),
+        jnp.asarray(w.numpy()))
+    want = np.asarray(vjp(jnp.asarray(dmel.numpy()))[0])
+    assert got.shape == want.shape == (n_fft,)
+    assert np.abs(got.numpy() - want).max() <= 1e-2 * np.abs(want).max()
+
+
 def test_fft_stage_is_closer_to_float64_than_the_direct_dft():
     """On band-limited clips (esc50_synth, whose quietest mel band sits
     ~1e-7 below the loudest) the FFT stage's spectra are at least twice

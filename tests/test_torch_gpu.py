@@ -49,7 +49,8 @@ def _signal(shape, seed=0):
 
 
 # (batch, T, n_fft, hop, n_mels, lambd, J): ragged frame counts, frame
-# blocks that straddle batch rows, every bucket size the kernel takes
+# blocks that straddle batch rows, every bucket size the kernel takes, and
+# at 4096 more of K2's work items (32 rows x 128 bins) than its blocks
 CASES = [
     (3, 1001, 256, 16, 32, 24.0, 12),
     (1, 500, 512, 40, 32, 64.0, 16),
@@ -58,6 +59,7 @@ CASES = [
     (2, 9000, 4096, 80, 64, 400.0, 12),
     (4, 2000, 384, 32, 40, 40.0, 24),
     (2, 3000, 896, 80, 64, 112.0, 24),
+    (4, 40000, 4096, 80, 64, 400.0, 12),
 ]
 
 
@@ -163,6 +165,29 @@ def test_k2_matches_plain(cuda, case, log):
     assert specband.specband_drho.launches == before + 2
     assert got.shape == want.shape == (2 * case[6] + 1,)
     assert torch.isfinite(got).all()
+    assert torch.equal(got, again)
+    err = float((got - want).abs().max() / want.abs().max())
+    assert err <= DRHO_GATE, err
+
+
+@pytest.mark.parametrize("j", [4, 20, 40, 63])
+def test_k2_other_tap_counts(cuda, j):
+    """Tap counts off the dispatch's ladder (25, 33, 49) take the next
+    larger instance of K2 with zero taps on both sides, or the generic one
+    up to 127 taps: drho against the plain version on the plain spectra,
+    bit-identical on repeat."""
+    x = _signal((2, 3000)).to(cuda)
+    w = ops.gaussian_window(torch.tensor(96.0, device=cuda), 1024)
+    rho = specband.window_taps_sym(w, 1024, j)
+    g = specband._Geom(1024, 80, 64, 8000, 0.0, 4000.0, j, True)
+    out, xext = specband._fwd_plain(x, rho, g)
+    _, fb, _ = specband._consts(g, cuda)
+    dmel = _signal(tuple(out.shape), seed=5).to(cuda)
+    got = specband.specband_drho(xext, rho, fb, dmel, out)
+    again = specband.specband_drho(xext, rho, fb, dmel, out)
+    want = specband.specband_drho_plain(xext, rho, fb, dmel, out)
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (2 * j + 1,)
     assert torch.equal(got, again)
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= DRHO_GATE, err
@@ -464,29 +489,32 @@ def _k4_operands(cuda, case, seed=0):
 @pytest.mark.parametrize("case", FRAMED_CASES,
                          ids=lambda c: f"nfft{c[2]}-b{c[0]}-lam{c[5]}")
 def test_k4_matches_plain(cuda, case):
-    """K4 (the direct adjoint) against its plain version; and the FFT
-    stage through K4's entry wherever n_fft has a plan (several frames a
-    block: the stage K4 is to take), bit-identical on repeat too."""
+    """K4 against its plain version, on K3's residual: the inverse-FFT
+    stage wherever n_fft has a plan (4 to 32 frames a block), counted on
+    ``fft_launches``, the direct adjoint at 896; and the direct adjoint
+    through K4's entry at every n_fft.  Bit-identical on repeat."""
     x, reim, dmel, g = _k4_operands(cuda, case)
-    before = framed.framed_dwindow.launches
+    before = (framed.framed_dwindow.launches,
+              framed.framed_dwindow.fft_launches)
     got = framed.framed_dwindow(x, reim, dmel, g)
     again = framed.framed_dwindow(x, reim, dmel, g)
     want = framed.framed_dwindow_plain(x, reim, dmel, g)
-    radices = fft_plan.plan(g.n_fft)
-    if radices is not None:
-        fft = framed.launch_bwd("framed_bwd", x, reim, dmel, g, radices)
-        fft2 = framed.launch_bwd("framed_bwd", x, reim, dmel, g, radices)
+    direct = framed.launch_bwd("framed_bwd", x, reim, dmel, g, None)
+    direct2 = framed.launch_bwd("framed_bwd", x, reim, dmel, g, None)
     torch.cuda.synchronize()
-    assert framed.framed_dwindow.launches == before + 2
+    fft = 2 * _fft_planned(g.n_fft)
+    assert (framed.framed_dwindow.launches,
+            framed.framed_dwindow.fft_launches) == (before[0] + 2,
+                                                    before[1] + fft)
+    assert fft == (0 if g.n_fft == 896 else 2)
     assert got.shape == want.shape == (case[2],)
     assert torch.isfinite(got).all()
     assert torch.equal(got, again)
     err = float((got - want).abs().max() / want.abs().max())
     assert err <= DW_GATE, err
-    if radices is not None:
-        assert torch.equal(fft, fft2)
-        err = float((fft - want).abs().max() / want.abs().max())
-        assert err <= DW_GATE, err
+    assert torch.equal(direct, direct2)
+    err = float((direct - want).abs().max() / want.abs().max())
+    assert err <= DW_GATE, err
 
 
 def _dlambda(x, lam, impl, n_fft, hop, n_mels, log=True):
@@ -642,6 +670,8 @@ MULTI_CASES = [
     (8, "contiguous", 2, 3000, 2048, (180.0, 250.0), 12),
     (8, "scattered", 1, 9000, 4096, (345.0, 500.0), 24),
     (3, "scattered", 3, 1001, 256, (28.0, 40.0), 24),
+    (4, "contiguous", 4, 40000, 4096, (345.0, 400.0), 12),
+    (4, "scattered", 2, 2000, 512, (40.0, 64.0), 16),
 ]
 
 
@@ -966,5 +996,26 @@ def test_fit_is_reproducible(cuda):
     (lam_a, sd_a), (lam_b, sd_b) = runs
     assert lam_a == lam_b
     assert lam_a[-1] != FIT_CONFIG["init_lambd"]
+    for key, value in sd_a.items():
+        assert torch.equal(value, sd_b[key]), key
+
+
+def test_fit_is_reproducible_on_specband(cuda):
+    """Two seeded fits on the specband route (lambda 128, the 1024
+    bucket), whose lambda gradient comes from K2's fixed grid: the same
+    lambda after every epoch and the same weights, bit for bit."""
+    config = dict(FIT_CONFIG, init_lambd=128.0)
+    trainset, validset, _ = get_dataset_by_config(config)
+    runs = []
+    for _ in range(2):
+        before = specband.specband_drho.launches
+        state, history = fit(config, trainset, validset, seed=0,
+                             device=cuda)
+        assert specband.specband_drho.launches > before
+        runs.append(([r["lambd_est"] for r in history["records"]],
+                     state["model"].state_dict()))
+    (lam_a, sd_a), (lam_b, sd_b) = runs
+    assert lam_a == lam_b
+    assert lam_a[-1] != config["init_lambd"]
     for key, value in sd_a.items():
         assert torch.equal(value, sd_b[key]), key

@@ -44,7 +44,7 @@ from dmel_tpu_torch.models import panns as tpanns
 from dmel_tpu_torch.ops import specband as tsb
 from dmel_tpu_torch.ops.spectrogram import bucketed_window_length
 from dmel_tpu_torch.training import train as ttrain
-from tests.test_torch_specband import _k2_rows_per_block
+from tests.test_torch_specband import emulate_k2
 from tests.test_torch_training import (_NoDropout, _grad_capture,
                                        _norm_err)
 
@@ -236,35 +236,12 @@ def _emulate_k1(xext, rho, fb, band_map, kp):
 
 
 def _emulate_k2(xext, rho, fb, dmel, band_map, kp):
-    """``band_grad_kernel`` at k_sig = K: blocks of FR rows; per sigma
-    the bins [lo & ~31, hi), dP over its own bands (the others masked),
-    w = 2 dP S, per-block partial sums; then one sum per (sigma, tap)."""
-    fr = _k2_rows_per_block()
-    k_sig, n_taps = rho.shape
-    n_bins, n_mels = fb.shape
-    two_j = n_taps - 1
-    rows = xext.shape[0]
-    b, _, nfr = dmel.shape
-    r = torch.arange(rows)
-    g = dmel[r // nfr, :, r % nfr]
-    n_blocks = -(-rows // fr)
-    sigma = torch.tensor(band_map)
-    drho = torch.zeros(k_sig, n_taps)
-    for s, (lo, hi) in enumerate(_sigma_ranges(fb, band_map, k_sig)):
-        lo &= ~31
-        k = torch.arange(lo, hi)
-        dp = (g * (sigma == s)) @ fb[lo:hi].T
-        sr = sum(rho[s, d] * xext[:, k + two_j - d] for d in range(n_taps))
-        si = sum(rho[s, d] * xext[:, kp + k + two_j - d]
-                 for d in range(n_taps))
-        wr, wi = 2.0 * dp * sr, 2.0 * dp * si
-        for d in range(n_taps):
-            per_row = ((wr * xext[:, k + two_j - d]).sum(1)
-                       + (wi * xext[:, kp + k + two_j - d]).sum(1))
-            per_row = torch.nn.functional.pad(per_row,
-                                              (0, n_blocks * fr - rows))
-            drho[s, d] = per_row.reshape(n_blocks, fr).sum(1).sum()
-    return drho
+    """``tap_grad_kernel`` at k_sig = K (``emulate_k2``): per sigma only
+    the tiles that meet its bin range, dP over its own bands (the others
+    masked), w = 2 dP S, the work items' sums in the blocks' order; then
+    one sum per (sigma, tap)."""
+    assert xext.shape[1] == 2 * kp
+    return emulate_k2(xext, rho, fb, dmel, None, band_map)
 
 
 @pytest.mark.parametrize("band_map", [None, SCATTERED_32],

@@ -339,45 +339,89 @@ def test_k2_plain_matches_autograd(rng, case, log):
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
 
 
-def _k2_rows_per_block() -> int:
+def k2_constants() -> dict:
+    """K2's work geometry, read from ``csrc/specband_bwd.cu``: frame rows
+    (``ROWS``) and bins (``TB``) a work item, and the fixed grid
+    (``GRAD_BLOCKS``)."""
     src = (tsb._cuda.SRC_DIR / "specband_bwd.cu").read_text()
-    return int(re.search(r"constexpr int FR = (\d+);", src).group(1))
+    return {k: int(v) for k, v in
+            re.findall(r"constexpr int (\w+) = (\d+);", src)}
 
 
-def _emulate_k2_launcher(xext, rho, fb, dmel, logmel):
-    """K2's launcher and kernels, step by step in PyTorch: blocks of FR
-    frame rows (the last one padded with zero rows), the cotangent of
-    row ``b n_frames + t`` read from ``dmel[b, :, t]``, spectra columns
-    ``[0, k_ext)`` and ``[kp, kp + k_ext)``, per-block partial sums in
-    an ``(n_taps, n_blocks)`` buffer, then one sum per tap."""
-    fr = _k2_rows_per_block()
+def emulate_k2(xext, rho, fb, dmel, logmel=None, band_map=None):
+    """K2's launcher and kernels, step by step in PyTorch, in the order
+    the kernel sums: each bin's band range and each sigma's bin range
+    from the filterbank; work items of ``ROWS`` frame rows x ``TB``
+    bins over the tiles that meet some sigma's range, numbered row block
+    by row block; block ``b`` of ``GRAD_BLOCKS`` takes the contiguous run
+    ``[b n / GRAD_BLOCKS, (b + 1) n / GRAD_BLOCKS)`` and sums its items'
+    tap products in order (per sigma, only on the tiles that meet that
+    sigma's range; dP over each bin's own bands, the other sigmas'
+    masked); then the blocks' partials are summed.  The cotangent of
+    row ``b n_frames + t`` is ``dmel[b, :, t]``; only the spectra columns
+    ``[0, k_ext)`` and ``[kp, kp + k_ext)`` are read.  Returns drho as
+    the wrapper does: ``(2J + 1,)``, or ``(K, 2J + 1)`` with a band
+    map."""
+    k = k2_constants()
+    rows_a, tb, n_grid = k["ROWS"], k["TB"], k["GRAD_BLOCKS"]
+    rho2 = rho[None] if rho.dim() == 1 else rho
+    k_sig, n_taps = rho2.shape
     rows, ncol = xext.shape
     kp = ncol // 2
-    n_taps = rho.shape[0]
     n_bins, n_mels = fb.shape
-    k_ext = n_bins + n_taps - 1
-    assert k_ext <= kp and ncol % 128 == 0
-    n_blocks = -(-rows // fr)
-    pad = n_blocks * fr - rows
+    two_j = n_taps - 1
+    k_ext = n_bins + two_j
     b, _, nfr = dmel.shape
-    assert b * nfr == rows
     g = dmel if logmel is None else dmel * torch.exp(-logmel)
     r = torch.arange(rows)
-    g = g[r // nfr, :, r % nfr]                       # (rows, n_mels)
-    g = torch.nn.functional.pad(g, (0, 0, 0, pad))
-    xr = torch.nn.functional.pad(xext[:, :k_ext], (0, 0, 0, pad))
-    xi = torch.nn.functional.pad(xext[:, kp:kp + k_ext], (0, 0, 0, pad))
-    dp = g @ fb.T
-    wr = 2.0 * dp * sum(rho[d] * xr[:, n_taps - 1 - d:n_taps - 1 - d + n_bins]
-                        for d in range(n_taps))
-    wi = 2.0 * dp * sum(rho[d] * xi[:, n_taps - 1 - d:n_taps - 1 - d + n_bins]
-                        for d in range(n_taps))
-    partials = torch.stack([
-        ((wr * xr[:, n_taps - 1 - d:n_taps - 1 - d + n_bins]).sum(1)
-         + (wi * xi[:, n_taps - 1 - d:n_taps - 1 - d + n_bins]).sum(1))
-        .reshape(n_blocks, fr).sum(1) for d in range(n_taps)])
-    assert partials.shape == (n_taps, n_blocks)
-    return partials.sum(1)
+    g = g[r // nfr, :, r % nfr]                        # (rows, n_mels)
+    sigma = torch.zeros(n_mels, dtype=torch.long) if band_map is None \
+        else torch.tensor(band_map)
+    nz = fb != 0
+    ranges = []
+    for s in range(k_sig):
+        hit = torch.nonzero(nz[:, sigma == s].any(1)).flatten()
+        ranges.append((int(hit.min()), int(hit.max()) + 1) if hit.numel()
+                      else (0, 0))
+    live = [(lo, hi) for lo, hi in ranges if lo < hi]
+    lo = min(v[0] for v in live)
+    hi = max(v[1] for v in live)
+    t_lo = lo // tb
+    n_tiles = (hi - 1) // tb + 1 - t_lo
+    n_rb = -(-rows // rows_a)
+    n_items = n_rb * n_tiles
+    xr, xi = xext[:, :k_ext], xext[:, kp:kp + k_ext]
+    # each item's tap products, (k_sig, n_taps, n_rb, n_tiles)
+    items = torch.zeros(k_sig, n_taps, n_rb, n_tiles)
+    for s, (s_lo, s_hi) in enumerate(ranges):
+        if s_lo >= s_hi:
+            continue
+        dp = (g * (sigma == s)) @ fb.T                 # (rows, n_bins)
+        sr = sum(rho2[s, d] * xr[:, two_j - d:two_j - d + n_bins]
+                 for d in range(n_taps))
+        si = sum(rho2[s, d] * xi[:, two_j - d:two_j - d + n_bins]
+                 for d in range(n_taps))
+        wr, wi = 2.0 * dp * sr, 2.0 * dp * si
+        for d in range(n_taps):
+            prod = (wr * xr[:, two_j - d:two_j - d + n_bins]
+                    + wi * xi[:, two_j - d:two_j - d + n_bins])
+            prod = prod[:, t_lo * tb:]
+            prod = torch.nn.functional.pad(
+                prod, (0, n_tiles * tb - prod.shape[1],
+                       0, n_rb * rows_a - rows))
+            items[s, d] = prod.reshape(n_rb, rows_a, n_tiles, tb).sum((1, 3))
+        # tiles that miss the sigma's range do none of its work
+        tiles = torch.arange(t_lo, t_lo + n_tiles) * tb
+        miss = (tiles + tb <= s_lo) | (tiles >= s_hi)
+        assert not items[s][..., miss].any()
+    items = items.reshape(k_sig, n_taps, n_items)
+    partials = torch.zeros(k_sig, n_taps, n_grid)
+    for blk in range(n_grid):
+        for it in range(n_items * blk // n_grid,
+                        n_items * (blk + 1) // n_grid):
+            partials[..., blk] += items[..., it]
+    drho = partials.sum(-1)
+    return drho[0] if rho.dim() == 1 else drho
 
 
 @pytest.mark.parametrize("case,log", [(CASES[0], True), (CASES[3], False),
@@ -391,7 +435,7 @@ def test_k2_launcher_layout_matches_plain(rng, case, log):
     xext = xext.clone()
     xext[:, k_ext:kp] = float("nan")
     xext[:, kp + k_ext:] = float("nan")
-    got = _emulate_k2_launcher(xext, rho, fb, dmel, logmel)
+    got = emulate_k2(xext, rho, fb, dmel, logmel)
     want = tsb.specband_drho_plain(xext, rho, fb, dmel, logmel)
     assert torch.isfinite(want).all()
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
