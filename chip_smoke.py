@@ -123,9 +123,38 @@ Phases, each announced by a flushed line when it starts and ends:
    differ between identical steps in each setting; at lambda 128 and
    46.7 a second ``fit`` with the same seed must be bit-identical in
    lambda and every weight.
-11. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
+11. bf16 train steps: ms per train step (``train_step_ms``) in float32
+   and with ``model_dtype="bfloat16"`` (CNN6's conv stack in bf16) on
+   the specband (lambda 128), framed (46.7), fused (600) and multi-sigma
+   (128, 4 groups) routes; on each, one bf16 step's gradients of lambda
+   and fc_esc50.weight against the float32 step's on the same batch and
+   dropout masks (relative in norm: dlambda 1e-1, fc_esc50 5e-2); on
+   specband, CNN6's forward + backward split by part (mel batch norm,
+   each conv block, the head by difference) from ``torch.profiler``, in
+   both dtypes.
+12. CLI sweep: ``dmel_tpu_torch.experiments.cli.main`` runs the whole
+   esc50_synth space (six trials: lambda 13.3, 46.7, 400, trainable or
+   not; bf16, ``impl="pallas"``, 2000 clips) for 2 epochs into a
+   temporary directory.  Every trial's launches are counted by epoch
+   against the route its epoch started on (13.3 exact, 46.7 framed, 400
+   specband at 4096, and whatever lambda grows into); six rows in
+   results.csv; each trial's best model and sidecar exist, the sidecar
+   holding the last improving epoch and the geometry it started at; no
+   live state left.  Then ``eval.predict_test`` over the sweep (test
+   accuracies in [0, 1], predictions of shape (6, 400)), and a second
+   ``cli.main`` that must skip all six trials.
+13. checkpoint prediction: each sweep trial's checkpoint restored at its
+   sidecar's geometry and run through ``training.predict`` must give
+   the argmax of ``eval.predictions_by_row`` on every test clip.
+14. kill and resume: a bf16 specband trial (lambda 128) of 3 epochs,
+   once uninterrupted and once killed after epoch 1's report and resumed
+   by a second ``fit``: records, weights, statistics and optimizer state
+   bit-identical, no live state left; the seconds of each run, of the
+   checkpoint writes and the overhead of the kill and resume.
+15. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
    ran; K2, K2 multi and K4 also with their times, plain times, bounds
-   and yardsticks at every measured shape, ``shapes``), then the final
+   and yardsticks at every measured shape, ``shapes``; launches now
+   also from the sweep and the resume runs), then the final
    ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises, so the script exits non-zero before the final
@@ -138,10 +167,13 @@ from __future__ import annotations
 import argparse
 import contextlib
 import faulthandler
+import io
 import json
 import math
+import os
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -164,7 +196,7 @@ from dmel_tpu_torch.ops.window import gaussian_window
 from dmel_tpu_torch.training import (bce_loss, build_optimizer, fit,
                                      loss_and_metrics, train_step)
 
-WATCHDOG_S = 600
+WATCHDOG_S = 1000
 GATE = 1e-4                  # log-mel max-abs gate (bench.py's)
 GRAD_GATE = 1e-2             # dlambda relative gate (bench.py's)
 DRHO_GATE = 1e-3             # K2 vs plain, max |error| / max |drho|
@@ -210,15 +242,18 @@ CONFIG = {
 }
 #: the flagship training configuration: the esc50_synth space's
 #: optimizer and trainable lambda, at lambda 128.  Cut to 480 clips and 2
-#: epochs (22 train steps).  At hop 80 and 64 mels the auto dispatch
-#: routes (85.3, 128] of the 1024 bucket to specband and (128, 170.7] to
-#: framed, (42.7, 85.3] (512) to framed, (170.7, 256] (2048) to specband
-#: and (256, 341.3] to fused, (341.3, 512] (4096) to specband and
-#: (512, 682.7] to fused; the rest is exact.  Lambda 128 sits on the top
-#: edge of specband: with seed 0 it falls (to about 118.2), so both
-#: epochs stay on specband, and the paths below start at 46.7 (framed)
-#: and 600 (fused).  Every epoch's route is read from its starting
-#: lambda and counted by epoch.
+#: epochs (22 train steps).  The bucket is next_power_of_2(int(6 lambda)),
+#: so its edges sit at (2^k + 1)/6.  At hop 80 and 64 mels the auto
+#: dispatch routes [257/6, 512/6] (42.83-85.33, the 512 bucket) to
+#: framed, the sliver (512/6, 513/6) (85.33-85.5, no hint) to exact,
+#: [513/6, 128] of the 1024 bucket to specband and (128, 1025/6) to
+#: framed, [1025/6, 256] (170.83-256, 2048) to specband and
+#: (256, 2049/6) to fused, [2049/6, 512] (341.5-512, 4096) to specband
+#: and (512, 4097/6) (to 682.83) to fused; the rest is exact.  Lambda
+#: 128 sits on the top edge of specband: with seed 0 it falls (to about
+#: 118.2), so both epochs stay on specband, and the paths below start at
+#: 46.7 (framed) and 600 (fused).  Every epoch's route is read from its
+#: starting lambda and counted by epoch.
 TRAIN_CONFIG = dict(CONFIG, optimizer_name="adam", lr_model=1e-4,
                     lr_tf=1.0, batch_size=BATCH, trainable=True,
                     max_epochs=2, patience=100, n_samples=480,
@@ -1455,6 +1490,46 @@ def route_kernels(route: str):
     return train, valid
 
 
+def epoch_launches(config, lam0, records, seen, steps, valid_batches):
+    """Each epoch's route (from the lambda it started at), the launches
+    it made (``seen``: the cumulative counts at each epoch's report) and
+    the launches its route should make: the route's train kernels once a
+    step (of a frozen lambda, the forward kernels only), its valid
+    kernels once a valid batch, and the FFT counters with them where the
+    window has a plan."""
+    trainable = config.get("trainable", True)
+    epochs = []
+    prev = dict.fromkeys(COUNTERS, 0)
+    lam_start = lam0
+    for r, cum in zip(records, seen):
+        ep_route, ep_wl = _route_of(config, lam_start)[:2]
+        launched = {k: cum[k] - prev[k] for k in COUNTERS}
+        want = dict.fromkeys(COUNTERS, 0)
+        train_k, valid_k = route_kernels(ep_route)
+        for k in train_k:
+            if trainable or k in valid_k:
+                want[k] += steps
+        for k in valid_k:
+            want[k] += valid_batches
+        if fft_plan.plan(ep_wl) is not None:
+            for k, k_fft in FFT_COUNTER.items():
+                want[k_fft] = want[k]
+        epochs.append(dict(epoch=r["epoch"], lambd_start=lam_start,
+                           route=ep_route, window_length=ep_wl,
+                           launches=launched, expected=want))
+        say("record " + json.dumps(dict(r, route=ep_route,
+                                        launches=launched)))
+        prev, lam_start = cum, r["lambd_est"]
+    return epochs
+
+
+def check_epochs(epochs):
+    for e in epochs:
+        check(e["launches"] == e["expected"],
+              f"epoch {e['epoch']} on {e['route']}: launches "
+              f"{e['launches']}, expected {e['expected']}")
+
+
 def train_path(seed: int, dev: torch.device, lam0: float,
                repeat: bool = False, n_sigma: int = 1,
                fused_bwd: bool = False) -> dict:
@@ -1527,27 +1602,8 @@ def _train_path(seed, dev, lam0, repeat, n_sigma, fused_bwd):
             and all(torch.equal(v, sd2[k]) for k, v in sd.items()))
 
     records = history["records"]
-    epochs = []
-    prev = dict.fromkeys(COUNTERS, 0)
-    lam_start = lam0
-    for r, cum in zip(records, seen):
-        ep_route, ep_wl = _route_of(config, lam_start)[:2]
-        launched = {k: cum[k] - prev[k] for k in COUNTERS}
-        want = dict.fromkeys(COUNTERS, 0)
-        train_k, valid_k = route_kernels(ep_route)
-        for k in train_k:
-            want[k] += steps
-        for k in valid_k:
-            want[k] += valid_batches
-        if fft_plan.plan(ep_wl) is not None:
-            for k, k_fft in FFT_COUNTER.items():
-                want[k_fft] = want[k]
-        epochs.append(dict(epoch=r["epoch"], lambd_start=lam_start,
-                           route=ep_route, window_length=ep_wl,
-                           launches=launched, expected=want))
-        say("record " + json.dumps(dict(r, route=ep_route,
-                                        launches=launched)))
-        prev, lam_start = cum, r["lambd_est"]
+    epochs = epoch_launches(config, lam0, records, seen, steps,
+                            valid_batches)
     lam_end = state["model"].spectrogram_layer.lambd.detach()
     res = dict(lambd=lam0, n_sigma=n_sigma, fused_bwd=fused_bwd,
                route=route, epochs=epochs, lambd_end=lam_end.tolist(),
@@ -1559,10 +1615,7 @@ def _train_path(seed, dev, lam0, repeat, n_sigma, fused_bwd):
     say("train " + json.dumps(res))
     check(len(records) == config["max_epochs"], f"{len(records)} epochs ran")
     check(epochs[0]["route"] == route, "epoch 0 left the starting route")
-    for e in epochs:
-        check(e["launches"] == e["expected"],
-              f"epoch {e['epoch']} on {e['route']}: launches "
-              f"{e['launches']}, expected {e['expected']}")
+    check_epochs(epochs)
     check(all(math.isfinite(r[k]) for r in records
               for k in ("loss", "valid_loss", "energy")),
           "non-finite loss")
@@ -1572,6 +1625,354 @@ def _train_path(seed, dev, lam0, repeat, n_sigma, fused_bwd):
     check(bool((lam_end != lam0).all()), "a sigma group's lambda did not move")
     check(extra.get("fit_repeat_bit_identical", True),
           "a second fit with the same seed differs")
+    return res
+
+
+#: bf16 step against the float32 step on one batch and its masks,
+#: relative in norm: fc_esc50.weight's gradient within 5e-2, dlambda
+#: within 1e-1.  dlambda sums dL/ds ds/dlambda over every feature with
+#: heavy cancellation, so bf16 rounding in the conv stack moves it by an
+#: absolute ~1e-5 on every route; at lambda 600 (fused), where it is ~6x
+#: smaller than at 128, that was 7.5e-2 of it on the H100 (3.1e-2 on the
+#: CPU, 1.5e-2 and 1e-2 on specband and framed)
+BF16_GRAD_GATE = 5e-2
+BF16_DLAMBD_GATE = 1e-1
+#: the search space the CLI sweeps, whole: 6 trials of 2000 clips
+SWEEP_NAME, SWEEP_EPOCHS = "esc50_synth", 2
+
+
+def bf16_grad_check(seed: int, dev: torch.device, config: dict, trainset,
+                    wl, hint) -> dict:
+    """Gradients of lambda and fc_esc50.weight on one batch: the bf16
+    model against the float32 model of the same seed (the same weights)
+    on the same batch and dropout masks (drawn in float32 from the same
+    generator state), both relative in norm."""
+    grads = {}
+    for dtype in ("float32", "bfloat16"):
+        model = get_model_by_config(dict(config, model_dtype=dtype),
+                                    window_length=wl, lambd_hint=hint,
+                                    device=dev, seed=seed).train()
+        xs, ys, mask = _batch(trainset, dev)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with precision_scope():
+            loss, _, _ = loss_and_metrics(model, xs, ys, mask, one_hot=True,
+                                          n_classes=10, generator=gen)
+            grads[dtype] = torch.autograd.grad(
+                loss, [model.spectrogram_layer.lambd,
+                       model.spectrogram_model.fc_esc50.weight])
+    (lam32, fc32), (lam16, fc16) = grads["float32"], grads["bfloat16"]
+    for g in (lam16, fc16):
+        check(g.dtype == torch.float32, f"bf16 model's gradient in {g.dtype}")
+    res = dict(dlambd_float32=lam32.tolist(), dlambd_bf16=lam16.tolist(),
+               dlambd_bf16_rel_err=float((lam16 - lam32).norm()
+                                         / lam32.norm()),
+               fc_esc50_grad_bf16_rel_err=float((fc16 - fc32).norm()
+                                                / fc32.norm()))
+    say("bf16 grad " + json.dumps(res))
+    check(res["dlambd_bf16_rel_err"] <= BF16_DLAMBD_GATE,
+          f"bf16 dlambda {res['dlambd_bf16_rel_err']:.3e}")
+    check(res["fc_esc50_grad_bf16_rel_err"] <= BF16_GRAD_GATE,
+          f"bf16 fc_esc50 grad {res['fc_esc50_grad_bf16_rel_err']:.3e}")
+    return res
+
+
+_BLOCKS = ("conv_block1", "conv_block2", "conv_block3", "conv_block4")
+
+
+def cnn6_split(seed: int, dev: torch.device, config: dict, trainset, wl,
+               hint) -> dict:
+    """CNN6's forward + backward on one batch's features, the card's ms
+    a call from ``torch.profiler`` (:func:`device_ms`), in training mode:
+    the whole, the mel batch norm, and each conv block with its dropout
+    on the input the model gives it (backward from a gradient of ones);
+    ``head`` is the whole less those parts (pooling, fc1, fc_esc50, the
+    sigmoid and the loss)."""
+    from dmel_tpu_torch.models.panns import dropout
+    model = get_model_by_config(config, window_length=wl, lambd_hint=hint,
+                                device=dev, seed=seed).train()
+    cnn = model.spectrogram_model
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs, ys, mask = _batch(trainset, dev)
+    labels = F.one_hot(ys.long(), 10).float()
+    with precision_scope():
+        with torch.no_grad():
+            x = model.features(xs).transpose(2, 3)
+            h = cnn.bn1(x.reshape(-1, x.shape[-1])).reshape(x.shape)
+            inputs = [h]
+            for name in _BLOCKS[:-1]:
+                h = dropout(getattr(cnn, name)(h), 0.2, True, gen)
+                inputs.append(h)
+
+        def whole():
+            bce_loss(cnn(x, gen), labels, mask).backward()
+
+        def part(fn, xin):
+            xin = xin.detach().requires_grad_()
+
+            def run():
+                out = fn(xin)
+                out.backward(torch.ones_like(out))
+            return device_ms(run)
+
+        res = {"whole": device_ms(whole),
+               "bn1": part(lambda t: cnn.bn1(t.reshape(-1, t.shape[-1]))
+                           .reshape(t.shape), x)}
+        for name, xin in zip(_BLOCKS, inputs):
+            block = getattr(cnn, name)
+            res[name] = part(lambda t, block=block: dropout(
+                block(t), 0.2, True, gen), xin)
+    parts = [v for k, v in res.items() if k != "whole"]
+    if all(isinstance(v, float) for v in parts + [res["whole"]]):
+        res["head"] = res["whole"] - sum(parts)
+    return res
+
+
+def bf16_step_path(seed: int, dev: torch.device, lam0: float,
+                   n_sigma: int = 1) -> dict:
+    """ms per train step in float32 and in bf16 (``train_step_ms``) on
+    the route ``lam0`` takes, the bf16 step's gradients against the
+    float32 step's (:func:`bf16_grad_check`), and, on the single-sigma
+    specband route, CNN6's split by part in both dtypes."""
+    config = dict(TRAIN_CONFIG, init_lambd=lam0, n_sigma=n_sigma)
+    trainset, _, _ = get_dataset_by_config(config)
+    route, wl, hint, _ = _route_of(config, lam0)
+    res = dict(lambd=lam0, n_sigma=n_sigma, route=route)
+    for dtype in ("float32", "bfloat16"):
+        res[dtype] = train_step_ms(seed, dev, dict(config, model_dtype=dtype),
+                                   trainset, wl, hint)
+    res["steady_speedup"] = (res["float32"]["steady_ms_per_step"]
+                             / res["bfloat16"]["steady_ms_per_step"])
+    res.update(bf16_grad_check(seed, dev, config, trainset, wl, hint))
+    if route == "specband":
+        res["cnn6_split_ms"] = {
+            dtype: cnn6_split(seed, dev, dict(config, model_dtype=dtype),
+                              trainset, wl, hint)
+            for dtype in ("float32", "bfloat16")}
+    say("bf16 step " + json.dumps(res))
+    return res
+
+
+def _best_epoch(records) -> int:
+    """The last epoch at which the valid loss reached a new minimum."""
+    best, epoch = math.inf, None
+    for r in records:
+        if r["valid_loss"] < best:
+            best, epoch = r["valid_loss"], r["epoch"]
+    return epoch
+
+
+def sweep_path(dev: torch.device, out: str) -> dict:
+    """The space's sweep through the CLI, as a user runs it
+    (``cli.main``), into ``out``: every trial's launches counted by
+    epoch against its route, its best model and sidecar checked against
+    its records; then ``predict_test`` over the sweep, and a second
+    ``cli.main`` that must skip every trial."""
+    from dmel_tpu_torch.eval import predict_test
+    from dmel_tpu_torch.experiments import cli, runner
+    argv = ["--name", SWEEP_NAME, "--num_samples", "1", "--max_epochs",
+            str(SWEEP_EPOCHS), "--output_dir", out, "--data_dir", out]
+    trials = []
+    real_fit = runner.fit
+
+    def counting_fit(config, trainset, validset, **kwargs):
+        seen = []
+        t0 = time.perf_counter()
+        (state, history), total = counted(lambda: real_fit(
+            config, trainset, validset,
+            report_fn=lambda r: seen.append(launch_counts()), **kwargs))
+        torch.cuda.synchronize()
+        trials.append(dict(config=config, history=history, seen=seen,
+                           launches=total, fit_s=time.perf_counter() - t0,
+                           n_train=len(trainset), n_valid=len(validset)))
+        return state, history
+
+    runner.fit = counting_fit
+    try:
+        t0 = time.perf_counter()
+        cli.main(argv + ["--verbose", "0"])
+        sweep_s = time.perf_counter() - t0
+        buf = io.StringIO()
+        with contextlib.redirect_stdout(buf):
+            cli.main(argv + ["--verbose", "1"])
+    finally:
+        runner.fit = real_fit
+    sweep_dir = os.path.join(out, SWEEP_NAME)
+    check(len(trials) == 6, f"{len(trials)} trials ran")
+    check(buf.getvalue().count("skip finished") == 6,
+          "the second cli.main did not skip all six trials")
+
+    rows = runner.load_results(sweep_dir)
+    check(len(rows) == 6, f"{len(rows)} rows in results.csv")
+    by_arm, results = {}, []
+    for i, (t, row) in enumerate(zip(trials, rows)):
+        config, records = t["config"], t["history"]["records"]
+        lam0 = float(config["init_lambd"])
+        steps = -(-t["n_train"] // BATCH)
+        valid_batches = -(-t["n_valid"] // BATCH)
+        epochs = epoch_launches(config, lam0, records, t["seen"], steps,
+                                valid_batches)
+        check_epochs(epochs)
+        check(len(records) == SWEEP_EPOCHS, f"trial {i}: {len(records)} "
+              "epochs")
+        ckpt = os.path.join(row["logdir"], "checkpoint_000000")
+        check(os.path.basename(row["logdir"]) == f"trial_{i:05d}",
+              f"row {i} is {row['logdir']}")
+        for name in ("best_model", "best_model.meta.json"):
+            check(os.path.isfile(os.path.join(ckpt, name)),
+                  f"trial {i} has no {name}")
+        check(not os.path.exists(os.path.join(ckpt, "live_state")),
+              f"trial {i} kept its live state")
+        with open(os.path.join(ckpt, "best_model.meta.json")) as f:
+            meta = json.load(f)
+        best = _best_epoch(records)
+        start = lam0 if best == 0 else records[best - 1]["lambd_est"]
+        _, wl, hint, _ = _route_of(config, start)
+        check(meta == {"window_length": wl, "lambd_hint": hint,
+                       "epoch": best},
+              f"trial {i}: sidecar {meta}, best epoch {best} started at "
+              f"window {wl}, hint {hint}")
+        arm = f"{lam0:.1f}/{'trainable' if config['trainable'] else 'fixed'}"
+        by_arm[arm] = {k: v for k, v in t["launches"].items() if v}
+        results.append(dict(trial=i, arm=arm, fit_s=t["fit_s"],
+                            routes=[e["route"] for e in epochs],
+                            lambd=[r["lambd_est"] for r in records],
+                            valid_acc=[r["valid_acc"] for r in records],
+                            sidecar=meta, launches=by_arm[arm]))
+
+    t0 = time.perf_counter()
+    scored = predict_test(sweep_dir, out, verbose=0)
+    predict_s = time.perf_counter() - t0
+    preds = np.load(os.path.join(sweep_dir,
+                                 f"{SWEEP_NAME}_predictionss.npy"))
+    accs = [r["test_accuracy"] for r in scored]
+    for r, acc in zip(results, accs):
+        r["test_accuracy"] = acc
+    total = dict.fromkeys(COUNTERS, 0)
+    for t in trials:
+        for k, v in t["launches"].items():
+            total[k] += v
+    res = dict(name=SWEEP_NAME, trials=results, sweep_s=sweep_s,
+               s_per_trial=sweep_s / len(trials), predict_test_s=predict_s,
+               predictions_shape=list(preds.shape),
+               launches_by_arm=by_arm, launches=total)
+    say("sweep " + json.dumps(res))
+    check(all(0.0 <= a <= 1.0 for a in accs), f"test accuracies {accs}")
+    check(preds.shape == (6, 400), f"predictions of shape {preds.shape}")
+    return res
+
+
+def checkpoint_prediction(dev: torch.device, sweep_dir: str) -> dict:
+    """Each sweep trial's checkpoint, restored at its sidecar's geometry
+    into a state and run through ``training.predict``, against
+    ``eval.predictions_by_row`` on the same row: the same argmax on every
+    test clip."""
+    from dmel_tpu_torch.data import BatchLoader
+    from dmel_tpu_torch.eval.predict import _coerce, predictions_by_row
+    from dmel_tpu_torch.experiments import runner
+    from dmel_tpu_torch.training import load_checkpoint
+    from dmel_tpu_torch.training import predict as predict_state
+    rows = runner.load_results(sweep_dir)
+    config0 = _coerce(runner.get_config_by_row(rows[0]))
+    _, _, testset = get_dataset_by_config(config0)
+    agree = []
+    for row in rows:
+        config = _coerce(runner.get_config_by_row(row))
+        path = os.path.join(row["logdir"], "checkpoint_000000", "best_model")
+        with open(path + ".meta.json") as f:
+            meta = json.load(f)
+        model = get_model_by_config(config, meta["window_length"],
+                                    meta["lambd_hint"], device=dev)
+        model.load_state_dict(load_checkpoint(path)["model"])
+        state = {"model": model, "window_length": meta["window_length"],
+                 "lambd_hint": meta["lambd_hint"]}
+        labels, preds = predict_state(config, state, testset, device=dev)
+        labels2, preds2 = predictions_by_row(
+            row, BatchLoader(testset, BATCH, shuffle=False), device=dev)
+        check(np.array_equal(labels, labels2), "labels differ")
+        agree.append(int((preds == preds2).sum()))
+    res = dict(clips=len(testset), agree=agree)
+    say("checkpoint prediction " + json.dumps(res))
+    check(agree == [len(testset)] * len(rows),
+          f"training.predict and predictions_by_row differ: {agree}")
+    return res
+
+
+class _Kill(Exception):
+    pass
+
+
+def resume_path(seed: int, dev: torch.device, out: str) -> dict:
+    """A bf16 specband trial (lambda 128) of 3 epochs, uninterrupted;
+    then killed after epoch 1's report and resumed by a second ``fit`` on
+    the same checkpoint directory: the records, every weight and
+    statistic and the optimizer state must equal the uninterrupted
+    run's, bit for bit, and no live state may be left.  Times: each
+    ``fit``, the checkpoint writes, and the overhead of the kill and
+    resume over the uninterrupted run."""
+    from dmel_tpu_torch.training import train as train_mod
+    config = dict(TRAIN_CONFIG, model_dtype="bfloat16", max_epochs=3)
+    trainset, validset, _ = get_dataset_by_config(config)
+    writes = []
+    real_save = train_mod.save_checkpoint
+
+    def timed_save(path, state):
+        t0 = time.perf_counter()
+        real_save(path, state)
+        writes.append((os.path.basename(path), time.perf_counter() - t0))
+
+    def killer(record):
+        if record["epoch"] == 1:
+            raise _Kill
+
+    def run(name, **kwargs):
+        t0 = time.perf_counter()
+        result = fit(config, trainset, validset, seed=seed, device=dev,
+                     checkpoint_dir=os.path.join(out, name), **kwargs)
+        torch.cuda.synchronize()
+        return result, time.perf_counter() - t0
+
+    train_mod.save_checkpoint = timed_save
+    try:
+        ((state_ref, hist_ref), ref_s), launches = counted(
+            lambda: run("ref"))
+        t0 = time.perf_counter()
+        try:
+            run("kill", report_fn=killer)
+            check(False, "the killed fit did not raise")
+        except _Kill:
+            pass
+        kill_s = time.perf_counter() - t0
+        live = os.path.exists(os.path.join(out, "kill", "live_state"))
+        (state, hist), resume_s = run("kill")
+    finally:
+        train_mod.save_checkpoint = real_save
+    sd, sd_ref = state["model"].state_dict(), state_ref["model"].state_dict()
+    opt = state["optimizer"].state_dict()["state"]
+    opt_ref = state_ref["optimizer"].state_dict()["state"]
+    res = dict(
+        lambd=config["init_lambd"], epochs=config["max_epochs"],
+        routes=[_route_of(config, lam)[0] for lam in
+                [config["init_lambd"]]
+                + [r["lambd_est"] for r in hist_ref["records"][:-1]]],
+        live_state_after_kill=live,
+        records_equal=hist == hist_ref,
+        weights_equal=all(torch.equal(v, sd_ref[k]) for k, v in sd.items()),
+        optimizer_equal=all(torch.equal(v, opt_ref[i][k])
+                            for i, st in opt.items() for k, v in st.items()),
+        live_state_left=[n for n in ("ref", "kill") if os.path.exists(
+            os.path.join(out, n, "live_state"))],
+        uninterrupted_s=ref_s, killed_s=kill_s, resumed_s=resume_s,
+        overhead_s=kill_s + resume_s - ref_s,
+        checkpoint_writes={n: [sum(s for m, s in writes if m == n),
+                               sum(m == n for m, _ in writes)]
+                           for n in ("best_model", "live_state")},
+        launches=launches)
+    say("resume " + json.dumps(res))
+    check(live, "no live state after the kill")
+    check(res["records_equal"], "resumed records differ")
+    check(res["weights_equal"], "resumed weights differ")
+    check(res["optimizer_equal"], "resumed optimizer state differs")
+    check(not res["live_state_left"], "a live state was left")
     return res
 
 
@@ -1698,6 +2099,19 @@ def main():
     with phase("train path, fused with K6"):
         paths["train_fused_k6"] = train_path(seed, dev, 600.0,
                                              fused_bwd=True)
+
+    for name, lam, n_sigma in (("specband", 128.0, 1), ("framed", 46.7, 1),
+                               ("fused", 600.0, 1), ("multi", 128.0, 4)):
+        with phase(f"bf16 train step, {name}"):
+            bf16_step_path(seed, dev, lam, n_sigma)
+
+    with tempfile.TemporaryDirectory() as out:
+        with phase("CLI sweep"):
+            paths["sweep"] = sweep_path(dev, out)
+        with phase("checkpoint prediction"):
+            checkpoint_prediction(dev, os.path.join(out, SWEEP_NAME))
+        with phase("kill and resume"):
+            paths["resume"] = resume_path(seed, dev, out)
 
     def by_path(key):
         return {name: r["launches"][key] for name, r in paths.items()}

@@ -1,7 +1,8 @@
 """Host-side batching (a numpy copy of ``BatchLoader`` from
 ``dmel_tpu/data/loader.py``): whole-epoch shuffled index slicing into
 contiguous numpy batches, the ragged tail padded to the batch size and
-masked.  Same seed, same orders, batches and masks.
+masked.  Same seed, same orders, batches and masks; ``set_epoch``
+replays the shuffle stream up to an epoch, as a resumed trial needs.
 """
 
 from __future__ import annotations
@@ -34,6 +35,7 @@ class BatchLoader:
         self.pad_last = pad_last
         self.drop_last = drop_last
         self._rng = np.random.default_rng(seed)
+        self._epoch = 0
 
     def __len__(self):
         n = len(self.xs)
@@ -41,11 +43,24 @@ class BatchLoader:
             return n // self.batch_size
         return (n + self.batch_size - 1) // self.batch_size
 
+    def set_epoch(self, epoch: int):
+        """Advance the shuffle stream so that the next ``__iter__`` gives
+        epoch ``epoch``'s batch order: the permutations of the epochs in
+        between are drawn and dropped (the stream is sequential across
+        epochs).  An epoch at or before the current one changes
+        nothing."""
+        scratch = np.arange(len(self.xs))
+        for _ in range(max(0, int(epoch) - self._epoch)):
+            if self.shuffle:
+                self._rng.shuffle(scratch)
+            self._epoch += 1
+
     def __iter__(self):
         n = len(self.xs)
         order = np.arange(n)
         if self.shuffle:
             self._rng.shuffle(order)
+        self._epoch += 1
         bs = self.batch_size
         for start in range(0, n, bs):
             idx = order[start:start + bs]

@@ -45,16 +45,29 @@ class _MelFrontEnd(nn.Module):
         return s
 
 
+#: CNN6s conv-stack dtype by ``model_dtype`` (None: the parameters')
+_MODEL_DTYPES = {"float32": None, "bfloat16": torch.bfloat16}
+
+
 class MelPANNsNet(_MelFrontEnd):
-    """DMEL front end + PANNs CNN6 backbone."""
+    """DMEL front end + PANNs CNN6 backbone.
+
+    ``model_dtype="bfloat16"`` runs CNN6's conv stack in bf16; the
+    parameters, the batch-norm statistics, the DMEL front end and the
+    classifier head stay float32 (:class:`~dmel_tpu_torch.models.panns.Cnn6`).
+    """
 
     def __init__(self, n_classes: int, init_lambd: float, n_mels: int,
                  sample_rate: int, n_points: int, augment: bool = False,
-                 generator: Optional[torch.Generator] = None, **kwargs):
+                 generator: Optional[torch.Generator] = None,
+                 model_dtype: str = "float32", **kwargs):
         super().__init__(init_lambd, n_mels, sample_rate, n_points,
                          **kwargs)
+        if model_dtype not in _MODEL_DTYPES:
+            raise ValueError(f"unknown model_dtype {model_dtype!r}")
         self.spectrogram_model = Cnn6(n_classes, n_mels, augment=augment,
-                                      generator=generator)
+                                      generator=generator,
+                                      dtype=_MODEL_DTYPES[model_dtype])
 
     def forward(self, x: torch.Tensor,
                 generator: Optional[torch.Generator] = None):

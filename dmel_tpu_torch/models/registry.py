@@ -9,7 +9,8 @@ Configs are the flat experiment dicts of the JAX package.  Their
 The ``precision`` key (the JAX registry's default ``"highest"``) is the
 front end's matmul precision there.  The port's front end runs in
 float32 only, which is ``"highest"``; ``"default"`` (bf16 matmuls on the
-TPU) is refused with ``NotImplementedError``.
+TPU) is refused with ``NotImplementedError``.  ``model_dtype`` (float32
+or bfloat16) is CNN6's conv-stack dtype, as in the JAX registry.
 """
 
 from __future__ import annotations
@@ -62,8 +63,6 @@ def get_model_by_config(config: dict, window_length: Optional[int] = None,
     name = config["model_name"]
     if name != "panns_cnn6":
         raise NotImplementedError(f"model {name!r} is not ported yet")
-    if config.get("model_dtype", "float32") != "float32":
-        raise NotImplementedError("only model_dtype='float32' is ported")
     if config.get("precision", "highest") != "highest":
         raise NotImplementedError("the port's front end runs in float32 "
                                   "only: precision='highest'")
@@ -83,6 +82,7 @@ def get_model_by_config(config: dict, window_length: Optional[int] = None,
         lambd_hint=lambd_hint,
         n_sigma=int(config.get("n_sigma", 1)),
         augment=config.get("augment", False),
+        model_dtype=config.get("model_dtype", "float32"),
         generator=gen)
     return model.to(dev)
 

@@ -1,24 +1,38 @@
-"""Training loop with early stopping and metric reporting (counterpart
-of ``dmel_tpu/training/train.py``).
+"""Training loop with early stopping, checkpoints and metric reporting
+(counterpart of ``dmel_tpu/training/train.py``).
 
 BCE on the sigmoid output (or CE on logits), a per-epoch valid pass,
 early stopping on valid loss with patience, the divergence stop and
 the 8-metric record per epoch.  In optimized mode the window bucket and
 the dispatch hint are re-selected from the current lambda at each epoch
-boundary (``bucket_update="epoch"``).  The ragged tail batch is padded
-and masked.  Dropout masks come from one seeded ``torch.Generator`` on
-the device; metrics stay on the device and are read once per epoch.
+boundary (``bucket_update="epoch"``) or before every step
+(``bucket_update="step"``, one read of lambda a step).  The ragged tail
+batch is padded and masked.  Dropout masks come from one seeded
+``torch.Generator`` on the device; metrics stay on the device and are
+read once per epoch.
 
-Not ported yet, and refused with ``NotImplementedError`` when asked
-for: the live-state resume and checkpoint/sidecar writing
-(``checkpoint_dir``), ``bucket_update="step"``, the pretrained import
-(``pretrained_state_dict``) and data parallelism (``mesh``).  Batches
-are placed on the device in the loop, with no prefetch thread.
+With ``checkpoint_dir``, ``fit`` writes what the JAX package's does:
+
+- ``best_model`` whenever the valid loss improves (the model's state
+  dict, with its batch-norm statistics, and the optimizer's), with its
+  geometry sidecar ``best_model.meta.json`` (the window length and hint
+  the epoch ran at, and the epoch);
+- ``live_state`` every ``live_checkpoint_every`` epochs (the model, the
+  optimizer, the dropout generator's state and the loop's bookkeeping
+  with the records), from which a killed trial resumes at its next
+  epoch, bit-identical to an uninterrupted run; it is removed when the
+  trial ends.
+
+Not ported yet, and refused with ``NotImplementedError``: the pretrained
+import (``pretrained_state_dict``) and data parallelism (``mesh``).
+Batches are placed on the device in the loop, with no prefetch thread.
 """
 
 from __future__ import annotations
 
+import json
 import math
+import os
 from typing import Callable, Optional
 
 import numpy as np
@@ -32,6 +46,7 @@ from dmel_tpu_torch.models.registry import (dispatch_hint_for,
                                             n_classes_for)
 from dmel_tpu_torch.ops.spectrogram import bucketed_window_length
 from dmel_tpu_torch.precision import precision_scope
+from dmel_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
 from dmel_tpu_torch.training.optim import build_optimizer
 
 BCE_LOG_FLOOR = -100.0  # torch binary_cross_entropy clamps log at -100
@@ -141,6 +156,17 @@ def _fetch(metrics: list[dict], keys) -> dict:
     return {k: [row[i] for row in host] for i, k in enumerate(keys)}
 
 
+def _save_best(checkpoint_dir: str, model, optimizer, geometry: dict):
+    """``best_model`` and its geometry sidecar, each written atomically."""
+    base = os.path.join(checkpoint_dir, "best_model")
+    save_checkpoint(base, {"model": model.state_dict(),
+                           "optimizer": optimizer.state_dict()})
+    tmp = base + ".meta.json.tmp"
+    with open(tmp, "w") as f:
+        json.dump(geometry, f)
+    os.replace(tmp, base + ".meta.json")
+
+
 @precision_scope()
 def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
         verbose: int = 0,
@@ -154,17 +180,16 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
     the model last validated at (``window_length``, ``lambd_hint``).
     ``history`` holds the summary keys of the JAX package's ``fit`` and
     a per-epoch ``records`` list.  ``seed`` seeds the weights, the
-    shuffles and the dropout generator.  Runs inside
+    shuffles and the dropout generator.  ``checkpoint_dir`` keeps the
+    best model, its sidecar and the live state (module docstring); a
+    ``live_state`` there resumes the trial.  ``history["init_lambd"]``
+    is the lambda the trial started from, resumed or not.  Runs inside
     :func:`~dmel_tpu_torch.precision.precision_scope`.
     """
-    for what, value in (("checkpoint_dir", checkpoint_dir),
-                        ("pretrained_state_dict", pretrained_state_dict),
+    for what, value in (("pretrained_state_dict", pretrained_state_dict),
                         ("mesh", mesh)):
         if value is not None:
             raise NotImplementedError(f"fit: {what} is not ported yet")
-    if config.get("bucket_update", "epoch") != "epoch":
-        raise NotImplementedError("fit: bucket_update='step' is not "
-                                  "ported yet")
     dev = resolve_device(device)
     one_hot = "panns" in config["model_name"]
     n_classes = n_classes_for(config["dataset_name"])
@@ -172,6 +197,7 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
     patience = int(config["patience"])
     batch_size = int(config["batch_size"])
     optimized = bool(config.get("optimized", False))
+    per_step = optimized and config.get("bucket_update", "epoch") == "step"
     n_points = int(config["n_points"])
 
     def bucket_for(lambd_value):
@@ -197,9 +223,6 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
             yield (torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev),
                    torch.from_numpy(mask).to(dev))
 
-    best_valid_acc, best_valid_loss = 0.0, np.inf
-    best_lambd_est = current_lambd(model)
-    patience_count = 0
     history = {
         "best_valid_acc": 0.0,
         "best_valid_loss": np.inf,
@@ -208,11 +231,50 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
         "diverged": False,
         "records": [],
     }
+    start_epoch = 0
+    best_valid_acc, best_valid_loss = 0.0, np.inf
+    best_lambd_est = current_lambd(model)
+    patience_count = 0
 
-    for epoch in range(max_epochs):
+    live_path = (os.path.join(checkpoint_dir, "live_state")
+                 if checkpoint_dir is not None else None)
+    live_every = int(config.get("live_checkpoint_every", 1))
+    if live_path is not None and os.path.exists(live_path):
+        live = load_checkpoint(live_path)
+        model.load_state_dict(live["model"])
+        optimizer.load_state_dict(live["optimizer"])
+        generator.set_state(live["generator"])
+        meta = live["meta"]
+        start_epoch = meta["epoch"] + 1
+        patience_count = meta["patience_count"]
+        best_valid_acc = meta["best_valid_acc"]
+        best_valid_loss = meta["best_valid_loss"]
+        best_lambd_est = meta["best_lambd_est"]
+        history["records"] = list(meta["records"])
+        trainloader.set_epoch(start_epoch)
+        if verbose >= 1:
+            print(f"resuming trial at epoch {start_epoch} "
+                  f"(live state: {live_path})")
+
+    def save_live(epoch):
+        if (live_path is None or live_every <= 0
+                or (epoch + 1) % live_every != 0):
+            return
+        meta = dict(epoch=epoch, patience_count=patience_count,
+                    best_valid_acc=best_valid_acc,
+                    best_valid_loss=float(best_valid_loss),
+                    best_lambd_est=best_lambd_est,
+                    records=history["records"])
+        save_checkpoint(live_path, {"model": model.state_dict(),
+                                    "optimizer": optimizer.state_dict(),
+                                    "generator": generator.get_state(),
+                                    "meta": meta})
+
+    for epoch in range(start_epoch, max_epochs):
         lam_now = current_lambd(model)
         if not np.isfinite(lam_now):
-            # a NaN/inf loss cascade; record it and stop the trial
+            # a NaN/inf loss cascade; record it and stop the trial (the
+            # best checkpoint of the earlier epochs stays on disk)
             history["diverged"] = True
             if verbose >= 1:
                 print(f"epoch {epoch}: lambda diverged (non-finite); "
@@ -222,8 +284,19 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
         hint = hint_for(wl, lam_now)
         model.spectrogram_layer.set_geometry(wl, hint)
 
-        steps = [train_step(model, optimizer, *batch, generator=generator,
-                            **kw) for batch in placed(trainloader)]
+        steps = []
+        for batch in placed(trainloader):
+            if per_step:
+                lam_now = current_lambd(model)
+                if not np.isfinite(lam_now):
+                    break       # the next epoch's boundary records it
+                new_wl = bucket_for(lam_now)
+                new_hint = hint_for(new_wl, lam_now)
+                if (new_wl, new_hint) != (wl, hint):
+                    wl, hint = new_wl, new_hint
+                    model.spectrogram_layer.set_geometry(wl, hint)
+            steps.append(train_step(model, optimizer, *batch,
+                                    generator=generator, **kw))
         agg = _fetch(steps, ("loss", "energy"))
         count = len(steps)
         train_loss = sum(agg["loss"]) / max(count, 1)
@@ -240,6 +313,13 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
         valid_acc = sum(vagg["acc"]) / max(v_n, 1)
 
         if valid_loss < best_valid_loss:
+            if checkpoint_dir is not None:
+                # the sidecar holds the geometry this checkpoint was
+                # validated at: a lambda that crossed a bucket edge
+                # during the epoch must not pick another at test time
+                _save_best(checkpoint_dir, model, optimizer,
+                           {"window_length": wl, "lambd_hint": hint,
+                            "epoch": epoch})
             best_valid_acc = valid_acc
             best_valid_loss = valid_loss
             best_lambd_est = current_lambd(model)
@@ -268,6 +348,9 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
         if verbose >= 1:
             print(f"epoch {epoch}, valid loss = {valid_loss}, "
                   f"valid acc = {valid_acc}")
+
+        save_live(epoch)
+
         if patience_count >= patience:
             if verbose >= 1:
                 print("no more patience, break training loop ...")
@@ -277,6 +360,38 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
     history["best_valid_acc"] = best_valid_acc
     history["best_valid_loss"] = best_valid_loss
     history["est_lambd"] = current_lambd(model)
+    # the trial ended (converged, diverged or out of epochs): the live
+    # state is only for a trial killed mid-run
+    if live_path is not None and os.path.exists(live_path):
+        os.remove(live_path)
     state = {"model": model, "optimizer": optimizer,
              "window_length": wl, "lambd_hint": hint}
     return state, history
+
+
+def predict(config: dict, state: dict, dataset, batch_size: int = 32,
+            device=None):
+    """Argmax predictions of ``state``'s model over ``dataset``; returns
+    ``(labels, preds)`` as numpy arrays.
+
+    The model is rebuilt at the geometry ``state`` records (the window
+    length and hint it last validated at, as ``fit`` returns and the
+    checkpoint sidecar keeps), with ``state["model"]``'s weights, on
+    ``device`` (default ``cuda``).  A state without the geometry keys
+    takes both from its lambda.
+    """
+    # a module-level import would be circular: eval -> experiments -> fit
+    from dmel_tpu_torch.eval.predict import predict as predict_arrays
+    weights = state["model"].state_dict()
+    if "window_length" in state:
+        wl, hint = state["window_length"], state.get("lambd_hint")
+    else:
+        lam = current_lambd(state["model"])
+        wl = (bucketed_window_length(lam, int(config["n_points"]))
+              if config.get("optimized", False) else None)
+        hint = dispatch_hint_for(config, wl, lam)
+    model = get_model_by_config(config, window_length=wl, lambd_hint=hint,
+                                device=device)
+    model.load_state_dict(weights)
+    preds, _ = predict_arrays(model, dataset.xs, batch_size, device=device)
+    return np.asarray(dataset.ys), preds

@@ -1019,3 +1019,60 @@ def test_fit_is_reproducible_on_specband(cuda):
     assert lam_a[-1] != config["init_lambd"]
     for key, value in sd_a.items():
         assert torch.equal(value, sd_b[key]), key
+
+
+def test_bf16_fit_is_reproducible(cuda):
+    """Two seeded fits with the bf16 conv stack on the specband route:
+    the same lambda after every epoch and the same weights and batch-norm
+    statistics, bit for bit, all float32."""
+    config = dict(FIT_CONFIG, init_lambd=128.0, model_dtype="bfloat16")
+    trainset, validset, _ = get_dataset_by_config(config)
+    runs = []
+    for _ in range(2):
+        state, history = fit(config, trainset, validset, seed=0,
+                             device=cuda)
+        runs.append(([r["lambd_est"] for r in history["records"]],
+                     state["model"].state_dict()))
+    (lam_a, sd_a), (lam_b, sd_b) = runs
+    assert lam_a == lam_b
+    assert lam_a[-1] != config["init_lambd"]
+    for key, value in sd_a.items():
+        assert torch.equal(value, sd_b[key]), key
+        if not key.endswith("num_batches_tracked"):
+            assert value.dtype == torch.float32, key
+
+
+class _Kill(Exception):
+    pass
+
+
+@pytest.mark.parametrize("model_dtype", ["float32", "bfloat16"])
+def test_resume_is_bit_identical(cuda, tmp_path, model_dtype):
+    """A trial killed after epoch 1's report resumes from its live state
+    (the CUDA dropout generator's state among it) and ends with the
+    records and weights of the uninterrupted run, bit for bit; no live
+    state is left."""
+    config = dict(FIT_CONFIG, init_lambd=128.0, max_epochs=3,
+                  model_dtype=model_dtype)
+    trainset, validset, _ = get_dataset_by_config(config)
+    state_ref, hist_ref = fit(config, trainset, validset, seed=1,
+                              device=cuda,
+                              checkpoint_dir=str(tmp_path / "ref"))
+
+    def killer(record):
+        if record["epoch"] == 1:
+            raise _Kill
+
+    with pytest.raises(_Kill):
+        fit(config, trainset, validset, seed=1, device=cuda,
+            checkpoint_dir=str(tmp_path / "kill"), report_fn=killer)
+    assert (tmp_path / "kill" / "live_state").exists()
+    state, hist = fit(config, trainset, validset, seed=1, device=cuda,
+                      checkpoint_dir=str(tmp_path / "kill"))
+    assert hist == hist_ref
+    sd, sd_ref = state["model"].state_dict(), state_ref["model"].state_dict()
+    for key, value in sd.items():
+        assert torch.equal(value, sd_ref[key]), key
+    for name in ("ref", "kill"):
+        assert not (tmp_path / name / "live_state").exists()
+        assert (tmp_path / name / "best_model.meta.json").exists()

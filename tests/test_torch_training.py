@@ -414,11 +414,8 @@ def test_fit_early_stopping():
 
 
 @pytest.mark.parametrize("kwargs", [
-    dict(checkpoint_dir="ckpt"), dict(mesh=object()),
-    dict(pretrained_state_dict={}), dict(config=dict(bucket_update="step"))],
-    ids=["checkpoint_dir", "mesh", "pretrained", "bucket_update"])
+    dict(mesh=object()), dict(pretrained_state_dict={})],
+    ids=["mesh", "pretrained"])
 def test_fit_refuses_what_is_not_ported(kwargs):
-    kwargs = dict(kwargs)
-    config = dict(FIT_CONFIG, **kwargs.pop("config", {}))
     with pytest.raises(NotImplementedError):
-        fit(config, None, None, device="cpu", **kwargs)
+        fit(FIT_CONFIG, None, None, device="cpu", **kwargs)
