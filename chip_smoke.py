@@ -149,13 +149,33 @@ Phases, each announced by a flushed line when it starts and ends:
 14. kill and resume: a bf16 specband trial (lambda 128) of 3 epochs,
    once uninterrupted and once killed after epoch 1's report and resumed
    by a second ``fit``: records, weights, statistics and optimizer state
-   bit-identical, no live state left; the seconds of each run, of the
+   bit-identical, the resumed run's ``init_lambd`` the lambda it resumed
+   at (epoch 0's), no live state left; the seconds of each run, of the
    checkpoint writes and the overhead of the kill and resume.
-15. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
-   ran; K2, K2 multi and K4 also with their times, plain times, bounds
-   and yardsticks at every measured shape, ``shapes``; launches now
-   also from the sweep and the resume runs), then the final
-   ``{"ok": true, "device": {...}}`` line.
+15. K1-K5 at AudioMNIST's shapes (B 64 x 8000 samples, the
+   audio_mnist space): K1/K2 at 4096 (lambda 400, J 12, log on) and 2048
+   (172.95), K3/K4 at 512 (46.7), K5 at 4096 (600, where the sweep's
+   trainable 400 arm grows), with the gates and times of phases 3-6
+   (run after phase 7).
+16. the paper's three spaces through the CLI, as a user runs them, each
+   with ``predict_test`` and the tables (``eval.tables.main``), every
+   trial's launches counted by epoch against its route, and each arm's
+   lambda and test accuracy printed beside the JAX package's sweep under
+   ``results/`` (constants here): time_frequency in full (5000 clips of
+   128 samples, linear_net, SGD, batch 128, 30 epochs), gated on lambda
+   recovery (every trainable arm ends nearer the JAX sweep's mean
+   est_lambd of its trainable arms than it started; frozen arms keep
+   theirs) and on no kernel launch (DSPEC is the exact route);
+   audio_mnist (mel_linear_net, batch 64, 2 epochs) on a full
+   30000-wav fixture tree and esc50 (bf16 CNN6, 2 epochs) on a 2000-clip
+   fixture tree, both built in a temporary directory (their seconds),
+   with each dataset load's seconds (esc50's first resamples and writes
+   the cache, the rest read it; scipy's version) and the ms of a train
+   step on every route the sweep took.
+17. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
+   ran; its times, plain times, bounds and yardsticks at every measured
+   shape, ``shapes``; launches also from the sweeps and the resume
+   run), then the final ``{"ok": true, "device": {...}}`` line.
 
 Any failed check raises, so the script exits non-zero before the final
 line.  A watchdog ends a run that hangs with a traceback.  Without a
@@ -184,7 +204,8 @@ import torch.nn.functional as F
 from dmel_tpu_torch import precision_scope
 from dmel_tpu_torch.data import get_dataset_by_config, make_esc50_synth_dataset
 from dmel_tpu_torch.eval import predict
-from dmel_tpu_torch.models import dispatch_hint_for, get_model_by_config
+from dmel_tpu_torch.models import (dispatch_hint_for, get_model_by_config,
+                                   n_classes_for)
 from dmel_tpu_torch.ops import _cuda, fft_plan, framed, fused, specband, stft
 from dmel_tpu_torch.ops.dmel import (LOG_EPS, auto_route, default_band_map,
                                      mel_spectrogram,
@@ -227,6 +248,8 @@ FFT_COUNTER = {"K1": "K1fft", "K1m": "K1mfft", "K3": "K3fft", "K4": "K4fft",
                "K5": "K5fft", "K6": "K6fft"}
 SR, HOP, N_MELS, T = 8000, 80, 64, 40000
 N_BATCHES, BATCH = 3, 32
+#: AudioMNIST's clips and batch (the audio_mnist space)
+AM_T, AM_BATCH = 8000, 64
 #: one H100 SXM: fp32 outside the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
@@ -383,7 +406,7 @@ def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
 
 
 def k1_flops(batch: int, n_fft: int, j_taps: int, fb_nnz: int,
-             log: bool = True) -> tuple[int, int]:
+             log: bool = True, t: int = T) -> tuple[int, int]:
     """(least, direct): the operations the specband forward needs, and
     the operations of the direct extended-bin DFT that K1 runs.
 
@@ -392,7 +415,7 @@ def k1_flops(batch: int, n_fft: int, j_taps: int, fb_nnz: int,
     bins); the band convolution with the 2J+1 real taps, symmetric
     about 0, so 6J + 2 flops per bin; the power, 3 per bin; the mel
     projection over the filterbank's nonzeros, 2 each; the log."""
-    rows = batch * stft.num_frames(T, HOP)
+    rows = batch * stft.num_frames(t, HOP)
     n_bins = n_fft // 2 + 1
     k_ext = n_bins + 2 * j_taps
     tail = ((6 * j_taps + 2) * n_bins + 3 * n_bins + 2 * fb_nnz
@@ -404,18 +427,19 @@ def k1_flops(batch: int, n_fft: int, j_taps: int, fb_nnz: int,
     return int(least), int(direct)
 
 
-def k1_bound(batch: int, n_fft: int, j_taps: int, fb_nnz: int):
+def k1_bound(batch: int, n_fft: int, j_taps: int, fb_nnz: int,
+             t: int = T):
     """(ms, 'bytes' | 'operations'): the least time one H100 needs for
     the specband forward, from the operations the function needs
     (:func:`k1_flops`) at the fp32 peak and the bytes it must move (the
     signal, taps and filterbank read once; the log-mel and the spectra
     residual ``xext``, 2 k_ext floats a frame, written once) at the HBM
     rate."""
-    least, _ = k1_flops(batch, n_fft, j_taps, fb_nnz)
+    least, _ = k1_flops(batch, n_fft, j_taps, fb_nnz, t=t)
     n_bins = n_fft // 2 + 1
-    rows = batch * stft.num_frames(T, HOP)
-    nbytes = 4 * (batch * T + 2 * j_taps + 1 + n_bins * N_MELS
-                  + batch * N_MELS * stft.num_frames(T, HOP)
+    rows = batch * stft.num_frames(t, HOP)
+    nbytes = 4 * (batch * t + 2 * j_taps + 1 + n_bins * N_MELS
+                  + batch * N_MELS * stft.num_frames(t, HOP)
                   + rows * 2 * (n_bins + 2 * j_taps))
     t_ops = least / PEAK_FP32_FLOPS * 1e3
     t_bytes = nbytes / PEAK_BYTES_S * 1e3
@@ -424,16 +448,17 @@ def k1_bound(batch: int, n_fft: int, j_taps: int, fb_nnz: int):
 
 
 def k1_case(seed: int, batch: int, n_fft: int, lambd: float,
-            dev: torch.device) -> dict:
+            dev: torch.device, t: int = T) -> dict:
     """Kernel against plain version (and the exact STFT) at one
-    geometry; returns errors and times."""
+    geometry of ``batch`` clips of ``t`` samples; returns errors and
+    times."""
     hint = stft.pallas_compile_hint(lambd, n_fft, HOP)
-    route, j = auto_route(signal_length=T, hop_length=HOP, n_mels=N_MELS,
+    route, j = auto_route(signal_length=t, hop_length=HOP, n_mels=N_MELS,
                           optimized=True, window_length=n_fft,
                           lambd_hint=hint)
     check(route == "specband", f"auto dispatch took {route} at {n_fft}")
     x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
-        (batch, T)).astype(np.float32)).to(dev)
+        (batch, t)).astype(np.float32)).to(dev)
     x = x - x.mean(dim=-1, keepdim=True)
     w = gaussian_window(torch.tensor(lambd, device=dev), n_fft)
     kw = dict(n_fft=n_fft, hop_length=HOP, n_mels=N_MELS, sample_rate=SR,
@@ -469,7 +494,7 @@ def k1_case(seed: int, batch: int, n_fft: int, lambd: float,
                                  specband._fwd(x, rho, geom))
         _, xext_p = specband._fwd_plain(x, rho, geom)
         torch.cuda.synchronize()
-        nfr = stft.num_frames(T, HOP)
+        nfr = stft.num_frames(t, HOP)
         check(log_k.shape == (batch, N_MELS, nfr), f"shape {log_k.shape}")
         check(bool(torch.isfinite(log_k).all()), "non-finite log-mel")
         rel = float(((mel_k - mel_p).abs() / mel_p.abs()).max())
@@ -485,9 +510,9 @@ def k1_case(seed: int, batch: int, n_fft: int, lambd: float,
         library_dev = device_ms(library)
         split, split_direct = stage_split(kernel), stage_split(direct)
     fb_nnz = int((fb != 0).sum())
-    bound_ms, bound_by = k1_bound(batch, n_fft, j, fb_nnz)
-    least, direct_flops = k1_flops(batch, n_fft, j, fb_nnz)
-    res = dict(batch=batch, n_fft=n_fft, lambd=lambd, j_taps=j,
+    bound_ms, bound_by = k1_bound(batch, n_fft, j, fb_nnz, t=t)
+    least, direct_flops = k1_flops(batch, n_fft, j, fb_nnz, t=t)
+    res = dict(batch=batch, t=t, n_fft=n_fft, lambd=lambd, j_taps=j,
                stage=fft_plan.stage_name(n_fft),
                radices=fft_plan.plan(n_fft), mel_rel_err=rel,
                logmel_max_abs_err=err, logmel_err_vs_exact_stft=err_exact,
@@ -601,7 +626,8 @@ def model_path(seed: int, dev: torch.device, lam: float,
     return res
 
 
-def k2_bound(batch: int, n_fft: int, j_taps: int, fb_nnz: int, log: bool):
+def k2_bound(batch: int, n_fft: int, j_taps: int, fb_nnz: int, log: bool,
+             t: int = T):
     """(ms, 'bytes' | 'operations', gflop): the least time one H100
     needs for the taps' gradient from the spectra residual.
 
@@ -612,7 +638,7 @@ def k2_bound(batch: int, n_fft: int, j_taps: int, fb_nnz: int, log: bool):
     product a mel.  Bytes: X' (2 k_ext floats a row), the cotangent
     (and the saved log-mel), the taps and the dense filterbank read
     once; the taps' gradient written once."""
-    rows = batch * stft.num_frames(T, HOP)
+    rows = batch * stft.num_frames(t, HOP)
     n_bins = n_fft // 2 + 1
     n_taps = 2 * j_taps + 1
     k_ext = n_bins + 2 * j_taps
@@ -628,17 +654,18 @@ def k2_bound(batch: int, n_fft: int, j_taps: int, fb_nnz: int, log: bool):
 
 
 def k2_case(seed: int, batch: int, n_fft: int, lambd: float, log: bool,
-            dev: torch.device) -> dict:
+            dev: torch.device, t: int = T) -> dict:
     """The training hot path (forward + backward into lambda) through
     the kernels against the plain chain and the exact route, and K2
-    against its plain version on the same residual; errors and times."""
+    against its plain version on the same residual, at ``batch`` clips
+    of ``t`` samples; errors and times."""
     hint = stft.pallas_compile_hint(lambd, n_fft, HOP)
-    route, j = auto_route(signal_length=T, hop_length=HOP, n_mels=N_MELS,
+    route, j = auto_route(signal_length=t, hop_length=HOP, n_mels=N_MELS,
                           optimized=True, window_length=n_fft,
                           lambd_hint=hint)
     check(route == "specband", f"auto dispatch took {route} at {n_fft}")
     rng = np.random.default_rng(seed)
-    x = torch.from_numpy(rng.standard_normal((batch, T)).astype(
+    x = torch.from_numpy(rng.standard_normal((batch, t)).astype(
         np.float32)).to(dev)
     kw = dict(n_mels=N_MELS, sample_rate=SR, hop_length=HOP, optimized=True,
               window_length=n_fft, log_output=log, device=dev)
@@ -715,8 +742,9 @@ def k2_case(seed: int, batch: int, n_fft: int, lambd: float, log: bool,
     exact_chain_ms = time_ms(exact_chain)
 
     fb_nnz = int((fb != 0).sum())
-    bound_ms, bound_by, least_gflop = k2_bound(batch, n_fft, j, fb_nnz, log)
-    res = dict(batch=batch, n_fft=n_fft, lambd=lambd, j_taps=j, log=log,
+    bound_ms, bound_by, least_gflop = k2_bound(batch, n_fft, j, fb_nnz, log,
+                                               t=t)
+    res = dict(batch=batch, t=t, n_fft=n_fft, lambd=lambd, j_taps=j, log=log,
                dlambd=float(g_k), dlambd_rel_err=dlam_rel,
                dlambd_rel_err_vs_exact=dlam_rel_exact,
                dlambd_repeat_bit_identical=bool(torch.equal(g_k, g_k2)),
@@ -1460,15 +1488,20 @@ def determinism_probe(seed: int, dev: torch.device, trainset, wl,
 def _route_of(config, lam):
     """``(route, window, hint, J)`` of a model built from ``config`` at
     ``lam``; a multi-sigma config's routes are named ``"<route>_multi"``.
-    The hint comes from the scalar (mean) lambda, as the trainer's."""
-    wl = bucketed_window_length(lam, T)
+    The hint comes from the scalar (mean) lambda, as the trainer's.  A
+    faithful-mode config (the DSPEC probes) takes the exact route, with
+    no window bucket and no hint."""
+    if not config.get("optimized", False):
+        return "exact", None, None, None
+    t = int(config["n_points"])
+    wl = bucketed_window_length(lam, t)
     hint = dispatch_hint_for(config, wl, lam)
     if config.get("n_sigma", 1) > 1:
         route, j = multi_sigma_route(hop_length=HOP, n_mels=N_MELS,
                                      optimized=True, window_length=wl,
                                      lambd_hint=hint)
         return route + "_multi", wl, hint, j
-    route, j = auto_route(signal_length=T, hop_length=HOP, n_mels=N_MELS,
+    route, j = auto_route(signal_length=t, hop_length=HOP, n_mels=N_MELS,
                           optimized=True, window_length=wl,
                           lambd_hint=hint)
     return route, wl, hint, j
@@ -1511,7 +1544,7 @@ def epoch_launches(config, lam0, records, seen, steps, valid_batches):
                 want[k] += steps
         for k in valid_k:
             want[k] += valid_batches
-        if fft_plan.plan(ep_wl) is not None:
+        if ep_wl is not None and fft_plan.plan(ep_wl) is not None:
             for k, k_fft in FFT_COUNTER.items():
                 want[k_fft] = want[k]
         epochs.append(dict(epoch=r["epoch"], lambd_start=lam_start,
@@ -1761,18 +1794,33 @@ def _best_epoch(records) -> int:
     return epoch
 
 
-def sweep_path(dev: torch.device, out: str) -> dict:
-    """The space's sweep through the CLI, as a user runs it
-    (``cli.main``), into ``out``: every trial's launches counted by
-    epoch against its route, its best model and sidecar checked against
-    its records; then ``predict_test`` over the sweep, and a second
-    ``cli.main`` that must skip every trial."""
+def _first_batch(dataset, size: int):
+    """The first ``size`` clips and labels of ``dataset`` as numpy
+    arrays (without copying the whole dataset out of a Subset)."""
+    items = [dataset[i] for i in range(min(size, len(dataset)))]
+    return (np.stack([x for x, _ in items]).astype(np.float32),
+            np.asarray([y for _, y in items]))
+
+
+def sweep_path(dev: torch.device, out: str, name: str = SWEEP_NAME,
+               epochs: int = SWEEP_EPOCHS, data_dir: str | None = None,
+               n_test: int = 400) -> dict:
+    """The space ``name``'s sweep through the CLI, as a user runs it
+    (``cli.main``), into ``out`` with its data from ``data_dir``
+    (default ``out``): every trial's launches counted by epoch against
+    its route, its best model and sidecar checked against its records;
+    the seconds of each trial and of each dataset load; then
+    ``predict_test`` over the sweep (``n_test`` clips a trial), and a
+    second ``cli.main`` that must skip every trial.  Also returns each
+    trial's records and the first train batch, for the callers' gates
+    and step times: ``(result, trials)``."""
     from dmel_tpu_torch.eval import predict_test
     from dmel_tpu_torch.experiments import cli, runner
-    argv = ["--name", SWEEP_NAME, "--num_samples", "1", "--max_epochs",
-            str(SWEEP_EPOCHS), "--output_dir", out, "--data_dir", out]
-    trials = []
-    real_fit = runner.fit
+    data_dir = out if data_dir is None else data_dir
+    argv = ["--name", name, "--num_samples", "1", "--max_epochs",
+            str(epochs), "--output_dir", out, "--data_dir", data_dir]
+    trials, loads = [], []
+    real_fit, real_data = runner.fit, runner.get_dataset_by_config
 
     def counting_fit(config, trainset, validset, **kwargs):
         seen = []
@@ -1783,10 +1831,18 @@ def sweep_path(dev: torch.device, out: str) -> dict:
         torch.cuda.synchronize()
         trials.append(dict(config=config, history=history, seen=seen,
                            launches=total, fit_s=time.perf_counter() - t0,
-                           n_train=len(trainset), n_valid=len(validset)))
+                           n_train=len(trainset), n_valid=len(validset),
+                           batch=_first_batch(trainset,
+                                              int(config["batch_size"]))))
         return state, history
 
-    runner.fit = counting_fit
+    def timed_data(config, data_dir):
+        t0 = time.perf_counter()
+        splits = real_data(config, data_dir)
+        loads.append(time.perf_counter() - t0)
+        return splits
+
+    runner.fit, runner.get_dataset_by_config = counting_fit, timed_data
     try:
         t0 = time.perf_counter()
         cli.main(argv + ["--verbose", "0"])
@@ -1795,8 +1851,8 @@ def sweep_path(dev: torch.device, out: str) -> dict:
         with contextlib.redirect_stdout(buf):
             cli.main(argv + ["--verbose", "1"])
     finally:
-        runner.fit = real_fit
-    sweep_dir = os.path.join(out, SWEEP_NAME)
+        runner.fit, runner.get_dataset_by_config = real_fit, real_data
+    sweep_dir = os.path.join(out, name)
     check(len(trials) == 6, f"{len(trials)} trials ran")
     check(buf.getvalue().count("skip finished") == 6,
           "the second cli.main did not skip all six trials")
@@ -1807,19 +1863,18 @@ def sweep_path(dev: torch.device, out: str) -> dict:
     for i, (t, row) in enumerate(zip(trials, rows)):
         config, records = t["config"], t["history"]["records"]
         lam0 = float(config["init_lambd"])
-        steps = -(-t["n_train"] // BATCH)
-        valid_batches = -(-t["n_valid"] // BATCH)
-        epochs = epoch_launches(config, lam0, records, t["seen"], steps,
-                                valid_batches)
-        check_epochs(epochs)
-        check(len(records) == SWEEP_EPOCHS, f"trial {i}: {len(records)} "
-              "epochs")
+        steps = -(-t["n_train"] // int(config["batch_size"]))
+        valid_batches = -(-t["n_valid"] // int(config["batch_size"]))
+        t["epochs"] = epoch_launches(config, lam0, records, t["seen"], steps,
+                                     valid_batches)
+        check_epochs(t["epochs"])
+        check(len(records) == epochs, f"trial {i}: {len(records)} epochs")
         ckpt = os.path.join(row["logdir"], "checkpoint_000000")
         check(os.path.basename(row["logdir"]) == f"trial_{i:05d}",
               f"row {i} is {row['logdir']}")
-        for name in ("best_model", "best_model.meta.json"):
-            check(os.path.isfile(os.path.join(ckpt, name)),
-                  f"trial {i} has no {name}")
+        for fname in ("best_model", "best_model.meta.json"):
+            check(os.path.isfile(os.path.join(ckpt, fname)),
+                  f"trial {i} has no {fname}")
         check(not os.path.exists(os.path.join(ckpt, "live_state")),
               f"trial {i} kept its live state")
         with open(os.path.join(ckpt, "best_model.meta.json")) as f:
@@ -1833,17 +1888,19 @@ def sweep_path(dev: torch.device, out: str) -> dict:
               f"window {wl}, hint {hint}")
         arm = f"{lam0:.1f}/{'trainable' if config['trainable'] else 'fixed'}"
         by_arm[arm] = {k: v for k, v in t["launches"].items() if v}
-        results.append(dict(trial=i, arm=arm, fit_s=t["fit_s"],
-                            routes=[e["route"] for e in epochs],
+        results.append(dict(trial=i, arm=arm, init_lambd=lam0,
+                            fit_s=t["fit_s"],
+                            routes=[e["route"] for e in t["epochs"]],
+                            windows=[e["window_length"] for e in t["epochs"]],
                             lambd=[r["lambd_est"] for r in records],
                             valid_acc=[r["valid_acc"] for r in records],
                             sidecar=meta, launches=by_arm[arm]))
 
     t0 = time.perf_counter()
-    scored = predict_test(sweep_dir, out, verbose=0)
+    scored = predict_test(sweep_dir, data_dir, verbose=0)
     predict_s = time.perf_counter() - t0
-    preds = np.load(os.path.join(sweep_dir,
-                                 f"{SWEEP_NAME}_predictionss.npy"))
+    preds = np.load(os.path.join(sweep_dir, f"{rows[0]['config/dataset_name']}"
+                                 "_predictionss.npy"))
     accs = [r["test_accuracy"] for r in scored]
     for r, acc in zip(results, accs):
         r["test_accuracy"] = acc
@@ -1851,13 +1908,184 @@ def sweep_path(dev: torch.device, out: str) -> dict:
     for t in trials:
         for k, v in t["launches"].items():
             total[k] += v
-    res = dict(name=SWEEP_NAME, trials=results, sweep_s=sweep_s,
-               s_per_trial=sweep_s / len(trials), predict_test_s=predict_s,
+    res = dict(name=name, trials=results, sweep_s=sweep_s,
+               s_per_trial=sweep_s / len(trials), data_load_s=loads,
+               predict_test_s=predict_s,
                predictions_shape=list(preds.shape),
                launches_by_arm=by_arm, launches=total)
-    say("sweep " + json.dumps(res))
+    say(f"sweep {name} " + json.dumps(res))
     check(all(0.0 <= a <= 1.0 for a in accs), f"test accuracies {accs}")
-    check(preds.shape == (6, 400), f"predictions of shape {preds.shape}")
+    check(preds.shape == (6, n_test), f"predictions of shape {preds.shape}")
+    return res, trials
+
+
+def step_ms(seed: int, dev: torch.device, config: dict, batch,
+            lam: float, steps: int = 20) -> dict:
+    """ms per train step of a fresh model of ``config`` at ``lam`` (the
+    route and window ``lam`` takes) on one batch (numpy ``(xs, ys)``):
+    first and steady over ``steps`` steps, on the host clock around
+    synchronised steps, in the package's precision scope."""
+    route, wl, hint, _ = _route_of(config, lam)
+    model = get_model_by_config(dict(config, init_lambd=lam), wl, hint,
+                                device=dev, seed=seed)
+    opt = build_optimizer(config, model)
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    xs = torch.from_numpy(batch[0]).to(dev)
+    ys = torch.from_numpy(batch[1]).to(dev)
+    mask = torch.ones(len(xs), dtype=torch.bool, device=dev)
+    kw = dict(one_hot="panns" in config["model_name"],
+              n_classes=n_classes_for(config["dataset_name"]),
+              generator=gen)
+    with precision_scope():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        train_step(model, opt, xs, ys, mask, **kw)
+        torch.cuda.synchronize()
+        first = (time.perf_counter() - t0) * 1e3
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            train_step(model, opt, xs, ys, mask, **kw)
+        torch.cuda.synchronize()
+        steady = (time.perf_counter() - t0) * 1e3 / steps
+    return dict(route=route, window_length=wl, lambd=lam, batch=len(xs),
+                first_ms_per_step=first, steady_ms_per_step=steady)
+
+
+def route_step_ms(seed: int, dev: torch.device, trials: list) -> dict:
+    """:func:`step_ms` on each (route, window) an epoch of the sweep's
+    ``trials`` started on, at the first such epoch's starting lambda and
+    the first trial's first train batch."""
+    out = {}
+    for t in trials:
+        for e in t["epochs"]:
+            key = f"{e['route']}-{e['window_length']}"
+            if key not in out:
+                out[key] = step_ms(seed, dev, t["config"],
+                                   trials[0]["batch"], e["lambd_start"])
+    say(f"step ms {trials[0]['config']['dataset_name']} "
+        + json.dumps(out))
+    return out
+
+
+#: the JAX package's sweeps of the published spaces
+#: (``results/<space>/<space>.csv``): each trial's est_lambd and test
+#: accuracy, in trial order (lambda 0.2, 1 and 5 sigma_ref, or 10, 35
+#: and 300 ms, trainable; then the same frozen)
+JAX_SWEEPS = {
+    "time_frequency": [
+        (4.784862518310547, 0.981), (4.571234703063965, 0.986),
+        (4.306341648101807, 0.979), (1.2760000228881836, 0.958),
+        (6.380000114440918, 0.988), (31.899999618530277, 0.936)],
+    "audio_mnist": [
+        (33.1241455078125, 0.39666666666666667),
+        (172.95263671875, 0.3785), (440.1481323242188, 0.35583333333333333),
+        (13.333333015441896, 0.4088333333333333),
+        (46.66666793823242, 0.39366666666666666), (400.0, 0.3875)],
+    "esc50": [
+        (19.647127151489254, 0.0), (41.03774642944336, 0.016666666666666666),
+        (391.8238220214844, 0.016666666666666666), (13.333333015441896, 0.0),
+        (46.66666793823242, 0.016666666666666666), (400.0, 0.0)],
+}
+#: the JAX time_frequency sweep's mean est_lambd over its three
+#: trainable arms: the lambda a trainable arm must move toward
+TF_LAMBD_TARGET = float(np.mean([lam for lam, _ in
+                                 JAX_SWEEPS["time_frequency"][:3]]))
+
+
+def _beside_jax(name: str, sweep: dict) -> list:
+    """Each trial's lambda trajectory and test accuracy beside the JAX
+    sweep's est_lambd and test accuracy for the same trial."""
+    out = []
+    for r, (jax_lam, jax_acc) in zip(sweep["trials"], JAX_SWEEPS[name]):
+        out.append(dict(arm=r["arm"], lambd=r["lambd"],
+                        test_accuracy=r["test_accuracy"],
+                        jax_est_lambd=jax_lam, jax_test_accuracy=jax_acc))
+        say(f"{name} {r['arm']}: lambda {r['init_lambd']:.4f} -> "
+            f"{r['lambd'][-1]:.4f} (JAX {jax_lam:.4f}), test accuracy "
+            f"{r['test_accuracy']:.4f} (JAX {jax_acc:.4f})")
+    return out
+
+
+def _tables(results_dir: str) -> str:
+    from dmel_tpu_torch.eval import tables
+    buf = io.StringIO()
+    with contextlib.redirect_stdout(buf):
+        tables.main(["--results_dir", results_dir])
+    say(buf.getvalue())
+    return buf.getvalue()
+
+
+def time_frequency_path(dev: torch.device, out: str) -> dict:
+    """The published time_frequency space through the CLI (5000 clips of
+    128 samples, linear_net on faithful DSPEC, SGD, batch 128, 6 trials
+    of 30 epochs); then ``predict_test`` and Table 2.  No kernel
+    launches (DSPEC is the exact route).  Gate: every trainable arm ends
+    nearer the JAX sweep's mean est_lambd of its trainable arms than it
+    started (lambda recovery); every frozen arm keeps its lambda."""
+    res, trials = sweep_path(dev, out, "time_frequency", 30, n_test=1000)
+    check(not any(res["launches"].values()),
+          f"kernels launched on the DSPEC path: {res['launches']}")
+    res["beside_jax"] = _beside_jax("time_frequency", res)
+    res["lambd_target"] = TF_LAMBD_TARGET
+    res["table"] = _tables(out)
+    check("time-frequency" in res["table"], "no Table 2")
+    for t in trials:
+        lam0 = float(torch.tensor(float(t["config"]["init_lambd"])))
+        lam1 = t["history"]["est_lambd"]
+        if t["config"]["trainable"]:
+            check(abs(lam1 - TF_LAMBD_TARGET) < abs(lam0 - TF_LAMBD_TARGET),
+                  f"trainable arm {lam0}: {lam1} no nearer "
+                  f"{TF_LAMBD_TARGET}")
+        else:
+            check(lam1 == lam0, f"frozen arm {lam0} moved to {lam1}")
+    return res
+
+
+def audio_mnist_path(seed: int, dev: torch.device, out: str) -> dict:
+    """The published audio_mnist space on the full AudioMNIST fixture
+    tree (60 speakers, 30000 wavs of 1500-7500 samples at 8 kHz, built
+    in ``out``): 6 trials of mel_linear_net, batch 64, 2 epochs, through
+    the CLI, launches counted by epoch against each epoch's route; then
+    ``predict_test`` over the 6000 test clips, Table 1 and the ms per
+    train step on each route the sweep took."""
+    from tests import fixtures
+    data = os.path.join(out, "audio_mnist_data")
+    t0 = time.perf_counter()
+    fixtures.make_audio_mnist_tree(data, min_len=1500, max_len=7500)
+    build_s = time.perf_counter() - t0
+    say(f"AudioMNIST fixture tree: 30000 wavs in {build_s:.1f} s")
+    res, trials = sweep_path(dev, out, "audio_mnist", 2, data, n_test=6000)
+    res["tree_build_s"] = build_s
+    res["beside_jax"] = _beside_jax("audio_mnist", res)
+    res["step_ms"] = route_step_ms(seed, dev, trials)
+    res["table"] = _tables(out)
+    check("AUDIO_MNIST" in res["table"], "no Table 1")
+    return res
+
+
+def esc50_path(seed: int, dev: torch.device, out: str) -> dict:
+    """The published esc50 space on a full-size ESC-50 fixture tree (50
+    classes x 40 clips of 5 s at 44.1 kHz): 6 trials of bf16 CNN6, batch
+    32, 2 epochs, through the CLI; the first trial resamples to 8 kHz
+    and writes the cache, the others read it (``data_load_s``); then
+    ``predict_test``, Table 1 and the ms per train step on each route."""
+    import scipy
+    from tests import fixtures
+    data = os.path.join(out, "esc50_data")
+    t0 = time.perf_counter()
+    fixtures.make_esc50_tree(data, n_classes=50, per_class=40,
+                             clip_seconds=5.0)
+    build_s = time.perf_counter() - t0
+    say(f"ESC-50 fixture tree: 2000 clips of 5 s in {build_s:.1f} s; "
+        f"scipy {scipy.__version__}")
+    res, trials = sweep_path(dev, out, "esc50", 2, data, n_test=400)
+    res.update(tree_build_s=build_s, scipy=scipy.__version__,
+               resample_s=res["data_load_s"][0],
+               cache_hit_s=res["data_load_s"][1:])
+    res["beside_jax"] = _beside_jax("esc50", res)
+    res["step_ms"] = route_step_ms(seed, dev, trials)
+    res["table"] = _tables(out)
+    check("ESC50" in res["table"], "no Table 1")
     return res
 
 
@@ -1955,7 +2183,12 @@ def resume_path(seed: int, dev: torch.device, out: str) -> dict:
                 [config["init_lambd"]]
                 + [r["lambd_est"] for r in hist_ref["records"][:-1]]],
         live_state_after_kill=live,
-        records_equal=hist == hist_ref,
+        records_equal=(hist["records"] == hist_ref["records"]
+                       and {k: v for k, v in hist.items()
+                            if k != "init_lambd"}
+                       == {k: v for k, v in hist_ref.items()
+                           if k != "init_lambd"}),
+        init_lambd_resumed=hist["init_lambd"],
         weights_equal=all(torch.equal(v, sd_ref[k]) for k, v in sd.items()),
         optimizer_equal=all(torch.equal(v, opt_ref[i][k])
                             for i, st in opt.items() for k, v in st.items()),
@@ -1970,6 +2203,8 @@ def resume_path(seed: int, dev: torch.device, out: str) -> dict:
     say("resume " + json.dumps(res))
     check(live, "no live state after the kill")
     check(res["records_equal"], "resumed records differ")
+    check(hist["init_lambd"] == hist_ref["records"][0]["lambd_est"],
+          "the resumed trial's init_lambd is not the lambda it resumed at")
     check(res["weights_equal"], "resumed weights differ")
     check(res["optimizer_equal"], "resumed optimizer state differs")
     check(not res["live_state_left"], "a live state was left")
@@ -2071,6 +2306,17 @@ def main():
                    multi_case(seed, BATCH, 4096, (345.0, 360.0, 380.0, 400.0),
                               dev)]
 
+    with phase("K1-K5 at AudioMNIST shapes"):
+        cases += [k1_case(seed, AM_BATCH, 4096, 400.0, dev, t=AM_T),
+                  k1_case(seed, AM_BATCH, 2048, 172.95, dev, t=AM_T)]
+        cases2 += [k2_case(seed, AM_BATCH, 4096, 400.0, True, dev, t=AM_T),
+                   k2_case(seed, AM_BATCH, 2048, 172.95, True, dev, t=AM_T)]
+        cases34 += [frontend_case(seed, "framed", AM_BATCH, 46.7, dev, 512,
+                                  t=AM_T)]
+        # the audio_mnist sweep's trainable 400 arm grows into fused
+        cases5 += [frontend_case(seed, "fused", AM_BATCH, 600.0, dev, 4096,
+                                 t=AM_T)]
+
     with phase("K6 vs plain"):
         cases6 = [k6_case(seed, BATCH, 300.0, dev, 2048),
                   k6_case(seed, BATCH, 600.0, dev, 4096),
@@ -2107,11 +2353,17 @@ def main():
 
     with tempfile.TemporaryDirectory() as out:
         with phase("CLI sweep"):
-            paths["sweep"] = sweep_path(dev, out)
+            paths["sweep"] = sweep_path(dev, out)[0]
         with phase("checkpoint prediction"):
             checkpoint_prediction(dev, os.path.join(out, SWEEP_NAME))
         with phase("kill and resume"):
             paths["resume"] = resume_path(seed, dev, out)
+        with phase("time_frequency sweep"):
+            paths["sweep_time_frequency"] = time_frequency_path(dev, out)
+        with phase("AudioMNIST sweep"):
+            paths["sweep_audio_mnist"] = audio_mnist_path(seed, dev, out)
+        with phase("ESC-50 sweep"):
+            paths["sweep_esc50"] = esc50_path(seed, dev, out)
 
     def by_path(key):
         return {name: r["launches"][key] for name, r in paths.items()}
@@ -2135,6 +2387,8 @@ def main():
         for c in all_cases:
             lib = c.get(lib_key[:-3] + "_device_ms")
             name = f"B{c['batch']}-nfft{c['n_fft']}"
+            if c.get("t", T) != T:
+                name += f"-T{c['t']}"
             if "log" in c:
                 name += f"-log{int(c['log'])}"
             elif not isinstance(c["lambd"], list):
@@ -2156,6 +2410,7 @@ def main():
             max(c["logmel_max_abs_err"] for c in cases), "log-mel", GATE,
             main1, **_library(main1, "library_ms"),
             **fft_fields("K1", main1, cases),
+            shapes=shapes(cases, "", "library_ms"),
             xext_err_of_max=max(c["xext_err_of_max"] for c in cases)),
         _kernel_entry(
             "specband_bwd", "specband_bwd.cu",
@@ -2173,6 +2428,7 @@ def main():
             max(c["logmel_max_abs_err"] for c in cases34), "log-mel", GATE,
             main34, **_library(main34, "library_ms"),
             **fft_fields("K3", main34, cases34),
+            shapes=shapes(cases34, "", "library_ms"),
             reim_err_of_max=max(c["reim_err_of_max"] for c in cases34)),
         _kernel_entry(
             "framed_bwd", "framed_bwd.cu",
@@ -2196,6 +2452,7 @@ def main():
             max(c["logmel_max_abs_err"] for c in cases5), "log-mel", GATE,
             main5, **_library(main5, "library_ms"),
             **fft_fields("K5", main5, cases5),
+            shapes=shapes(cases5, "", "library_ms"),
             reim_err_of_max=max(c["reim_err_of_max"] for c in cases5)),
         _kernel_entry(
             "specband_fwd_multi", "specband_fwd.cu",

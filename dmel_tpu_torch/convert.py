@@ -10,13 +10,36 @@ map is per leaf:
   both named ``weight``;
 - BatchNorm ``scale``/``bias`` -> ``weight``/``bias`` and the
   statistics ``mean``/``var`` -> ``running_mean``/``running_var``;
-- ``lambd`` stays ``lambd``.
+- ``lambd`` stays ``lambd``;
+- in the conv probes (``ConvNet``, ``MelConvNet``: ``conv1`` and
+  ``fc1`` side by side), ``fc1``'s input rows are also permuted: flax
+  flattens the conv output NHWC as ``(F, T, C)``, torch NCHW as
+  ``(C, F, T)``.
 """
 
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+
+def _nchw_flatten_order(tree: dict) -> dict:
+    """``tree`` with the ``fc1`` kernel of every level that also holds a
+    4-D ``conv1`` kernel reordered from NHWC-flattened inputs
+    ``(F T C, out)`` to NCHW-flattened ones ``(C F T, out)``."""
+    out = {}
+    for key, value in tree.items():
+        out[key] = _nchw_flatten_order(value) if isinstance(value,
+                                                            dict) else value
+    conv, fc = out.get("conv1"), out.get("fc1")
+    if (isinstance(conv, dict) and isinstance(fc, dict)
+            and np.ndim(conv.get("kernel")) == 4):
+        channels = np.shape(conv["kernel"])[3]
+        kernel = np.asarray(fc["kernel"])
+        kernel = kernel.reshape(-1, channels, kernel.shape[1])
+        out["fc1"] = dict(fc, kernel=kernel.transpose(1, 0, 2).reshape(
+            -1, kernel.shape[2]))
+    return out
 
 
 def _flatten(tree, prefix=""):
@@ -50,7 +73,7 @@ def from_jax_variables(params: dict, batch_stats: dict | None = None):
     """torch ``state_dict`` of the flax variables ``params`` and
     ``batch_stats`` (nested dicts of arrays)."""
     out = {}
-    for path, a in _flatten(params):
+    for path, a in _flatten(_nchw_flatten_order(params)):
         key, a = _param(path, a)
         out[key] = torch.tensor(a.copy())        # C-contiguous, keeps 0-d
     stat_names = {"mean": "running_mean", "var": "running_var"}

@@ -1,7 +1,8 @@
-"""ESC-50-shaped synthetic Gauss-pulse dataset (a numpy-only copy of
-``make_esc50_synth_dataset`` and its helpers from
+"""Synthetic Gauss-pulse datasets (a numpy-only copy of
 ``dmel_tpu/data/synthetic.py``, so the port needs nothing of the JAX
-package).  Same seed, same clips, bit for bit.
+package): the three-class ``time_frequency`` task
+(:func:`make_gauss_pulse_dataset`) and the ESC-50-shaped 10-class task
+(:func:`make_esc50_synth_dataset`).  Same seed, same clips, bit for bit.
 """
 
 from __future__ import annotations
@@ -55,6 +56,92 @@ class GaussPulseDataset:
 
     def __getitem__(self, idx):
         return self.xs[idx], self.ys[idx]
+
+
+def make_gauss_pulse_dataset(sigma: float, n_points: int, noise_std: float,
+                             n_samples: int = 10000,
+                             f_center_max_offset: float = 0.0,
+                             t_center_max_offset: float = 0.0,
+                             demo: bool = False,
+                             seed: int | None = None) -> GaussPulseDataset:
+    """The three-class Gauss-pulse time-frequency task: class 0 a single
+    pulse with its sigma scaled in time or in frequency, class 1 two
+    pulses apart in time, class 2 two pulses apart in frequency, with
+    uniform noise and amplitude jitter, mean-subtracted.
+
+    ``f_center_max_offset``/``t_center_max_offset`` jitter the pattern's
+    centre; ``demo`` fixes the offsets, scales and amplitudes.
+    ``seed=None`` draws fresh entropy (the original code never seeds);
+    an int reproduces the JAX package's clips bit for bit."""
+    rng = np.random.default_rng(seed)
+    n = n_samples
+    u = lambda lo, hi, size=n: rng.uniform(lo, hi, size)  # noqa: E731
+
+    # displacement limits
+    t_max = n_points / 5
+    f_max = 0.5 / 5
+    t_min = sigma
+    f_min = 0.5 * (t_min / n_points)
+    sigma_scale_max = (2 * t_max) / (6 * sigma) + 1
+    sigma_scale_min = 1 / sigma_scale_max
+
+    if demo:
+        f_center_offset = np.zeros(n)
+        t_center_offset = np.zeros(n)
+        f_offset = np.full(n, 0.5 * f_max)
+        t_offset = np.full(n, 0.5 * t_max)
+    else:
+        f_center_offset = u(-f_center_max_offset, f_center_max_offset)
+        t_center_offset = u(-t_center_max_offset, t_center_max_offset)
+        f_offset = u(f_min, f_max)
+        t_offset = u(t_min, t_max)
+
+    t_center = t_center_offset + n_points / 2
+    f_center = f_center_offset + 0.25
+
+    ys = rng.integers(0, 3, n)
+
+    # class 0: sigma scaled up (time-spread) or down (frequency-spread)
+    spread_time = rng.integers(0, 2, n).astype(bool)
+    sigma_scale = np.where(spread_time, u(1.0, sigma_scale_max),
+                           u(sigma_scale_min, 1.0))
+    if demo:
+        sigma_scale = np.ones(n)
+
+    phases = rng.uniform(0, 2 * np.pi, (4, n))
+
+    # every class's pulses for every clip, then selected by class
+    x0 = gauss_pulse_np(t_center, f_center, sigma * sigma_scale, phases[0],
+                        n_points)
+    x1 = (gauss_pulse_np(t_center - t_offset, f_center, sigma, phases[1],
+                         n_points)
+          + gauss_pulse_np(t_center + t_offset, f_center, sigma, phases[2],
+                           n_points))
+    x2 = (gauss_pulse_np(t_center, f_center - f_offset, sigma, phases[1],
+                         n_points)
+          + gauss_pulse_np(t_center, f_center + f_offset, sigma, phases[2],
+                           n_points))
+    x = np.where((ys == 0)[:, None], x0,
+                 np.where((ys == 1)[:, None], x1, x2))
+
+    locs = np.zeros((n, 4), dtype=np.float64)
+    locs[ys == 0] = np.stack([t_center, f_center, spread_time.astype(float),
+                              sigma_scale], 1)[ys == 0]
+    locs[ys == 1] = np.stack([t_center - t_offset, f_center,
+                              t_center + t_offset, f_center], 1)[ys == 1]
+    locs[ys == 2] = np.stack([t_center, f_center - f_offset,
+                              t_center, f_center + f_offset], 1)[ys == 2]
+
+    # variability: uniform noise and amplitude jitter
+    noise = noise_std * rng.uniform(0, 1, (n, n_points))
+    amplitude = np.ones(n) if demo else u(0.5, 1.0)
+    x = x * amplitude[:, None] + noise
+    x = x - x.mean(axis=-1, keepdims=True)
+
+    return GaussPulseDataset(xs=x.astype(np.float32),
+                             ys=ys.astype(np.int32),
+                             locs=locs.astype(np.float32),
+                             sigma=sigma, n_points=n_points)
 
 
 def make_esc50_synth_dataset(sigma: float = 8000 * 0.035 / 6,

@@ -7,7 +7,11 @@ rebuild the model from the row's config, restore its ``best_model``
 checkpoint at the geometry of its sidecar, predict the test split, and
 write ``{dataset}.csv`` with a ``test_accuracy`` column (and
 ``test_mAP`` for multi-label datasets) beside
-``{dataset}_predictionss.npy`` and ``{dataset}_labelss.npy``.
+``{dataset}_predictionss.npy`` and ``{dataset}_labelss.npy``.  Every
+model of the registry is served: MelPANNsNet, the mel probes and the
+DSPEC probes.  Batches are placed on the device ahead of the model on a
+background thread, ``prefetch`` deep (the row config's ``prefetch``
+key, default 2, as in ``fit``).
 """
 
 from __future__ import annotations
@@ -18,7 +22,7 @@ import os
 import numpy as np
 import torch
 
-from dmel_tpu_torch.data.loader import BatchLoader
+from dmel_tpu_torch.data.loader import BatchLoader, device_batches
 from dmel_tpu_torch.data.registry import get_dataset_by_config
 from dmel_tpu_torch.device import resolve_device
 from dmel_tpu_torch.eval.metrics import mean_average_precision, top1_precision
@@ -33,26 +37,31 @@ from dmel_tpu_torch.training.checkpoint import load_checkpoint
 
 @precision_scope()
 def predict(model: torch.nn.Module, xs: np.ndarray, batch_size: int = 32,
-            device=None) -> tuple[np.ndarray, np.ndarray]:
+            device=None, prefetch: int = 2) -> tuple[np.ndarray, np.ndarray]:
     """Eval-mode forward passes of ``model`` over ``xs`` (n, T) in
     batches; returns ``(argmax, scores)``, scores ``(n, n_classes)``.
 
     Runs on ``device`` (default ``cuda``), where the model must lie,
-    inside :func:`~dmel_tpu_torch.precision.precision_scope`.
+    inside :func:`~dmel_tpu_torch.precision.precision_scope`; the
+    batches are placed ``prefetch`` ahead on a background thread
+    (:func:`~dmel_tpu_torch.data.loader.device_batches`).
     """
     dev = resolve_device(device)
     for p in model.parameters():
         if p.device != dev:
             raise ValueError(f"model lies on {p.device}, not on {dev}")
     model.eval()
+    batches = device_batches(
+        ((np.asarray(xs[i:i + batch_size], dtype=np.float32),)
+         for i in range(0, len(xs), batch_size)), dev, prefetch)
     scores = []
-    with torch.no_grad():
-        for i in range(0, len(xs), batch_size):
-            xb = torch.as_tensor(np.ascontiguousarray(xs[i:i + batch_size]),
-                                 dtype=torch.float32).to(dev)
-            out, _ = model(xb)
-            scores.append(out.cpu())
-    scores = torch.cat(scores).numpy()
+    try:
+        with torch.no_grad():
+            for (xb,) in batches:
+                scores.append(model(xb)[0])
+    finally:
+        batches.close()
+    scores = torch.cat(scores).cpu().numpy()
     return np.argmax(scores, axis=-1), scores
 
 
@@ -67,7 +76,8 @@ def _coerce(config: dict) -> dict:
         if k in out and isinstance(out[k], str):
             out[k] = out[k] == "True"
     for k in ("n_points", "hop_length", "batch_size", "max_epochs",
-              "patience", "n_mels", "resample_rate", "n_samples"):
+              "patience", "n_mels", "resample_rate", "n_samples",
+              "prefetch"):
         if k in out and out[k] is not None and not isinstance(out[k], bool):
             try:
                 out[k] = int(float(out[k]))
@@ -115,7 +125,8 @@ def predictions_by_row(row: dict, testloader, device=None) -> tuple:
                                 device=device)
     model.load_state_dict(weights)
     preds, scores = predict(model, testloader.xs, testloader.batch_size,
-                            device=device)
+                            device=device,
+                            prefetch=int(config.get("prefetch", 2)))
     labels = testloader.ys
     if labels.ndim == 2:
         return labels, scores

@@ -10,10 +10,12 @@ Keys the port reads differently:
 - ``impl="pallas"`` is the auto dispatch over the port's CUDA kernels
   (``models/registry.py``);
 - ``model_dtype="bfloat16"`` runs CNN6's conv stack in bf16;
-- ``rng_impl`` and ``prefetch`` name the JAX package's dropout PRNG and
-  host prefetch depth; the port keeps them in the config and ignores
-  them (its dropout masks come from one ``torch.Generator``, its
-  batches are placed in the loop).
+- ``rng_impl`` names the JAX package's dropout PRNG; the port keeps it
+  in the config and ignores it (its dropout masks come from one
+  ``torch.Generator``);
+- ``prefetch`` (no space sets it; default 2) is the depth of the
+  background host-to-device feed of ``fit`` and ``predict_test``, as in
+  the JAX package.
 """
 
 from __future__ import annotations

@@ -203,15 +203,21 @@ def _cell(text: str):
     return text
 
 
+def read_rows(path: str) -> list[dict]:
+    """The rows of the CSV file ``path``, each cell parsed by
+    :func:`_cell`."""
+    with open(path, newline="") as f:
+        return [{k: _cell(v) for k, v in row.items()}
+                for row in csv.DictReader(f)]
+
+
 def load_results(sweep_dir: str) -> list[dict]:
     """The sweep's rows from ``results.csv`` (rebuilt from the trials
     when it is missing), each cell parsed by :func:`_cell`."""
     path = os.path.join(sweep_dir, "results.csv")
     if not os.path.exists(path):
         return collect_results(sweep_dir)
-    with open(path, newline="") as f:
-        return [{k: _cell(v) for k, v in row.items()}
-                for row in csv.DictReader(f)]
+    return read_rows(path)
 
 
 def get_config_by_row(row: dict) -> dict:

@@ -1,5 +1,6 @@
-"""Trainable time-frequency front end (counterpart of
-``dmel_tpu/models/layers.py``)."""
+"""Trainable time-frequency front ends (counterpart of
+``dmel_tpu/models/layers.py``): DMEL (:class:`MelSpectrogramLayer`, its
+multi-sigma form) and DSPEC (:class:`SpectrogramLayer`)."""
 
 from __future__ import annotations
 
@@ -10,6 +11,7 @@ from torch import nn
 
 from dmel_tpu_torch.ops.dmel import (mel_spectrogram,
                                      multi_sigma_mel_spectrogram)
+from dmel_tpu_torch.ops.spectrogram import spectrogram
 
 
 class MelSpectrogramLayer(nn.Module):
@@ -79,3 +81,41 @@ class MultiSigmaMelSpectrogramLayer(MelSpectrogramLayer):
             normalize_window=self.normalize_window, impl=self.impl,
             lambd_hint=self.lambd_hint, device=x.device)
         return mel[:, None, :, :]
+
+
+class SpectrogramLayer(nn.Module):
+    """DSPEC: power spectrogram of the mean-subtracted signal with a
+    trainable window length ``lambd`` (its magnitude is used).
+
+    Faithful mode (``optimized=False``) analyses with a window of
+    ``T`` samples and ``n_fft = 2 T``: output ``(B, 1, T + 1,
+    T // hop_length + 1)``.  Optimized mode analyses with
+    ``window_length`` samples and ``n_fft = window_length``.  Both go
+    through :func:`~dmel_tpu_torch.ops.spectrogram.spectrogram`, the
+    exact route (``torch.stft``): the JAX package's DSPEC has no Pallas
+    kernel either.
+    """
+
+    def __init__(self, init_lambd: float, hop_length: int = 1,
+                 optimized: bool = False,
+                 window_length: Optional[int] = None,
+                 normalize_window: bool = False):
+        super().__init__()
+        self.lambd = nn.Parameter(torch.tensor(float(init_lambd)))
+        self.hop_length = hop_length
+        self.optimized = optimized
+        self.window_length = window_length
+        self.normalize_window = normalize_window
+
+    def set_geometry(self, window_length: Optional[int],
+                     lambd_hint: Optional[float] = None) -> None:
+        """Set the optimized-mode window length (DSPEC takes no hint)."""
+        self.window_length = window_length
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        x = x - x.mean(dim=-1, keepdim=True)
+        s = spectrogram(x, self.lambd.abs(), optimized=self.optimized,
+                        hop_length=self.hop_length,
+                        norm=self.normalize_window,
+                        window_length=self.window_length)
+        return s[:, None, :, :]

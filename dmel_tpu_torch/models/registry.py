@@ -20,7 +20,7 @@ from typing import Optional
 import torch
 
 from dmel_tpu_torch.device import resolve_device
-from dmel_tpu_torch.models.classifiers import MelPANNsNet
+from dmel_tpu_torch.models import classifiers
 
 N_CLASSES = {
     "time_frequency": 3,
@@ -49,6 +49,17 @@ def _impl(config: dict) -> str:
         raise ValueError(f"unknown impl {name!r}")
 
 
+#: the spectrogram probes and the mel classifiers, by config name
+_SPEC_MODELS = {"linear_net": classifiers.LinearNet,
+                "bn_linear_net": classifiers.BatchNormLinearNet,
+                "mlp_net": classifiers.MlpNet,
+                "conv_net": classifiers.ConvNet}
+_MEL_MODELS = {"mel_linear_net": classifiers.MelLinearNet,
+               "mel_mlp_net": classifiers.MelMlpNet,
+               "mel_conv_net": classifiers.MelConvNet,
+               "panns_cnn6": classifiers.MelPANNsNet}
+
+
 def get_model_by_config(config: dict, window_length: Optional[int] = None,
                         lambd_hint: Optional[float] = None, *, device=None,
                         seed: int = 0):
@@ -57,18 +68,36 @@ def get_model_by_config(config: dict, window_length: Optional[int] = None,
 
     ``window_length`` is the static optimized-mode bucket (None in
     faithful mode) and ``lambd_hint`` the static dispatch hint
-    (:func:`dispatch_hint_for`).  Only ``panns_cnn6`` is ported.
+    (:func:`dispatch_hint_for`); the DSPEC probes take no hint.  The
+    DSPEC probes' image size is ``(n_points + 1, n_points + 1)``, the
+    faithful-mode spectrogram at hop 1.
     """
     dev = resolve_device(device)
     name = config["model_name"]
-    if name != "panns_cnn6":
-        raise NotImplementedError(f"model {name!r} is not ported yet")
+    n_classes = n_classes_for(config["dataset_name"])
+    gen = torch.Generator().manual_seed(seed)
+    if name in _SPEC_MODELS:
+        model = _SPEC_MODELS[name](
+            n_classes=n_classes,
+            init_lambd=float(config["init_lambd"]),
+            size=(config["n_points"] + 1, config["n_points"] + 1),
+            hop_length=config["hop_length"],
+            optimized=config["optimized"],
+            window_length=window_length,
+            normalize_window=config["normalize_window"],
+            generator=gen)
+        return model.to(dev)
+    if name not in _MEL_MODELS:
+        raise ValueError(f"model name not found: {name}")
     if config.get("precision", "highest") != "highest":
         raise NotImplementedError("the port's front end runs in float32 "
                                   "only: precision='highest'")
-    gen = torch.Generator().manual_seed(seed)
-    model = MelPANNsNet(
-        n_classes=n_classes_for(config["dataset_name"]),
+    extra = {}
+    if name == "panns_cnn6":
+        extra = dict(augment=config.get("augment", False),
+                     model_dtype=config.get("model_dtype", "float32"))
+    model = _MEL_MODELS[name](
+        n_classes=n_classes,
         init_lambd=float(config["init_lambd"]),
         n_mels=config.get("n_mels", 64),
         sample_rate=config.get("resample_rate", 8000),
@@ -81,9 +110,7 @@ def get_model_by_config(config: dict, window_length: Optional[int] = None,
         impl=_impl(config),
         lambd_hint=lambd_hint,
         n_sigma=int(config.get("n_sigma", 1)),
-        augment=config.get("augment", False),
-        model_dtype=config.get("model_dtype", "float32"),
-        generator=gen)
+        generator=gen, **extra)
     return model.to(dev)
 
 

@@ -18,7 +18,8 @@ from dmel_tpu_torch.ops.spectrogram import (bucketed_window_length,
                                             spectrogram)
 from dmel_tpu_torch.ops.stft import (frame_signal, num_frames,
                                      pallas_compile_hint, stft_power)
-from dmel_tpu_torch.ops.window import gaussian_window
+from dmel_tpu_torch.ops.window import (gaussian_window,
+                                      translated_gaussian_window)
 
 __all__ = [
     "LOG_EPS", "auto_route", "bucketed_window_length", "default_band_map",
@@ -30,4 +31,5 @@ __all__ = [
     "multi_sigma_route", "next_power_of_2",
     "num_frames", "optimized_window_length", "pad_window",
     "pallas_compile_hint", "spectrogram", "stft_power",
+    "translated_gaussian_window",
 ]

@@ -1,5 +1,6 @@
-"""Differentiable Gaussian window (counterpart of
-``dmel_tpu/ops/window.py``)."""
+"""Gaussian windows (counterpart of ``dmel_tpu/ops/window.py``): the
+differentiable analysis window and the translated window of the
+synthetic data."""
 
 from __future__ import annotations
 
@@ -29,3 +30,21 @@ def gaussian_window(lambd, window_length: int, norm: bool = False,
     if norm:
         window = window / torch.sqrt(torch.sum(window * window))
     return window
+
+
+def translated_gaussian_window(sigma, tc, signal_length: int,
+                               norm: str = "amplitude",
+                               dtype=torch.float32) -> torch.Tensor:
+    """Gaussian of width ``sigma`` centred at ``tc`` over
+    ``signal_length`` samples, for data synthesis (not the transform).
+    ``norm="amplitude"`` divides by the maximum; ``"energy"`` by the sum
+    of squares (not its square root)."""
+    sigma = torch.as_tensor(sigma, dtype=dtype)
+    tc = torch.as_tensor(tc, dtype=dtype, device=sigma.device)
+    ts = torch.arange(signal_length, dtype=dtype, device=sigma.device)
+    window = torch.exp(-0.5 * torch.square((ts - tc) / (sigma + LAMBD_EPS)))
+    if norm == "energy":
+        return window / torch.sum(torch.square(window))
+    if norm == "amplitude":
+        return window / torch.max(window)
+    raise ValueError(f"unknown norm: {norm!r}")

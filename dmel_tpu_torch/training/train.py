@@ -1,15 +1,21 @@
 """Training loop with early stopping, checkpoints and metric reporting
 (counterpart of ``dmel_tpu/training/train.py``).
 
-BCE on the sigmoid output (or CE on logits), a per-epoch valid pass,
-early stopping on valid loss with patience, the divergence stop and
-the 8-metric record per epoch.  In optimized mode the window bucket and
-the dispatch hint are re-selected from the current lambda at each epoch
-boundary (``bucket_update="epoch"``) or before every step
-(``bucket_update="step"``, one read of lambda a step).  The ragged tail
+BCE on the sigmoid output (PANNs) or CE on the logits (the probes), a
+per-epoch valid pass, early stopping on valid loss with patience, the
+divergence stop and the 8-metric record per epoch.  In optimized mode
+the window bucket and the dispatch hint are re-selected from the
+current lambda at each epoch boundary (``bucket_update="epoch"``) or
+before every step (``bucket_update="step"``, one read of lambda a
+step).  The ragged tail
 batch is padded and masked.  Dropout masks come from one seeded
 ``torch.Generator`` on the device; metrics stay on the device and are
-read once per epoch.
+read once per epoch.  Batches are sliced and placed on the device
+``prefetch`` batches ahead on a background thread (the config's
+``prefetch`` key, default 2; 0 places them in the loop), through pinned
+host memory and non-blocking copies on the loop's stream
+(:func:`~dmel_tpu_torch.data.loader.device_batches`): the results do not
+depend on it.
 
 With ``checkpoint_dir``, ``fit`` writes what the JAX package's does:
 
@@ -25,7 +31,6 @@ With ``checkpoint_dir``, ``fit`` writes what the JAX package's does:
 
 Not ported yet, and refused with ``NotImplementedError``: the pretrained
 import (``pretrained_state_dict``) and data parallelism (``mesh``).
-Batches are placed on the device in the loop, with no prefetch thread.
 """
 
 from __future__ import annotations
@@ -39,7 +44,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
-from dmel_tpu_torch.data.loader import BatchLoader
+from dmel_tpu_torch.data.loader import BatchLoader, device_batches
 from dmel_tpu_torch.device import resolve_device
 from dmel_tpu_torch.models.registry import (dispatch_hint_for,
                                             get_model_by_config,
@@ -183,8 +188,9 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
     shuffles and the dropout generator.  ``checkpoint_dir`` keeps the
     best model, its sidecar and the live state (module docstring); a
     ``live_state`` there resumes the trial.  ``history["init_lambd"]``
-    is the lambda the trial started from, resumed or not.  Runs inside
-    :func:`~dmel_tpu_torch.precision.precision_scope`.
+    is the model's lambda once any live state is restored: a resumed
+    trial reports the lambda it resumed at, as the JAX package's does.
+    Runs inside :func:`~dmel_tpu_torch.precision.precision_scope`.
     """
     for what, value in (("pretrained_state_dict", pretrained_state_dict),
                         ("mesh", mesh)):
@@ -199,6 +205,7 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
     optimized = bool(config.get("optimized", False))
     per_step = optimized and config.get("bucket_update", "epoch") == "step"
     n_points = int(config["n_points"])
+    prefetch = int(config.get("prefetch", 2))
 
     def bucket_for(lambd_value):
         if not optimized:
@@ -218,15 +225,10 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
     generator = torch.Generator(device=dev).manual_seed(seed)
     kw = dict(one_hot=one_hot, n_classes=n_classes)
 
-    def placed(loader):
-        for xs, ys, mask in loader:
-            yield (torch.from_numpy(xs).to(dev), torch.from_numpy(ys).to(dev),
-                   torch.from_numpy(mask).to(dev))
-
     history = {
         "best_valid_acc": 0.0,
         "best_valid_loss": np.inf,
-        "init_lambd": current_lambd(model),
+        "init_lambd": None,         # set once any live state is restored
         "converged": False,
         "diverged": False,
         "records": [],
@@ -255,6 +257,7 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
         if verbose >= 1:
             print(f"resuming trial at epoch {start_epoch} "
                   f"(live state: {live_path})")
+    history["init_lambd"] = current_lambd(model)
 
     def save_live(epoch):
         if (live_path is None or live_every <= 0
@@ -285,18 +288,22 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
         model.spectrogram_layer.set_geometry(wl, hint)
 
         steps = []
-        for batch in placed(trainloader):
-            if per_step:
-                lam_now = current_lambd(model)
-                if not np.isfinite(lam_now):
-                    break       # the next epoch's boundary records it
-                new_wl = bucket_for(lam_now)
-                new_hint = hint_for(new_wl, lam_now)
-                if (new_wl, new_hint) != (wl, hint):
-                    wl, hint = new_wl, new_hint
-                    model.spectrogram_layer.set_geometry(wl, hint)
-            steps.append(train_step(model, optimizer, *batch,
-                                    generator=generator, **kw))
+        batches = device_batches(trainloader, dev, prefetch)
+        try:
+            for batch in batches:
+                if per_step:
+                    lam_now = current_lambd(model)
+                    if not np.isfinite(lam_now):
+                        break   # the next epoch's boundary records it
+                    new_wl = bucket_for(lam_now)
+                    new_hint = hint_for(new_wl, lam_now)
+                    if (new_wl, new_hint) != (wl, hint):
+                        wl, hint = new_wl, new_hint
+                        model.spectrogram_layer.set_geometry(wl, hint)
+                steps.append(train_step(model, optimizer, *batch,
+                                        generator=generator, **kw))
+        finally:
+            batches.close()
         agg = _fetch(steps, ("loss", "energy"))
         count = len(steps)
         train_loss = sum(agg["loss"]) / max(count, 1)
@@ -306,7 +313,7 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
             print(f"est. lambd = {current_lambd(model)}")
 
         valid = [eval_step(model, *batch, **kw)
-                 for batch in placed(validloader)]
+                 for batch in device_batches(validloader, dev, prefetch)]
         vagg = _fetch(valid, ("loss", "acc"))
         v_n = len(valid)
         valid_loss = sum(vagg["loss"]) / max(v_n, 1)
@@ -393,5 +400,6 @@ def predict(config: dict, state: dict, dataset, batch_size: int = 32,
     model = get_model_by_config(config, window_length=wl, lambd_hint=hint,
                                 device=device)
     model.load_state_dict(weights)
-    preds, _ = predict_arrays(model, dataset.xs, batch_size, device=device)
+    preds, _ = predict_arrays(model, dataset.xs, batch_size, device=device,
+                              prefetch=int(config.get("prefetch", 2)))
     return np.asarray(dataset.ys), preds

@@ -74,9 +74,7 @@ def test_esc50_synth_splits_match_jax():
 
 
 @pytest.mark.parametrize("name,error", [
-    ("esc50", NotImplementedError), ("fsd", NotImplementedError),
-    ("audio_mnist", NotImplementedError),
-    ("time_frequency", NotImplementedError), ("imagenet", ValueError)])
+    ("fsd", NotImplementedError), ("imagenet", ValueError)])
 def test_other_datasets_are_refused(name, error):
     with pytest.raises(error):
         get_dataset_by_config(dict(dataset_name=name))

@@ -2,8 +2,10 @@
 forward, K2 the taps' gradient, single- and multi-sigma), the framed
 kernels (K3 forward, K4 the window's gradient) and the fused forward
 (K5) and dw kernel (K6) against their plain PyTorch versions at edge
-shapes, train steps through them, the GPU rules of the entry points,
-and ``fit``'s precision flags and reproducibility.
+shapes and at AudioMNIST's batch of 64 one-second clips, train steps
+through them, the GPU rules of the entry points, and ``fit``'s
+precision flags, reproducibility (CNN6 and the audio_mnist space's mel
+probe) and prefetching feed.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -60,6 +62,10 @@ CASES = [
     (4, 2000, 384, 32, 40, 40.0, 24),
     (2, 3000, 896, 80, 64, 112.0, 24),
     (4, 40000, 4096, 80, 64, 400.0, 12),
+    # AudioMNIST's batch of 64 one-second clips: the audio_mnist sweep's
+    # 400 arms (4096) and its trainable 46.7 arm after it grows (2048)
+    (64, 8000, 4096, 80, 64, 400.0, 12),
+    (64, 8000, 2048, 80, 64, 172.95, 12),
 ]
 
 
@@ -331,6 +337,7 @@ FRAMED_CASES = [
     (1, 4000, 512, 80, 64, 30.0),
     (2, 4000, 1024, 80, 64, 150.0),
     (2, 3000, 896, 80, 64, 112.0),
+    (64, 8000, 512, 80, 64, 46.7),             # AudioMNIST's batch
 ]
 # (batch, T, win_length, n_fft, hop, n_mels, lambd): the fused buckets,
 # and faithful mode's short window in an n_fft that is not a lane multiple
@@ -1051,7 +1058,7 @@ def test_resume_is_bit_identical(cuda, tmp_path, model_dtype):
     """A trial killed after epoch 1's report resumes from its live state
     (the CUDA dropout generator's state among it) and ends with the
     records and weights of the uninterrupted run, bit for bit; no live
-    state is left."""
+    state is left.  Its ``init_lambd`` is the lambda it resumed at."""
     config = dict(FIT_CONFIG, init_lambd=128.0, max_epochs=3,
                   model_dtype=model_dtype)
     trainset, validset, _ = get_dataset_by_config(config)
@@ -1069,10 +1076,85 @@ def test_resume_is_bit_identical(cuda, tmp_path, model_dtype):
     assert (tmp_path / "kill" / "live_state").exists()
     state, hist = fit(config, trainset, validset, seed=1, device=cuda,
                       checkpoint_dir=str(tmp_path / "kill"))
-    assert hist == hist_ref
+    # a resumed trial reports the lambda it resumed at, epoch 0's
+    assert hist["init_lambd"] == hist_ref["records"][0]["lambd_est"]
+    assert ({k: v for k, v in hist.items() if k != "init_lambd"}
+            == {k: v for k, v in hist_ref.items() if k != "init_lambd"})
     sd, sd_ref = state["model"].state_dict(), state_ref["model"].state_dict()
     for key, value in sd.items():
         assert torch.equal(value, sd_ref[key]), key
     for name in ("ref", "kill"):
         assert not (tmp_path / name / "live_state").exists()
         assert (tmp_path / name / "best_model.meta.json").exists()
+
+
+def _audio_mnist_subset(root, speakers=(1, 2), reps=4):
+    """A small AudioMNIST tree (``reps`` clips per digit and speaker,
+    lengths 1500-7500) read by ``audio_mnist_big``: the first speaker's
+    clips to train on, the second's to validate."""
+    from dmel_tpu_torch.data import audio
+    from tests import fixtures
+    rng = np.random.default_rng(0)
+    paths = {}
+    for sid in speakers:
+        for digit in range(10):
+            for rep in range(reps):
+                path = str(root / f"{sid:02d}" / f"{digit}_{sid:02d}_{rep}.wav")
+                fixtures.write_wav(path, fixtures.speechish(
+                    rng, int(rng.integers(1500, 7500)), 8000,
+                    110.0 + 40.0 * digit + 2.0 * sid), 8000)
+                paths.setdefault(sid, []).append(path)
+    return tuple(audio.audio_mnist_big(paths[sid]) for sid in speakers)
+
+
+#: the audio_mnist space (mel_linear_net, 64 mels, hop 80, Adam, batch
+#: 64 cut to 16) for 2 epochs
+AM_CONFIG = dict(model_name="mel_linear_net", dataset_name="audio_mnist",
+                 n_points=8000, hop_length=80, optimized=True,
+                 normalize_window=False, n_mels=64, resample_rate=8000,
+                 energy_normalize=True, impl="pallas", optimizer_name="adam",
+                 lr_model=1e-4, lr_tf=1.0, trainable=True, batch_size=16,
+                 max_epochs=2, patience=100)
+
+
+@pytest.mark.parametrize("lam,counter", [
+    (46.7, lambda: framed.framed_dwindow.launches),
+    (400.0, lambda: specband.specband_drho.launches)],
+    ids=["framed", "specband"])
+def test_mel_linear_net_fit_is_reproducible(cuda, tmp_path, lam, counter):
+    """Two seeded fits of the audio_mnist space's probe on a small
+    AudioMNIST tree, through K3/K4 (lambda 46.7) and K1/K2 (400, the
+    4096 bucket), with dropout: the same records and weights, bit for
+    bit."""
+    trainset, validset = _audio_mnist_subset(tmp_path)
+    config = dict(AM_CONFIG, init_lambd=lam)
+    runs = []
+    for _ in range(2):
+        before = counter()
+        state, history = fit(config, trainset, validset, seed=2,
+                             device=cuda)
+        assert counter() > before
+        runs.append((history, state["model"].state_dict()))
+    (hist_a, sd_a), (hist_b, sd_b) = runs
+    assert hist_a == hist_b
+    assert hist_a["est_lambd"] != hist_a["init_lambd"]
+    for key, value in sd_a.items():
+        assert torch.equal(value, sd_b[key]), key
+
+
+def test_prefetch_is_bit_identical(cuda, tmp_path):
+    """``fit`` with ``prefetch`` 0 (batches placed in the loop) and 2
+    (placed on a background thread through pinned memory and
+    non-blocking copies on the loop's stream): the same records and
+    weights, bit for bit, on the specband route."""
+    trainset, validset = _audio_mnist_subset(tmp_path)
+    runs = []
+    for prefetch in (0, 2):
+        state, history = fit(dict(AM_CONFIG, init_lambd=400.0,
+                                  prefetch=prefetch),
+                             trainset, validset, seed=3, device=cuda)
+        runs.append((history, state["model"].state_dict()))
+    (hist_a, sd_a), (hist_b, sd_b) = runs
+    assert hist_a == hist_b
+    for key, value in sd_a.items():
+        assert torch.equal(value, sd_b[key]), key

@@ -126,7 +126,6 @@ def test_registry_matches_jax():
 
 
 @pytest.mark.parametrize("change,error", [
-    (dict(model_name="mel_linear_net"), NotImplementedError),
     (dict(n_sigma=3), None),
     (dict(impl="pallas_framed"), None),
     (dict(impl="pallas_fused"), None),

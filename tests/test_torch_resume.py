@@ -9,6 +9,8 @@ generator's state as well as the weights, the optimizer, the batch-norm
 statistics and the loader's shuffle stream.
 """
 
+import csv
+import functools
 import json
 import os
 
@@ -198,7 +200,8 @@ def test_kill_and_resume_is_bit_identical(uninterrupted, tmp_path):
     """A bf16 trial killed after epoch 1's report resumes from the live
     state of epoch 0 and ends with the records, weights, batch-norm
     statistics, optimizer state and best model of the uninterrupted
-    run, to the bit; the live state is gone at the end of both."""
+    run, to the bit; the live state is gone at the end of both.  Its
+    ``init_lambd`` is the lambda it resumed at, epoch 0's."""
     state_ref, hist_ref, ckpt_ref = uninterrupted
     assert not os.path.exists(ckpt_ref / "live_state")
 
@@ -219,7 +222,11 @@ def test_kill_and_resume_is_bit_identical(uninterrupted, tmp_path):
     state, hist = fit(FIT_CONFIG, trainset, validset, seed=3, device="cpu",
                       checkpoint_dir=str(tmp_path), report_fn=resumed.append)
     assert [r["epoch"] for r in resumed] == [1, 2]
-    assert hist == hist_ref
+    assert hist["init_lambd"] == hist_ref["records"][0]["lambd_est"]
+    assert hist_ref["init_lambd"] == float(torch.tensor(
+        FIT_CONFIG["init_lambd"]))
+    assert ({k: v for k, v in hist.items() if k != "init_lambd"}
+            == {k: v for k, v in hist_ref.items() if k != "init_lambd"})
     sd, sd_ref = state["model"].state_dict(), state_ref["model"].state_dict()
     assert all(torch.equal(v, sd_ref[k]) for k, v in sd.items())
     opt, opt_ref = (state["optimizer"].state_dict()["state"],
@@ -344,3 +351,120 @@ def test_predict_uses_the_state_geometry(uninterrupted, monkeypatch):
     assert built[-1] == (wl, tmodels.dispatch_hint_for(FIT_CONFIG, wl,
                                                        400.0))
     assert jax.devices()[0].platform == "cpu"
+
+
+# --- the resumed trial's init_lambd against dmel_tpu -----------------------
+
+#: the time_frequency space cut to 120 clips of 64 samples, 3 epochs of 3
+#: SGD steps, lambda trainable from 5 sigma_ref
+TF_CONFIG = dict(model_name="linear_net", dataset_name="time_frequency",
+                 hop_length=1, optimized=False, normalize_window=False,
+                 optimizer_name="sgd", lr_model=1e-3, lr_tf=1.0,
+                 batch_size=32, max_epochs=3, patience=100, n_points=64,
+                 noise_std=0.5, n_samples=120, sigma_ref=6.38,
+                 center_offset=False, data_seed=0, trainable=True,
+                 init_lambd=31.9, trial_repeat=0)
+
+
+def _killed_and_resumed(runner, tmp_path, kill_fit, **kwargs):
+    """``runner.run_trial`` (with ``kwargs``) killed after epoch 1's
+    report (``fit`` replaced by ``kill_fit``), then run again; the
+    resumed history and the sweep's results.csv rows."""
+    trial = str(tmp_path / "trial_00000")
+    real = runner.fit
+    runner.fit = kill_fit
+    try:
+        with pytest.raises(Kill):
+            runner.run_trial(TF_CONFIG, str(tmp_path), trial, **kwargs)
+    finally:
+        runner.fit = real
+    assert os.path.exists(os.path.join(trial, "checkpoint_000000",
+                                       "live_state"))
+    _, history = runner.run_trial(TF_CONFIG, str(tmp_path), trial,
+                                  **kwargs)
+    runner.collect_results(str(tmp_path))
+    with open(tmp_path / "results.csv", newline="") as f:
+        return history, list(csv.DictReader(f))
+
+
+def test_resumed_init_lambd_matches_jax(tmp_path, monkeypatch):
+    """Both packages' trial (the same initial weights, data and batches)
+    killed at epoch 1's report and resumed from epoch 0's live state:
+    ``history["init_lambd"]`` is the lambda it resumed at (epoch 0's),
+    in both, within 1e-3 relative of
+    each other, and so is the ``init_lambd`` of results.csv, whose
+    columns are the same in both."""
+    from dmel_tpu.experiments import runner as jrunner
+    from dmel_tpu.models import registry as jregistry
+    from dmel_tpu_torch import from_jax_variables
+    from dmel_tpu_torch.experiments import runner as trunner
+
+    jmodel = jregistry.get_model_by_config(TF_CONFIG)
+    variables = jax.device_get(jmodel.init(jax.random.PRNGKey(3),
+                                           jax.numpy.zeros((32, 64))))
+    real_j = jtrain.get_model_by_config
+
+    def jax_model(*args, **kwargs):
+        model = real_j(*args, **kwargs)
+        object.__setattr__(model, "init", lambda *a, **k: variables)
+        return model
+
+    real_t = ttrain.get_model_by_config
+
+    def port_model(*args, **kwargs):
+        model = real_t(*args, **kwargs)
+        model.load_state_dict(from_jax_variables(variables["params"]))
+        return model
+
+    monkeypatch.setattr(jtrain, "get_model_by_config", jax_model)
+    monkeypatch.setattr(ttrain, "get_model_by_config", port_model)
+
+    def killer(record):
+        if record["epoch"] == 1:
+            raise Kill
+
+    out = {}
+    for name, runner, kwargs in (("jax", jrunner, {}),
+                                 ("torch", trunner, {"device": "cpu"})):
+        out[name] = _killed_and_resumed(
+            runner, tmp_path / name,
+            functools.partial(runner.fit, report_fn=killer), **kwargs)
+    (jhist, jrows), (thist, trows) = out["jax"], out["torch"]
+    for hist in (jhist, thist):
+        assert [r["epoch"] for r in hist["records"]] == [0, 1, 2]
+        assert hist["init_lambd"] == hist["records"][0]["lambd_est"]
+        assert abs(hist["init_lambd"] - TF_CONFIG["init_lambd"]) > 1e-3
+    assert abs(thist["init_lambd"] / jhist["init_lambd"] - 1) <= 1e-3
+    assert list(trows[0]) == list(jrows[0])
+    for rows, hist in ((jrows, jhist), (trows, thist)):
+        assert len(rows) == 1
+        assert float(rows[0]["init_lambd"]) == pytest.approx(
+            hist["init_lambd"], rel=1e-7)
+    assert float(trows[0]["init_lambd"]) == pytest.approx(
+        float(jrows[0]["init_lambd"]), rel=1e-3)
+
+
+# --- the prefetching feed ----------------------------------------------------
+
+def test_fit_prefetch_is_bit_identical():
+    """``fit`` of a mel probe with dropout (2 epochs of 5 steps) with
+    ``prefetch`` 0 (placed in the loop), 1 and 2 (a background thread):
+    the same records and weights, to the bit."""
+    config = dict(model_name="mel_linear_net", dataset_name="esc50_synth",
+                  init_lambd=46.7, n_points=4096, hop_length=80,
+                  optimized=True, normalize_window=False, n_mels=64,
+                  resample_rate=8000, energy_normalize=True, impl="pallas",
+                  optimizer_name="adam", lr_model=1e-3, lr_tf=1.0,
+                  trainable=True, batch_size=8, max_epochs=2, patience=100,
+                  n_samples=56, data_seed=0, sigma_ref=8000 * 0.035 / 6,
+                  noise_std=0.05)
+    trainset, validset, _ = get_dataset_by_config(config)
+    runs = [fit(dict(config, prefetch=p), trainset, validset, seed=1,
+                device="cpu") for p in (0, 1, 2)]
+    (state0, hist0), rest = runs[0], runs[1:]
+    assert hist0["records"][-1]["lambd_est"] != 46.7
+    sd0 = state0["model"].state_dict()
+    for state, hist in rest:
+        assert hist == hist0
+        sd = state["model"].state_dict()
+        assert all(torch.equal(v, sd0[k]) for k, v in sd.items())
