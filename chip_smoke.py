@@ -153,9 +153,10 @@ Phases, each announced by a flushed line when it starts and ends:
    at (epoch 0's), no live state left; the seconds of each run, of the
    checkpoint writes and the overhead of the kill and resume.
 15. K1-K5 at AudioMNIST's shapes (B 64 x 8000 samples, the
-   audio_mnist space): K1/K2 at 4096 (lambda 400, J 12, log on) and 2048
-   (172.95), K3/K4 at 512 (46.7), K5 at 4096 (600, where the sweep's
-   trainable 400 arm grows), with the gates and times of phases 3-6
+   audio_mnist space): K1/K2 at 4096 (lambda 400, J 12, log on), 2048
+   (172.95) and 1024 (100), K3/K4 at 512 (46.7) and 1024 (150), K5 at
+   4096 (600, where the sweep's trainable 400 arm grows): every bucket
+   the sweep's arms can cross, with the gates and times of phases 3-6
    (run after phase 7).
 16. the paper's three spaces through the CLI, as a user runs them, each
    with ``predict_test`` and the tables (``eval.tables.main``), every
@@ -171,7 +172,9 @@ Phases, each announced by a flushed line when it starts and ends:
    fixture tree, both built in a temporary directory (their seconds),
    with each dataset load's seconds (esc50's first resamples and writes
    the cache, the rest read it; scipy's version) and the ms of a train
-   step on every route the sweep took.
+   step on every route the sweep took; then one audio_mnist trial's
+   ``fit`` and ``predict`` with the feed's ``prefetch`` at 0 and at 2
+   (the seconds of each, results bit-identical).
 17. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
    ran; its times, plain times, bounds and yardsticks at every measured
    shape, ``shapes``; launches also from the sweeps and the resume
@@ -1813,13 +1816,14 @@ def sweep_path(dev: torch.device, out: str, name: str = SWEEP_NAME,
     ``predict_test`` over the sweep (``n_test`` clips a trial), and a
     second ``cli.main`` that must skip every trial.  Also returns each
     trial's records and the first train batch, for the callers' gates
-    and step times: ``(result, trials)``."""
+    and step times, the last trial's entry also the dataset splits it
+    loaded: ``(result, trials)``."""
     from dmel_tpu_torch.eval import predict_test
     from dmel_tpu_torch.experiments import cli, runner
     data_dir = out if data_dir is None else data_dir
     argv = ["--name", name, "--num_samples", "1", "--max_epochs",
             str(epochs), "--output_dir", out, "--data_dir", data_dir]
-    trials, loads = [], []
+    trials, loads, last_splits = [], [], []
     real_fit, real_data = runner.fit, runner.get_dataset_by_config
 
     def counting_fit(config, trainset, validset, **kwargs):
@@ -1840,6 +1844,7 @@ def sweep_path(dev: torch.device, out: str, name: str = SWEEP_NAME,
         t0 = time.perf_counter()
         splits = real_data(config, data_dir)
         loads.append(time.perf_counter() - t0)
+        last_splits[:] = [splits]
         return splits
 
     runner.fit, runner.get_dataset_by_config = counting_fit, timed_data
@@ -1854,6 +1859,7 @@ def sweep_path(dev: torch.device, out: str, name: str = SWEEP_NAME,
         runner.fit, runner.get_dataset_by_config = real_fit, real_data
     sweep_dir = os.path.join(out, name)
     check(len(trials) == 6, f"{len(trials)} trials ran")
+    trials[-1]["splits"] = last_splits[0]
     check(buf.getvalue().count("skip finished") == 6,
           "the second cli.main did not skip all six trials")
 
@@ -2060,6 +2066,52 @@ def audio_mnist_path(seed: int, dev: torch.device, out: str) -> dict:
     res["step_ms"] = route_step_ms(seed, dev, trials)
     res["table"] = _tables(out)
     check("AUDIO_MNIST" in res["table"], "no Table 1")
+    res["prefetch"] = prefetch_path(seed, dev, trials[-1]["splits"])
+    return res
+
+
+def prefetch_path(seed: int, dev: torch.device, splits) -> dict:
+    """One audio_mnist trial (the trainable 46.7 arm, 2 epochs) through
+    ``fit``, then ``predict`` over its 6000 test clips, with the feed's
+    ``prefetch`` at 0 (batches sliced and placed in the loop) and at 2
+    (a background thread), run in the order 0, 2, 2, 0 on the sweep's
+    loaded ``splits``: the seconds of each run, and every run's records,
+    weights and test scores bit-identical."""
+    from dmel_tpu_torch.experiments import configs
+    config = next(c for c in configs.expand_grid(configs.audio_mnist(2))
+                  if c["trainable"] and 40.0 < c["init_lambd"] < 50.0)
+    trainset, validset, testset = splits
+    runs = []
+    for depth in (0, 2, 2, 0):
+        cfg = dict(config, prefetch=depth)
+        t0 = time.perf_counter()
+        state, hist = fit(cfg, trainset, validset, seed=seed, device=dev)
+        torch.cuda.synchronize()
+        fit_s = time.perf_counter() - t0
+        t0 = time.perf_counter()
+        _, scores = predict(state["model"], testset.xs,
+                            int(config["batch_size"]), device=dev,
+                            prefetch=depth)
+        predict_s = time.perf_counter() - t0
+        runs.append(dict(prefetch=depth, fit_s=fit_s, predict_s=predict_s,
+                         records=hist["records"], scores=scores,
+                         weights={k: v.detach().cpu().clone() for k, v in
+                                  state["model"].state_dict().items()}))
+    ref = runs[0]
+    identical = all(
+        r["records"] == ref["records"]
+        and np.array_equal(r["scores"], ref["scores"])
+        and all(torch.equal(v, ref["weights"][k])
+                for k, v in r["weights"].items()) for r in runs[1:])
+    res = dict(init_lambd=config["init_lambd"],
+               routes=[_route_of(config, lam)[0] for lam in
+                       [config["init_lambd"]]
+                       + [r["lambd_est"] for r in ref["records"][:-1]]],
+               n_train=len(trainset), n_test=len(testset),
+               runs=[{k: r[k] for k in ("prefetch", "fit_s", "predict_s")}
+                     for r in runs], bit_identical=identical)
+    say("prefetch 0 vs 2 " + json.dumps(res))
+    check(identical, "prefetch 0 and 2 give different results")
     return res
 
 
@@ -2307,11 +2359,18 @@ def main():
                               dev)]
 
     with phase("K1-K5 at AudioMNIST shapes"):
+        # every bucket the sweep's arms cross at T 8000: specband at 1024
+        # (lambda 85.5-128), 2048 and 4096; framed at 512 and 1024 (lambda
+        # 128-170.8); fused at 4096
         cases += [k1_case(seed, AM_BATCH, 4096, 400.0, dev, t=AM_T),
-                  k1_case(seed, AM_BATCH, 2048, 172.95, dev, t=AM_T)]
+                  k1_case(seed, AM_BATCH, 2048, 172.95, dev, t=AM_T),
+                  k1_case(seed, AM_BATCH, 1024, 100.0, dev, t=AM_T)]
         cases2 += [k2_case(seed, AM_BATCH, 4096, 400.0, True, dev, t=AM_T),
-                   k2_case(seed, AM_BATCH, 2048, 172.95, True, dev, t=AM_T)]
+                   k2_case(seed, AM_BATCH, 2048, 172.95, True, dev, t=AM_T),
+                   k2_case(seed, AM_BATCH, 1024, 100.0, True, dev, t=AM_T)]
         cases34 += [frontend_case(seed, "framed", AM_BATCH, 46.7, dev, 512,
+                                  t=AM_T),
+                    frontend_case(seed, "framed", AM_BATCH, 150.0, dev, 1024,
                                   t=AM_T)]
         # the audio_mnist sweep's trainable 400 arm grows into fused
         cases5 += [frontend_case(seed, "fused", AM_BATCH, 600.0, dev, 4096,

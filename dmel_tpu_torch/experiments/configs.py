@@ -14,8 +14,8 @@ Keys the port reads differently:
   in the config and ignores it (its dropout masks come from one
   ``torch.Generator``);
 - ``prefetch`` (no space sets it; default 2) is the depth of the
-  background host-to-device feed of ``fit`` and ``predict_test``, as in
-  the JAX package.
+  background host-to-device feed of ``fit`` and ``predict_test``; the
+  port reads it because the JAX package does (0 feeds from the loop).
 """
 
 from __future__ import annotations

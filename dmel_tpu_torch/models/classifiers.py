@@ -238,22 +238,41 @@ class MlpNet(_SpecFrontEnd):
         return self.fc2(F.relu(self.fc1(s.reshape(s.shape[0], -1)))), s
 
 
+class _BiasedBatchNorm1d(nn.BatchNorm1d):
+    """``nn.BatchNorm1d`` whose running variance, in training, takes the
+    biased batch variance, as flax's ``BatchNorm`` does (torch's takes
+    the unbiased one).  The output is torch's, which normalises by the
+    biased variance in both."""
+
+    def forward(self, x: torch.Tensor) -> torch.Tensor:
+        if not self.training:
+            return super().forward(x)
+        dims = [0] + list(range(2, x.dim()))
+        with torch.no_grad():
+            mean = x.mean(dims)
+            var = x.var(dims, unbiased=False)
+            self.running_mean.lerp_(mean, self.momentum)
+            self.running_var.lerp_(var, self.momentum)
+            self.num_batches_tracked.add_(1)
+        return F.batch_norm(x, None, None, self.weight, self.bias, True,
+                            0.0, self.eps)
+
+
 class BatchNormLinearNet(_SpecFrontEnd):
     """DSPEC + batch norm over frequency bins + linear probe.
 
     The batch norm keeps one mean and variance a frequency bin, over
-    the batch and the frames (momentum 0.1, eps 1e-5: flax's
-    ``BatchNorm(axis=2, momentum=0.9)`` on ``(B, 1, F, T)``).  One
-    difference remains in training: torch updates the running variance
-    with the unbiased batch variance, flax with the biased one (a factor
-    ``n / (n - 1)``, ``n = B T``).  The features returned, and the
-    energy computed from them, are the normalised ones."""
+    the batch and the frames (momentum 0.1, eps 1e-5, the running
+    variance from the biased batch variance: flax's
+    ``BatchNorm(axis=2, momentum=0.9)`` on ``(B, 1, F, T)``).  The
+    features returned, and the energy computed from them, are the
+    normalised ones."""
 
     def __init__(self, n_classes: int, init_lambd: float,
                  generator: Optional[torch.Generator] = None, **kwargs):
         super().__init__(init_lambd, **kwargs)
         f, t = self.size
-        self.bn = nn.BatchNorm1d(f, momentum=0.1, eps=1e-5)
+        self.bn = _BiasedBatchNorm1d(f, momentum=0.1, eps=1e-5)
         self.fc = nn.Linear(f * t, n_classes)
         _torch_default_init(self, generator)
 

@@ -12,10 +12,11 @@ batch is padded and masked.  Dropout masks come from one seeded
 ``torch.Generator`` on the device; metrics stay on the device and are
 read once per epoch.  Batches are sliced and placed on the device
 ``prefetch`` batches ahead on a background thread (the config's
-``prefetch`` key, default 2; 0 places them in the loop), through pinned
+``prefetch`` key, default 2, which the port reads because the JAX
+package's ``fit`` reads it; 0 places them in the loop), through pinned
 host memory and non-blocking copies on the loop's stream
 (:func:`~dmel_tpu_torch.data.loader.device_batches`): the results do not
-depend on it.
+depend on it, and ``chip_smoke.py`` times one trial at 0 and at 2.
 
 With ``checkpoint_dir``, ``fit`` writes what the JAX package's does:
 
@@ -312,8 +313,11 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
             print(f"epoch {epoch}, train loss = {train_loss}")
             print(f"est. lambd = {current_lambd(model)}")
 
-        valid = [eval_step(model, *batch, **kw)
-                 for batch in device_batches(validloader, dev, prefetch)]
+        batches = device_batches(validloader, dev, prefetch)
+        try:
+            valid = [eval_step(model, *batch, **kw) for batch in batches]
+        finally:
+            batches.close()
         vagg = _fetch(valid, ("loss", "acc"))
         v_n = len(valid)
         valid_loss = sum(vagg["loss"]) / max(v_n, 1)

@@ -63,9 +63,11 @@ CASES = [
     (2, 3000, 896, 80, 64, 112.0, 24),
     (4, 40000, 4096, 80, 64, 400.0, 12),
     # AudioMNIST's batch of 64 one-second clips: the audio_mnist sweep's
-    # 400 arms (4096) and its trainable 46.7 arm after it grows (2048)
+    # 400 arms (4096) and its trainable 46.7 arm after it grows (1024,
+    # then 2048)
     (64, 8000, 4096, 80, 64, 400.0, 12),
     (64, 8000, 2048, 80, 64, 172.95, 12),
+    (64, 8000, 1024, 80, 64, 100.0, 12),
 ]
 
 
@@ -338,6 +340,7 @@ FRAMED_CASES = [
     (2, 4000, 1024, 80, 64, 150.0),
     (2, 3000, 896, 80, 64, 112.0),
     (64, 8000, 512, 80, 64, 46.7),             # AudioMNIST's batch
+    (64, 8000, 1024, 80, 64, 150.0),
 ]
 # (batch, T, win_length, n_fft, hop, n_mels, lambd): the fused buckets,
 # and faithful mode's short window in an n_fft that is not a lane multiple

@@ -173,7 +173,7 @@ def _probe_run(name):
         out_j, s_j = jmodel.apply(variables, jnp.asarray(xs), train=False)
         capture = _grad_capture()
         step = jtrain.make_train_step(jmodel, capture, False, n_classes)
-        _, jgrads, _, _, metrics = step(
+        _, jgrads, jstats, _, metrics = step(
             params, capture.init(params), stats or None,
             jax.random.PRNGKey(1), jnp.asarray(xs), jnp.asarray(ys),
             jnp.asarray(mask))
@@ -193,6 +193,11 @@ def _probe_run(name):
         grads=({k: p.grad.numpy() for k, p in model.named_parameters()},
                {k: v.numpy() for k, v in from_jax_variables(
                    jax.device_get(jgrads)).items()}),
+        stats=({k: v.numpy() for k, v in model.state_dict().items()
+                if "running" in k},
+               {k: v.numpy() for k, v in from_jax_variables(
+                   {}, jax.device_get(jstats or {})).items()
+                if "running" in k}),
         n_classes=n_classes, config=config)
     _RUNS[name] = run
     return run
@@ -230,6 +235,19 @@ def test_probe_train_step_matches_jax(name):
             assert abs(float(g) / float(want[key]) - 1) <= GRAD_GATE
         else:
             assert _rel(g, want[key]) <= GRAD_GATE, key
+
+
+def test_bn_linear_net_running_stats_match_jax():
+    """bn_linear_net's batch-norm statistics after one train step: the
+    running means within 1e-5 and the running variances within 1e-5 of
+    their largest entry of ``dmel_tpu``'s, which update the variance
+    from the biased batch variance."""
+    got, want = _probe_run("bn_linear_net")["stats"]
+    assert sorted(got) == sorted(want) == ["bn.running_mean",
+                                           "bn.running_var"]
+    assert float(np.abs(got["bn.running_mean"]
+                        - want["bn.running_mean"]).max()) <= 1e-5
+    assert _of_max(got["bn.running_var"], want["bn.running_var"]) <= 1e-5
 
 
 def test_conv_probe_conversion_permutes_fc1():
