@@ -175,10 +175,45 @@ Phases, each announced by a flushed line when it starts and ends:
    step on every route the sweep took; then one audio_mnist trial's
    ``fit`` and ``predict`` with the feed's ``prefetch`` at 0 and at 2
    (the seconds of each, results bit-identical).
-17. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
+17. the fsd space through the CLI on an FSD50K fixture tree in its
+   official layout (200 classes, 2000 train / 400 val dev clips by the
+   split column, 400 eval clips, 0.5-2 s at 44.1 kHz, built in a
+   temporary directory): 6 trials of bf16 CNN6 with SpecAugment and
+   multi-label BCE, 2 epochs, every trial's launches counted by epoch
+   against its route; the tree's seconds, each load's (the first
+   resamples and writes the cache); ``predict_test`` with ``test_mAP``
+   in [0, 1]; a train step's ms with and without SpecAugment, in turns,
+   on every route the sweep took.
+18. the pretrained import: one fsd trial (lambda 400, trainable) with
+   ``pretrained=True`` and ``checkpoint_path`` at the PANNs Cnn6
+   stand-in of ``tests/fixtures.py``: once ``fit`` has imported it,
+   before the first step, the 22 mapped tensors lie on the card equal to
+   the checkpoint's bit for bit, and the counts (22 imported, 9
+   skipped) are dmel_tpu's; then the trial runs.
+19. SpecAugment on the card (float32, lambda 128, specband): two seeded
+   augmented train steps bit-identical; dlambda through K1/K2 against
+   the plain specband function for one dL/ds (1e-3); dlambda and
+   fc_esc50.weight's gradient through the whole chain, kernels against
+   plain, from the same generator state (masks and dropout alike;
+   dlambda 1e-2, bench.py's gate: CNN6's backward amplifies the routes'
+   ~1e-6 feature difference and the masks carry more of it into
+   dlambda; weights 1e-4); on a ones batch of 256 x 501 x 64 the masks
+   equal ``mask_span`` on the CPU from the same uniforms, each one
+   contiguous span of at most 64 frames and 8 mels.
+20. Cnn14 with an AttBlock on its frames at full width (B 32 x 501
+   frames x 64 mels, 527 classes): eval forward and one Adam train step,
+   first and steady ms, in float32 and bf16; the float32 eval scores on
+   4 clips within 1e-4 of the CPU's on the same weights, bf16 within
+   2e-2 of float32.
+21. CNN6's batch norm: after one float32 and one bf16 train step every
+   running variance equals 0.9 old + 0.1 the biased float32 variance of
+   its input (a plain reduction on the card) within 1e-5 of the
+   largest.
+22. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
    ran; its times, plain times, bounds and yardsticks at every measured
-   shape, ``shapes``; launches also from the sweeps and the resume
-   run), then the final ``{"ok": true, "device": {...}}`` line.
+   shape, ``shapes``; launches also from the sweeps, the pretrained
+   trial and the resume run), then the final ``{"ok": true, "device":
+   {...}}`` line.
 
 Any failed check raises, so the script exits non-zero before the final
 line.  A watchdog ends a run that hangs with a traceback.  Without a
@@ -1418,12 +1453,13 @@ def train_step_ms(seed: int, dev: torch.device, config: dict, trainset, wl,
 
 
 def train_grad_check(seed: int, dev: torch.device, config: dict, trainset,
-                     wl, hint, j: int, route: str) -> dict:
+                     wl, hint, j: int, route: str,
+                     dlambd_gate: float = TRAIN_GRAD_GATE) -> dict:
     """Gradients of lambda and fc_esc50.weight on one batch: the model
     through the kernels against the same model, batch and dropout masks
     through the plain specband function (single- or multi-sigma), the
     same log and CNN6 head.  dlambda's error is relative in norm (a
-    vector with several sigma groups)."""
+    vector with several sigma groups), gated at ``dlambd_gate``."""
     model = get_model_by_config(config, window_length=wl,
                                 lambd_hint=hint, device=dev,
                                 seed=seed).train()
@@ -1453,7 +1489,7 @@ def train_grad_check(seed: int, dev: torch.device, config: dict, trainset,
                dlambd_plain=grads_p[0].tolist(),
                dlambd_rel_err=dlam_rel, fc_weight_grad_err_of_max=w_err)
     say("train grad " + json.dumps(res))
-    check(dlam_rel <= TRAIN_GRAD_GATE, f"train dlambda {dlam_rel:.3e}")
+    check(dlam_rel <= dlambd_gate, f"train dlambda {dlam_rel:.3e}")
     check(w_err <= WEIGHT_GRAD_GATE, f"fc_esc50 weight grad {w_err:.3e}")
     return res
 
@@ -1813,7 +1849,8 @@ def sweep_path(dev: torch.device, out: str, name: str = SWEEP_NAME,
     (default ``out``): every trial's launches counted by epoch against
     its route, its best model and sidecar checked against its records;
     the seconds of each trial and of each dataset load; then
-    ``predict_test`` over the sweep (``n_test`` clips a trial), and a
+    ``predict_test`` over the sweep (``n_test`` clips a trial: an argmax
+    each, or scores for a multi-label dataset, with ``test_mAP``), and a
     second ``cli.main`` that must skip every trial.  Also returns each
     trial's records and the first train batch, for the callers' gates
     and step times, the last trial's entry also the dataset splits it
@@ -1908,8 +1945,10 @@ def sweep_path(dev: torch.device, out: str, name: str = SWEEP_NAME,
     preds = np.load(os.path.join(sweep_dir, f"{rows[0]['config/dataset_name']}"
                                  "_predictionss.npy"))
     accs = [r["test_accuracy"] for r in scored]
-    for r, acc in zip(results, accs):
-        r["test_accuracy"] = acc
+    for r, row in zip(results, scored):
+        r["test_accuracy"] = row["test_accuracy"]
+        if "test_mAP" in row:                # a multi-label dataset
+            r["test_mAP"] = row["test_mAP"]
     total = dict.fromkeys(COUNTERS, 0)
     for t in trials:
         for k, v in t["launches"].items():
@@ -1921,7 +1960,8 @@ def sweep_path(dev: torch.device, out: str, name: str = SWEEP_NAME,
                launches_by_arm=by_arm, launches=total)
     say(f"sweep {name} " + json.dumps(res))
     check(all(0.0 <= a <= 1.0 for a in accs), f"test accuracies {accs}")
-    check(preds.shape == (6, n_test), f"predictions of shape {preds.shape}")
+    check(preds.shape[:2] == (6, n_test),
+          f"predictions of shape {preds.shape}")
     return res, trials
 
 
@@ -1957,17 +1997,23 @@ def step_ms(seed: int, dev: torch.device, config: dict, batch,
                 first_ms_per_step=first, steady_ms_per_step=steady)
 
 
-def route_step_ms(seed: int, dev: torch.device, trials: list) -> dict:
-    """:func:`step_ms` on each (route, window) an epoch of the sweep's
-    ``trials`` started on, at the first such epoch's starting lambda and
-    the first trial's first train batch."""
+def route_starts(trials: list) -> dict:
+    """Each (route, window) an epoch of the sweep's ``trials`` started
+    on, named ``"<route>-<window>"``: the config and starting lambda of
+    the first such epoch."""
     out = {}
     for t in trials:
         for e in t["epochs"]:
-            key = f"{e['route']}-{e['window_length']}"
-            if key not in out:
-                out[key] = step_ms(seed, dev, t["config"],
-                                   trials[0]["batch"], e["lambd_start"])
+            out.setdefault(f"{e['route']}-{e['window_length']}",
+                           (t["config"], e["lambd_start"]))
+    return out
+
+
+def route_step_ms(seed: int, dev: torch.device, trials: list) -> dict:
+    """:func:`step_ms` on each of :func:`route_starts`, on the first
+    trial's first train batch."""
+    out = {key: step_ms(seed, dev, config, trials[0]["batch"], lam)
+           for key, (config, lam) in route_starts(trials).items()}
     say(f"step ms {trials[0]['config']['dataset_name']} "
         + json.dumps(out))
     return out
@@ -2263,6 +2309,361 @@ def resume_path(seed: int, dev: torch.device, out: str) -> dict:
     return res
 
 
+#: FSD50K as it ships: 200 classes, the dev clips split 5:1 into train
+#: and val by the ground truth's split column, the eval clips the test set
+FSD_DEV, FSD_EVAL, FSD_SR = 2400, 400, 44100
+#: dmel_tpu's import of the PANNs Cnn6 stand-in (tests/fixtures.py):
+#: (imported, skipped), as tests/test_torch_pretrained.py holds the port
+PANNS_IMPORT_COUNTS = (22, 9)
+#: one augmented train step's dlambda, kernels against the plain chain,
+#: each through its own CNN6 backward: bench.py's dlambda gate.  The
+#: routes' features differ by ~1e-6, CNN6's backward turns that into a
+#: larger difference in dL/ds, and with the masks more of it reaches
+#: dlambda, a small sum with heavy cancellation: on the H100 the chain
+#: differed by 5.0e-3 where the kernels on one dL/ds agreed to 4.1e-7
+#: (the "augment" line).  The kernels alone are held at TRAIN_GRAD_GATE
+#: on one dL/ds.
+AUGMENT_CHAIN_GATE = GRAD_GATE
+#: Cnn14's bf16 eval scores against float32, max-abs
+CNN14_BF16_GATE = 2e-2
+#: the frames of a 5 s clip at hop 80 (the esc50/fsd geometry)
+FRAMES = T // HOP + 1
+#: a running variance against 0.9 old + 0.1 the biased batch variance
+BN_VAR_GATE = 1e-5
+
+
+def augment_step_ms(seed: int, dev: torch.device, trials: list) -> dict:
+    """:func:`step_ms` with SpecAugment (the trials' config) and without
+    it, in turns (off, on, on, off), on each of :func:`route_starts`, on
+    the first trial's first train batch: the mean of each side's two
+    runs, and each run's steady ms."""
+    out = {}
+    names = ((True, "augmented"), (False, "plain"))
+    for key, (config, lam) in route_starts(trials).items():
+        runs = {False: [], True: []}
+        for aug in (False, True, True, False):
+            runs[aug].append(step_ms(seed, dev, dict(config, augment=aug),
+                                     trials[0]["batch"], lam))
+        out[key] = {f"{name}_{k}": float(np.mean([r[k] for r in runs[aug]]))
+                    for aug, name in names
+                    for k in ("first_ms_per_step", "steady_ms_per_step")}
+        out[key]["steady_ms_each"] = {
+            name: [r["steady_ms_per_step"] for r in runs[aug]]
+            for aug, name in names}
+    say("augmented step ms " + json.dumps(out))
+    return out
+
+
+def fsd_path(seed: int, dev: torch.device, out: str) -> dict:
+    """The published fsd space on an FSD50K fixture tree in its official
+    layout (200 classes; 2400 dev clips, 2000 train and 400 val by the
+    split column; 400 eval clips; 0.5-2 s at 44.1 kHz; built in
+    ``out``): 6 trials of bf16 CNN6 with SpecAugment, multi-label BCE,
+    batch 32, 2 epochs, through the CLI; the first trial resamples to 8
+    kHz and writes the cache, the others read it (``data_load_s``); then
+    ``predict_test`` (``test_mAP`` in [0, 1] on every trial), and the
+    ms of a train step with and without SpecAugment on each route the
+    sweep took."""
+    import scipy
+    from tests import fixtures
+    data = os.path.join(out, "fsd_data")
+    t0 = time.perf_counter()
+    fixtures.make_fsd50k_tree(data, n_classes=200, n_dev=FSD_DEV,
+                              n_eval=FSD_EVAL, sr=FSD_SR)
+    build_s = time.perf_counter() - t0
+    say(f"FSD50K fixture tree: {FSD_DEV} dev and {FSD_EVAL} eval clips in "
+        f"{build_s:.1f} s; scipy {scipy.__version__}")
+    res, trials = sweep_path(dev, out, "fsd", 2, data, n_test=FSD_EVAL)
+    res.update(tree_build_s=build_s, resample_s=res["data_load_s"][0],
+               cache_hit_s=res["data_load_s"][1:])
+    maps = [r.get("test_mAP") for r in res["trials"]]
+    check(all(isinstance(m, float) and 0.0 <= m <= 1.0 for m in maps),
+          f"test_mAP {maps}")
+    check([(t["n_train"], t["n_valid"]) for t in trials]
+          == [(FSD_DEV - FSD_EVAL, FSD_EVAL)] * 6,
+          "the dev split is not 2000 train / 400 val")
+    check(all(t["config"]["augment"] for t in trials), "augment is off")
+    res["step_ms"] = augment_step_ms(seed, dev, trials)
+    return res
+
+
+def augment_path(seed: int, dev: torch.device) -> dict:
+    """SpecAugment on the card, in float32 at lambda 128 (specband) on
+    esc50_synth: two train steps of fresh models from one seed, with
+    SpecAugment, bit-identical in loss and every weight after the step;
+    dlambda through the kernels (K1, K2) against the plain specband
+    function for one dL/ds (CNN6's, with the masks and dropout, from the
+    kernels' features), within ``TRAIN_GRAD_GATE``; the whole chain's
+    gradients of lambda and fc_esc50.weight, kernels against plain from
+    the same generator state (``train_grad_check``, dlambda within
+    ``AUGMENT_CHAIN_GATE``); and on a ones batch of 256 x 501 frames x
+    64 mels the masks drawn on the card equal ``mask_span`` on the CPU
+    from the same uniforms, each clip's zeroed frames and mels one
+    contiguous span of at most 64 and 8."""
+    from dmel_tpu_torch.models import panns
+    config = dict(TRAIN_CONFIG, augment=True)
+    trainset, _, _ = get_dataset_by_config(config)
+    route, wl, hint, j = _route_of(config, 128.0)
+    xs, ys, mask = _batch(trainset, dev)
+
+    def one_step():
+        model = get_model_by_config(config, window_length=wl,
+                                    lambd_hint=hint, device=dev, seed=seed)
+        opt = build_optimizer(config, model)
+        gen = torch.Generator(device=dev).manual_seed(seed)
+        with precision_scope():
+            m = train_step(model, opt, xs, ys, mask, one_hot=True,
+                           n_classes=10, generator=gen)
+        return m["loss"], model.state_dict()
+
+    (loss_a, sd_a), (loss_b, sd_b) = one_step(), one_step()
+    res = dict(route=route, window_length=wl,
+               step_bit_identical=bool(torch.equal(loss_a, loss_b)) and all(
+                   torch.equal(v, sd_b[k]) for k, v in sd_a.items()))
+
+    model = get_model_by_config(config, window_length=wl, lambd_hint=hint,
+                                device=dev, seed=seed).train()
+    lam = model.spectrogram_layer.lambd
+    with precision_scope():
+        s_k = model.features(xs)
+        s_p = _plain_features(model, xs, wl, j, route)
+        s = s_k.detach().requires_grad_()
+        out = model.spectrogram_model(
+            s.transpose(2, 3), torch.Generator(device=dev).manual_seed(seed))
+        g, = torch.autograd.grad(
+            bce_loss(out, F.one_hot(ys.long(), 10).to(out.dtype), mask), [s])
+        d_k, = torch.autograd.grad(s_k, [lam], g)
+        d_p, = torch.autograd.grad(s_p, [lam], g)
+    res.update(dlambd_one_grad_kernel=d_k.item(),
+               dlambd_one_grad_plain=d_p.item(),
+               dlambd_one_grad_rel_err=abs((d_k - d_p).item()
+                                           / d_p.item()))
+    check(res["dlambd_one_grad_rel_err"] <= TRAIN_GRAD_GATE,
+          f"augmented dlambda, one dL/ds: "
+          f"{res['dlambd_one_grad_rel_err']:.3e}")
+    res.update(train_grad_check(seed, dev, config, trainset, wl, hint, j,
+                                route, dlambd_gate=AUGMENT_CHAIN_GATE))
+
+    gen = torch.Generator(device=dev).manual_seed(seed)
+    ones = torch.ones(256, 1, FRAMES, N_MELS, device=dev)
+    state = gen.get_state()
+    masked = {"time": panns.time_mask(ones, 64, gen),
+              "freq": panns.freq_mask(ones, 8, gen)}
+    gen.set_state(state)
+    u = [torch.rand((2, 256), generator=gen, device=dev).cpu()
+         for _ in range(2)]
+    spans = {}
+    for (name, m), dim, param, uu in zip(masked.items(), (2, 3), (64, 8), u):
+        cpu = panns.mask_span(ones.cpu(), dim, param, uu[0], uu[1])
+        check(torch.equal(m.cpu(), cpu), f"{name} mask differs from the CPU")
+        zero = (m[:, 0] == 0)
+        along = zero.all(dim=2) if dim == 2 else zero.all(dim=1)  # (B, L)
+        count = along.sum(dim=1)
+        idx = torch.arange(along.shape[1], device=dev)
+        first = torch.where(along, idx, along.shape[1]).min(dim=1).values
+        last = torch.where(along, idx, -1).max(dim=1).values
+        contiguous = bool(((count == 0) | (last - first + 1 == count)).all())
+        whole = bool((zero.sum(dim=(1, 2))
+                      == count * (zero.shape[1] * zero.shape[2]
+                                  // along.shape[1])).all())
+        spans[name] = dict(max_width=int(count.max()),
+                           mean_width=float(count.float().mean()),
+                           contiguous=contiguous, whole_rows=whole)
+        check(int(count.max()) <= param and contiguous and whole,
+              f"{name} mask spans {spans[name]}")
+    res["mask_spans"] = spans
+    say("augment " + json.dumps(res))
+    check(res["step_bit_identical"], "two seeded augmented steps differ")
+    return res
+
+
+def pretrained_path(seed: int, dev: torch.device, out: str,
+                    data_dir: str) -> dict:
+    """One fsd trial (lambda 400, trainable, 2 epochs) with
+    ``pretrained=True`` and ``checkpoint_path`` at the PANNs Cnn6
+    stand-in (``tests/fixtures.py:make_fake_cnn6_checkpoint``), through
+    ``run_trial``: when ``fit`` has imported it, before the first step,
+    every tensor the import maps must lie on the card equal to the
+    checkpoint's, bit for bit, and the counts be dmel_tpu's; then the
+    trial runs, its launches counted."""
+    from dmel_tpu_torch.experiments import configs, runner
+    from dmel_tpu_torch.training import train as train_mod
+    from tests import fixtures
+    path = fixtures.make_fake_cnn6_checkpoint(
+        os.path.join(out, "weights", "Cnn6_mAP=0.343.pth"))
+    config = next(c for c in configs.expand_grid(configs.fsd(2))
+                  if c["trainable"] and c["init_lambd"] > 300.0)
+    config.update(pretrained=True, checkpoint_path=path)
+    seen = {}
+    real = train_mod.import_panns_cnn6
+
+    def checked_import(sd, model, verbose=False):
+        counts = real(sd, model, verbose)
+        state = model.state_dict()
+        equal, devices = [], set()
+        for key, t in sd.items():
+            target = state.get(f"spectrogram_model.{key}")
+            if (target is not None and target.shape == t.shape
+                    and not key.endswith("num_batches_tracked")):
+                equal.append(torch.equal(target.cpu(), t))
+                devices.add(target.device.type)
+        seen.update(counts=list(counts), mapped=len(equal),
+                    bit_equal=all(equal), devices=sorted(devices))
+        return counts
+
+    train_mod.import_panns_cnn6 = checked_import
+    try:
+        t0 = time.perf_counter()
+        (_, history), launches = counted(lambda: runner.run_trial(
+            config, data_dir, os.path.join(out, "pretrained_trial"),
+            seed=seed, device=dev))
+        torch.cuda.synchronize()
+        trial_s = time.perf_counter() - t0
+    finally:
+        train_mod.import_panns_cnn6 = real
+    records = history["records"]
+    res = dict(init_lambd=config["init_lambd"], **seen, trial_s=trial_s,
+               lambd=[r["lambd_est"] for r in records],
+               loss=[r["loss"] for r in records], launches=launches)
+    say("pretrained " + json.dumps(res))
+    check(seen.get("counts") == list(PANNS_IMPORT_COUNTS),
+          f"import counts {seen.get('counts')}")
+    check(seen["bit_equal"] and seen["devices"] == [dev.type]
+          and seen["mapped"] == PANNS_IMPORT_COUNTS[0],
+          f"imported tensors {seen}")
+    check(len(records) == 2 and all(math.isfinite(r["loss"])
+                                    for r in records), "the trial failed")
+    return res
+
+
+def cnn14_path(seed: int, dev: torch.device) -> dict:
+    """PANNs Cnn14 with an AttBlock (527 classes, sigmoid) on its frames
+    at full width, B 32 x 501 frames x 64 mels (the esc50/fsd geometry),
+    from a seeded init: the eval forward and one Adam train step (BCE on
+    both heads' scores against random multi-hot labels), first and
+    steady ms, in float32 and with the conv stack in bf16; gates: the
+    float32 eval scores of both heads on 4 clips within 1e-4 of the
+    CPU's on the same weights, the bf16 eval scores within
+    ``CNN14_BF16_GATE`` of float32's."""
+    from dmel_tpu_torch.models import AttBlock, Cnn14
+    gen = torch.Generator().manual_seed(seed)
+    x = torch.randn(BATCH, 1, FRAMES, N_MELS, generator=gen).to(dev)
+    labels = (torch.rand(BATCH, 527, generator=gen) < 0.01).float().to(dev)
+    nets = {}
+    for name, dtype in (("float32", None), ("bfloat16", torch.bfloat16)):
+        cnn = Cnn14(527, N_MELS, generator=torch.Generator().manual_seed(
+            seed), dtype=dtype)
+        att = AttBlock(2048, 527, activation="sigmoid",
+                       generator=torch.Generator().manual_seed(seed + 1))
+        nets[name] = (cnn.to(dev), att.to(dev))
+
+    def forward(cnn, att, xb, gen=None):
+        frames = cnn.frames(xb, gen)
+        return cnn(xb, gen), att(frames)[0]
+
+    res = {}
+    with precision_scope():
+        for name, (cnn, att) in nets.items():
+            cnn.eval(), att.eval()
+            with torch.no_grad():
+                fwd = timing(lambda: forward(cnn, att, x), iters=3,
+                             warmup=1, reps=3)
+                scores = forward(cnn, att, x[:4])
+            opt = torch.optim.Adam(list(cnn.parameters())
+                                   + list(att.parameters()), lr=1e-4)
+            gstep = torch.Generator(device=dev).manual_seed(seed)
+
+            def step():
+                cnn.train(), att.train()
+                opt.zero_grad(set_to_none=True)
+                clip, attn = forward(cnn, att, x, gstep)
+                loss = (F.binary_cross_entropy(clip, labels)
+                        + F.binary_cross_entropy(attn, labels))
+                loss.backward()
+                opt.step()
+                return loss
+
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            loss = step()
+            torch.cuda.synchronize()
+            first = (time.perf_counter() - t0) * 1e3
+            t0 = time.perf_counter()
+            for _ in range(5):
+                loss = step()
+            torch.cuda.synchronize()
+            steady = (time.perf_counter() - t0) * 1e3 / 5
+            res[name] = dict(forward_ms=fwd["ms"],
+                             forward_ms_range=fwd["range"],
+                             forward_ms_enqueue=fwd["enqueue_ms"],
+                             train_first_ms=first, train_steady_ms=steady,
+                             loss=float(loss.detach()),
+                             scores=[s.float().cpu() for s in scores])
+            check(math.isfinite(res[name]["loss"]), f"Cnn14 {name} loss")
+    # the CPU reference: the float32 nets' weights before training, as
+    # the eval scores were taken
+    cpu_cnn = Cnn14(527, N_MELS, generator=torch.Generator().manual_seed(
+        seed)).eval()
+    cpu_att = AttBlock(2048, 527, activation="sigmoid",
+                       generator=torch.Generator().manual_seed(seed + 1))
+    with torch.no_grad():
+        want = forward(cpu_cnn, cpu_att.eval(), x[:4].cpu())
+    f32, b16 = res["float32"].pop("scores"), res["bfloat16"].pop("scores")
+    res["cpu_err"] = max(float((g - w).abs().max()) for g, w in zip(f32,
+                                                                    want))
+    res["bf16_err"] = max(float((g - w).abs().max()) for g, w in zip(b16,
+                                                                     f32))
+    res["params"] = sum(p.numel() for p in nets["float32"][0].parameters())
+    say("Cnn14 " + json.dumps(res))
+    check(res["cpu_err"] <= GATE, f"Cnn14 card vs CPU {res['cpu_err']:.3e}")
+    check(res["bf16_err"] <= CNN14_BF16_GATE,
+          f"Cnn14 bf16 vs float32 {res['bf16_err']:.3e}")
+    return res
+
+
+def bn_variance_path(seed: int, dev: torch.device) -> dict:
+    """CNN6's repaired batch norm on the card: after one train step at
+    lambda 128 (specband) in float32 and in bf16, every running variance
+    (the mel batch norm and each block's) must equal 0.9 old + 0.1 the
+    biased float32 variance of the batch norm's input, taken by a plain
+    reduction on the card, within ``BN_VAR_GATE`` of the largest."""
+    from dmel_tpu_torch.models.panns import (BiasedBatchNorm1d,
+                                             BiasedBatchNorm2d)
+    trainset, _, _ = get_dataset_by_config(TRAIN_CONFIG)
+    _, wl, hint, _ = _route_of(TRAIN_CONFIG, 128.0)
+    xs, ys, mask = _batch(trainset, dev)
+    res = {}
+    for dtype in ("float32", "bfloat16"):
+        config = dict(TRAIN_CONFIG, model_dtype=dtype)
+        model = get_model_by_config(config, window_length=wl,
+                                    lambd_hint=hint, device=dev, seed=seed)
+        opt = build_optimizer(config, model)
+        want, hooks = {}, []
+        for name, mod in model.named_modules():
+            if isinstance(mod, (BiasedBatchNorm1d, BiasedBatchNorm2d)):
+                def hook(m, args, name=name):
+                    x = args[0].detach().float()
+                    dims = [0] + list(range(2, x.dim()))
+                    want[name] = (0.9 * m.running_var
+                                  + 0.1 * x.var(dims, unbiased=False))
+                hooks.append(mod.register_forward_pre_hook(hook))
+        with precision_scope():
+            train_step(model, opt, xs, ys, mask, one_hot=True, n_classes=10,
+                       generator=torch.Generator(device=dev).manual_seed(
+                           seed))
+        for h in hooks:
+            h.remove()
+        sd = model.state_dict()
+        errs = {name: float((sd[f"{name}.running_var"] - w).abs().max()
+                            / w.abs().max()) for name, w in want.items()}
+        res[dtype] = errs
+        check(len(errs) == 5, f"{len(errs)} batch norms ran")
+        check(max(errs.values()) <= BN_VAR_GATE,
+              f"{dtype} running variance {errs}")
+    say("batch-norm variance " + json.dumps(res))
+    return res
+
+
 def _kernel_entry(name, source, replaces, launches_by_path, err, err_of,
                   gate, case, prefix="", **fields):
     """One entry of the ``kernels`` line: ``max_abs_err`` is the gated
@@ -2423,6 +2824,17 @@ def main():
             paths["sweep_audio_mnist"] = audio_mnist_path(seed, dev, out)
         with phase("ESC-50 sweep"):
             paths["sweep_esc50"] = esc50_path(seed, dev, out)
+        with phase("fsd sweep"):
+            paths["sweep_fsd"] = fsd_path(seed, dev, out)
+        with phase("pretrained import"):
+            paths["pretrained"] = pretrained_path(
+                seed, dev, out, os.path.join(out, "fsd_data"))
+    with phase("SpecAugment"):
+        augment_path(seed, dev)
+    with phase("Cnn14"):
+        cnn14_path(seed, dev)
+    with phase("batch-norm variance"):
+        bn_variance_path(seed, dev)
 
     def by_path(key):
         return {name: r["launches"][key] for name, r in paths.items()}

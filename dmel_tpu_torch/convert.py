@@ -6,8 +6,8 @@ trees of a flax model as nested dicts of numpy arrays (what
 ``state_dict``.  Module names are the same in both packages, so the
 map is per leaf:
 
-- conv kernels HWIO -> OIHW, Dense kernels ``(in, out)`` -> ``(out, in)``,
-  both named ``weight``;
+- conv kernels HWIO -> OIHW and 1-D ones WIO -> OIW (``AttBlock``),
+  Dense kernels ``(in, out)`` -> ``(out, in)``, all named ``weight``;
 - BatchNorm ``scale``/``bias`` -> ``weight``/``bias`` and the
   statistics ``mean``/``var`` -> ``running_mean``/``running_var``;
 - ``lambd`` stays ``lambd``;
@@ -57,6 +57,8 @@ def _param(path: str, a: np.ndarray):
     if leaf == "kernel":
         if a.ndim == 4:
             a = a.transpose(3, 2, 0, 1)
+        elif a.ndim == 3:
+            a = a.transpose(2, 1, 0)
         elif a.ndim == 2:
             a = a.T
         else:

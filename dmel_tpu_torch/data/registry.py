@@ -5,9 +5,10 @@
   fixed speaker partition (30000 clips in all);
 - ``esc50``: ``<data_dir>/meta/esc50.csv`` and ``audio/``, resampled to
   ``resample_rate`` and cached, in the seeded 0.7 / 0.1 / 0.2 split;
-- ``time_frequency`` and ``esc50_synth``: synthetic, in the same split.
-
-``fsd`` is not ported yet and raises ``NotImplementedError``.
+- ``fsd``: FSD50K's official layout under ``data_dir``, in its own
+  train / val / eval split, resampled, cut to ``n_points`` and cached
+  (:mod:`dmel_tpu_torch.data.fsd`);
+- ``time_frequency`` and ``esc50_synth``: synthetic, in the seeded split.
 """
 
 from __future__ import annotations
@@ -15,7 +16,7 @@ from __future__ import annotations
 import glob
 import os
 
-from dmel_tpu_torch.data import audio, splits, synthetic
+from dmel_tpu_torch.data import audio, fsd, splits, synthetic
 
 
 def _audio_mnist_splits(data_dir: str):
@@ -46,7 +47,9 @@ def get_dataset_by_config(config: dict, data_dir: str | None = None,
     if name == "audio_mnist":
         return _audio_mnist_splits(data_dir)
     if name == "fsd":
-        raise NotImplementedError(f"dataset {name!r} is not ported yet")
+        return fsd.fsd50k(data_dir,
+                          resample_rate=config.get("resample_rate", 8000),
+                          n_points=config.get("n_points", 40000))
 
     if name == "esc50":
         dataset = audio.esc50(data_dir, resample_rate=config["resample_rate"])

@@ -32,7 +32,7 @@ from torch import nn
 from dmel_tpu_torch.models.layers import (MelSpectrogramLayer,
                                           MultiSigmaMelSpectrogramLayer,
                                           SpectrogramLayer)
-from dmel_tpu_torch.models.panns import Cnn6, dropout
+from dmel_tpu_torch.models.panns import BiasedBatchNorm1d, Cnn6, dropout
 from dmel_tpu_torch.ops.specband import LOG_EPS
 
 
@@ -238,26 +238,6 @@ class MlpNet(_SpecFrontEnd):
         return self.fc2(F.relu(self.fc1(s.reshape(s.shape[0], -1)))), s
 
 
-class _BiasedBatchNorm1d(nn.BatchNorm1d):
-    """``nn.BatchNorm1d`` whose running variance, in training, takes the
-    biased batch variance, as flax's ``BatchNorm`` does (torch's takes
-    the unbiased one).  The output is torch's, which normalises by the
-    biased variance in both."""
-
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
-        if not self.training:
-            return super().forward(x)
-        dims = [0] + list(range(2, x.dim()))
-        with torch.no_grad():
-            mean = x.mean(dims)
-            var = x.var(dims, unbiased=False)
-            self.running_mean.lerp_(mean, self.momentum)
-            self.running_var.lerp_(var, self.momentum)
-            self.num_batches_tracked.add_(1)
-        return F.batch_norm(x, None, None, self.weight, self.bias, True,
-                            0.0, self.eps)
-
-
 class BatchNormLinearNet(_SpecFrontEnd):
     """DSPEC + batch norm over frequency bins + linear probe.
 
@@ -272,7 +252,7 @@ class BatchNormLinearNet(_SpecFrontEnd):
                  generator: Optional[torch.Generator] = None, **kwargs):
         super().__init__(init_lambd, **kwargs)
         f, t = self.size
-        self.bn = _BiasedBatchNorm1d(f, momentum=0.1, eps=1e-5)
+        self.bn = BiasedBatchNorm1d(f, momentum=0.1, eps=1e-5)
         self.fc = nn.Linear(f * t, n_classes)
         _torch_default_init(self, generator)
 

@@ -30,8 +30,11 @@ With ``checkpoint_dir``, ``fit`` writes what the JAX package's does:
   epoch, bit-identical to an uninterrupted run; it is removed when the
   trial ends.
 
-Not ported yet, and refused with ``NotImplementedError``: the pretrained
-import (``pretrained_state_dict``) and data parallelism (``mesh``).
+``pretrained_state_dict`` (a PANNs Cnn6 checkpoint's weights) is
+imported into the fresh model before its optimizer is built
+(:func:`~dmel_tpu_torch.training.checkpoint.import_panns_cnn6`).  Not
+ported yet, and refused with ``NotImplementedError``: data parallelism
+(``mesh``).
 """
 
 from __future__ import annotations
@@ -52,7 +55,9 @@ from dmel_tpu_torch.models.registry import (dispatch_hint_for,
                                             n_classes_for)
 from dmel_tpu_torch.ops.spectrogram import bucketed_window_length
 from dmel_tpu_torch.precision import precision_scope
-from dmel_tpu_torch.training.checkpoint import load_checkpoint, save_checkpoint
+from dmel_tpu_torch.training.checkpoint import (import_panns_cnn6,
+                                                load_checkpoint,
+                                                save_checkpoint)
 from dmel_tpu_torch.training.optim import build_optimizer
 
 BCE_LOG_FLOOR = -100.0  # torch binary_cross_entropy clamps log at -100
@@ -186,17 +191,17 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
     the model last validated at (``window_length``, ``lambd_hint``).
     ``history`` holds the summary keys of the JAX package's ``fit`` and
     a per-epoch ``records`` list.  ``seed`` seeds the weights, the
-    shuffles and the dropout generator.  ``checkpoint_dir`` keeps the
+    shuffles and the dropout generator; ``pretrained_state_dict`` (a
+    PANNs Cnn6 checkpoint's weights) replaces the seeded weights it maps
+    to, before any live state is restored.  ``checkpoint_dir`` keeps the
     best model, its sidecar and the live state (module docstring); a
     ``live_state`` there resumes the trial.  ``history["init_lambd"]``
     is the model's lambda once any live state is restored: a resumed
     trial reports the lambda it resumed at, as the JAX package's does.
     Runs inside :func:`~dmel_tpu_torch.precision.precision_scope`.
     """
-    for what, value in (("pretrained_state_dict", pretrained_state_dict),
-                        ("mesh", mesh)):
-        if value is not None:
-            raise NotImplementedError(f"fit: {what} is not ported yet")
+    if mesh is not None:
+        raise NotImplementedError("fit: mesh is not ported yet")
     dev = resolve_device(device)
     one_hot = "panns" in config["model_name"]
     n_classes = n_classes_for(config["dataset_name"])
@@ -222,6 +227,8 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
     hint = None
     model = get_model_by_config(config, window_length=wl, device=dev,
                                 seed=seed)
+    if pretrained_state_dict is not None:
+        import_panns_cnn6(pretrained_state_dict, model, verbose=verbose >= 1)
     optimizer = build_optimizer(config, model)
     generator = torch.Generator(device=dev).manual_seed(seed)
     kw = dict(one_hot=one_hot, n_classes=n_classes)

@@ -74,7 +74,13 @@ def test_esc50_synth_splits_match_jax():
 
 
 @pytest.mark.parametrize("name,error", [
-    ("fsd", NotImplementedError), ("imagenet", ValueError)])
+    ("fsd", FileNotFoundError), ("imagenet", ValueError)])
 def test_other_datasets_are_refused(name, error):
+    """An unknown dataset raises; fsd without its files on disk raises
+    as dmel_tpu's loader does."""
     with pytest.raises(error):
-        get_dataset_by_config(dict(dataset_name=name))
+        get_dataset_by_config(dict(dataset_name=name), "/nonexistent")
+    if name == "fsd":
+        with pytest.raises(error):
+            jregistry.get_dataset_by_config(dict(dataset_name=name),
+                                            "/nonexistent")

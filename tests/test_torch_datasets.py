@@ -208,7 +208,9 @@ def test_esc50_splits_match_jax(esc50_tree):
 
 
 def test_fsd_and_unknown_datasets_raise():
-    with pytest.raises(NotImplementedError):
+    """fsd without its files raises FileNotFoundError, as dmel_tpu's
+    loader does; an unknown dataset raises ValueError."""
+    with pytest.raises(FileNotFoundError):
         get_dataset_by_config({"dataset_name": "fsd"}, "/nonexistent")
     with pytest.raises(ValueError, match="dataset not defined"):
         get_dataset_by_config({"dataset_name": "imagenet"})

@@ -184,10 +184,21 @@ def test_predict_batches_and_device(rng):
 
 
 def test_train_mode_augment_is_not_ported():
-    model = tmodels.get_model_by_config(dict(CONFIG, augment=True), WINDOW,
-                                        HINT, device="cpu")
-    with pytest.raises(NotImplementedError, match="SpecAugment"):
-        model.train()(torch.zeros((2, T)))
+    """SpecAugment (``augment=True``) runs in a training-mode forward:
+    its masks come from the generator passed in (the same seed gives
+    the same scores, another seed others), and an eval-mode forward
+    equals the unaugmented model's."""
+    config = dict(CONFIG, augment=True)
+    model = tmodels.get_model_by_config(config, WINDOW, HINT, device="cpu")
+    x = torch.randn(2, T, generator=torch.Generator().manual_seed(0))
+    runs = [model.train()(x, generator=torch.Generator().manual_seed(s))[0]
+            for s in (1, 1, 2)]
+    assert torch.equal(runs[0], runs[1]) and not torch.equal(runs[0],
+                                                               runs[2])
+    plain = tmodels.get_model_by_config(CONFIG, WINDOW, HINT, device="cpu")
+    plain.load_state_dict(model.state_dict())
+    with torch.no_grad():
+        assert torch.equal(model.eval()(x)[0], plain.eval()(x)[0])
 
 
 def test_synthetic_dataset_matches_jax():

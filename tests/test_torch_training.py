@@ -228,9 +228,10 @@ def test_train_step_matches_jax(rng, monkeypatch):
       ``test_train_step_matches_float64``), so entries are compared as
       a whole;
     - batch-norm running means within 1e-5, and running variances
-      within relative 1e-5 once the JAX statistic is given torch's
-      unbiased batch variance (the port keeps torch's semantics,
-      n / (n - 1)).
+      within 1e-5 of dmel_tpu's, relative: both take the biased batch
+      variance (torch's own update takes the unbiased one, a factor
+      n / (n - 1) in the new term: 1 + 5.2e-3 at this batch's smallest
+      n, 4 x 6 x 8 = 192 values a channel in ``conv_block4``).
     """
     monkeypatch.setattr(nn, "Dropout", _NoDropout)
     monkeypatch.setattr(tpanns, "dropout",
@@ -253,12 +254,6 @@ def test_train_step_matches_jax(rng, monkeypatch):
 
     model = tmodels.get_model_by_config(CONFIG, WINDOW, HINT, device="cpu")
     model.load_state_dict(from_jax_variables(params, stats))
-    counts = {}
-    for name, mod in model.named_modules():
-        if isinstance(mod, torch.nn.modules.batchnorm._BatchNorm):
-            mod.register_forward_pre_hook(
-                lambda m, a, name=name: counts.__setitem__(
-                    name, a[0].numel() // a[0].shape[1]))
     opt = build_optimizer(CONFIG, model)
     got = ttrain.train_step(model, opt, torch.from_numpy(x),
                             torch.from_numpy(ys), torch.from_numpy(mask),
@@ -276,18 +271,12 @@ def test_train_step_matches_jax(rng, monkeypatch):
             assert _norm_err(p.grad, grads[key]) <= 1e-2, key
 
     sd = model.state_dict()
-    old_stats = from_jax_variables({}, stats)
     for key, want in new_stats.items():
-        module = key.rpartition(".")[0]
         if key.endswith("running_mean"):
             assert float((sd[key] - want).abs().max()) <= 1e-5, key
         elif key.endswith("running_var"):
-            n = counts[module]
-            before = old_stats[key]
-            batch_var = (want - 0.9 * before) / 0.1
-            unbiased = 0.9 * before + 0.1 * batch_var * n / (n - 1)
-            assert float((sd[key] - unbiased).abs().max()
-                         / unbiased.abs().max()) <= 1e-5, key
+            assert float((sd[key] - want).abs().max()
+                         / want.abs().max()) <= 1e-5, key
 
 
 def test_train_step_matches_float64(rng, monkeypatch):
@@ -413,9 +402,7 @@ def test_fit_early_stopping():
     assert history["converged"] and len(history["records"]) == 1
 
 
-@pytest.mark.parametrize("kwargs", [
-    dict(mesh=object()), dict(pretrained_state_dict={})],
-    ids=["mesh", "pretrained"])
+@pytest.mark.parametrize("kwargs", [dict(mesh=object())], ids=["mesh"])
 def test_fit_refuses_what_is_not_ported(kwargs):
     with pytest.raises(NotImplementedError):
         fit(FIT_CONFIG, None, None, device="cpu", **kwargs)
