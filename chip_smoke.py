@@ -29,9 +29,10 @@ Phases, each announced by a flushed line when it starts and ends:
    card time from ``torch.profiler`` (``library_device_ms``) is K1's
    ``library_ms`` where the host is slower to issue it.  Every
    such time is the median of 5 blocks of 10 calls after 3 warm-up
-   calls; each kernel and yardstick time also carries its blocks' range
-   and the host's time to issue a call, which shows when the card waited
-   on the host.
+   calls (a plain version's, 3 blocks of 2 calls after one:
+   ``plain_time_ms``); each kernel and yardstick time also carries its
+   blocks' range and the host's time to issue a call, which shows when
+   the card waited on the host.
 4. K2 against its plain version: the training hot path that bench.py
    measures, ``mel_spectrogram(..., impl="specband")`` forward and
    ``backward()`` into lambda, through the kernels and through autograd
@@ -209,10 +210,31 @@ Phases, each announced by a flushed line when it starts and ends:
    running variance equals 0.9 old + 0.1 the biased float32 variance of
    its input (a plain reduction on the card) within 1e-5 of the
    largest.
-22. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
+22. packs of trials (phases "packed kernels" after K6, "pack sweep
+   esc50_synth" after the CLI sweep, "pack fsd" after the fsd sweep,
+   "pack specband" before SpecAugment): a pack of one against the
+   single launch of K1, K2, K5 and K6, bit for bit; K5 and K6 on a pack
+   of 6 trials x 32 clips at 4096 (the esc50_synth grid's lambdas) and
+   K1 and K2 on 6 x 32 at 1024 (lambda 110-128, J 24): one launch each,
+   trial k bit for bit a single launch on its rows (dw and the taps'
+   gradient within 1e-6), against the plain packed versions (log-mel
+   1e-4, gradients 1e-3 of the largest), dlambda (6,) through the chain
+   against the plain chain (1e-2 each), timed against six single
+   launches, the plain versions and six times the single bound; the
+   esc50_synth space with ``--pack`` from the CLI (2 epochs: every epoch
+   at 4096 with no hint, one packed K5 launch a train step and a valid
+   batch, none of K1-K4; the step's ms, first and steady; six rows, no
+   sidecar, ``predict_test``; a second run bit-identical; one more
+   epoch with ``fused.USE_FUSED_BWD``, one packed K6 launch a step)
+   beside the sequential sweep's seconds of phase 12; fsd with
+   ``--pack`` for one epoch; ``fit_trials`` of two trainable trials at
+   lambda 110 and 120 (bf16 CNN6, lr_tf 1e-3), whose shared hint takes
+   packed K1 and K2 every epoch.
+23. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
    ran; its times, plain times, bounds and yardsticks at every measured
    shape, ``shapes``; launches also from the sweeps, the pretrained
-   trial and the resume run), then the final ``{"ok": true, "device":
+   trial, the resume run and the packs; the packed entries with their
+   single launches' time), then the final ``{"ok": true, "device":
    {...}}`` line.
 
 Any failed check raises, so the script exits non-zero before the final
@@ -266,7 +288,8 @@ WEIGHT_GRAD_GATE = 1e-4      # one train step: fc weights, of max |grad|
 KERNELS = ("specband_fwd", "specband_bwd", "framed_fwd", "framed_bwd")
 #: every kernel wrapper's launch counter, by kernel: (object, attribute).
 #: K1m and K2m are K1 and K2 launched at k_sig > 1 by the multi-sigma
-#: function, K6 the fused route's dw kernel (``fused.USE_FUSED_BWD``).
+#: function, K6 the fused route's dw kernel (``fused.USE_FUSED_BWD``); a
+#: ``p`` marks a launch on a pack of trials (the packed wrappers).
 COUNTERS = {"K1": (specband.specband_mel_power, "launches"),
             "K2": (specband.specband_drho, "launches"),
             "K1m": (specband.specband_mel_power_multi, "launches"),
@@ -280,7 +303,15 @@ COUNTERS = {"K1": (specband.specband_mel_power, "launches"),
             "K3fft": (framed.framed_mel_power, "fft_launches"),
             "K4fft": (framed.framed_dwindow, "fft_launches"),
             "K5fft": (fused.dmel_power, "fft_launches"),
-            "K6fft": (fused.fused_dwindow, "fft_launches")}
+            "K6fft": (fused.fused_dwindow, "fft_launches"),
+            "K1p": (specband.fwd_packed, "launches"),
+            "K2p": (specband.specband_drho_packed, "launches"),
+            "K1mp": (specband.fwd_packed, "multi_launches"),
+            "K2mp": (specband.specband_drho_packed, "multi_launches"),
+            "K3p": (framed.framed_fwd_packed, "launches"),
+            "K4p": (framed.framed_dwindow_packed, "launches"),
+            "K5p": (fused.fused_fwd_packed, "launches"),
+            "K6p": (fused.fused_dwindow_packed, "launches")}
 #: the kernels that count their FFT-stage launches apart, and the counter
 FFT_COUNTER = {"K1": "K1fft", "K1m": "K1mfft", "K3": "K3fft", "K4": "K4fft",
                "K5": "K5fft", "K6": "K6fft"}
@@ -383,6 +414,14 @@ def timing(fn, iters: int = 10, warmup: int = 3, reps: int = 5) -> dict:
 def time_ms(fn) -> float:
     """The median block's device time per call of ``fn`` (:func:`timing`)."""
     return timing(fn)["ms"]
+
+
+def plain_time_ms(fn) -> float:
+    """A plain version's time a call: the median of 3 blocks of 2 calls
+    after one warm-up (:func:`timing`).  The plain versions are the
+    yardsticks the kernels are held against, at 2-180 ms a call, where
+    53 calls would add seconds to the run and no precision."""
+    return timing(fn, iters=2, warmup=1, reps=3)["ms"]
 
 
 def timed(key: str, fn) -> dict:
@@ -543,7 +582,7 @@ def k1_case(seed: int, batch: int, n_fft: int, lambd: float,
         del xext_p
         kernel_t = timed("ms", kernel)
         direct_ms = time_ms(direct)
-        plain_ms = time_ms(plain)
+        plain_ms = plain_time_ms(plain)
         library_t = timed("library_ms", library)
         library_dev = device_ms(library)
         split, split_direct = stage_split(kernel), stage_split(direct)
@@ -765,7 +804,7 @@ def k2_case(seed: int, batch: int, n_fft: int, lambd: float, log: bool,
         drho_tap_rel = float((diff / d_p.abs()).max())
         kernel_t = timed("ms", k2)
         ms = kernel_t["ms"]
-        plain_ms = time_ms(k2_plain)
+        plain_ms = plain_time_ms(k2_plain)
         split = stage_split(k2)
 
     lam = leaf()
@@ -776,7 +815,7 @@ def k2_case(seed: int, batch: int, n_fft: int, lambd: float, log: bool,
         exact_out, lam, retain_graph=True))
     del exact_out
     chain_ms = time_ms(kernel_chain)
-    plain_chain_ms = time_ms(plain_chain)
+    plain_chain_ms = plain_time_ms(plain_chain)
     exact_chain_ms = time_ms(exact_chain)
 
     fb_nnz = int((fb != 0).sum())
@@ -933,7 +972,7 @@ def multi_case(seed: int, batch: int, n_fft: int, lams: tuple,
         err_direct = float((torch.log(mel_d + LOG_EPS) - log_p).abs().max())
         kernel_t = timed("ms", kernel)
         direct_ms = time_ms(direct)
-        plain_ms = time_ms(plain)
+        plain_ms = plain_time_ms(plain)
         library_t = timed("library_ms", library)
         library_dev = device_ms(library)
         split, split_direct = stage_split(kernel), stage_split(direct)
@@ -959,7 +998,7 @@ def multi_case(seed: int, batch: int, n_fft: int, lams: tuple,
         check(d_k.shape == (k, 2 * j + 1), f"drho shape {d_k.shape}")
         drho_rel = float((d_k - d_p).abs().max() / d_p.abs().max())
         k2_t = timed("k2_ms", k2)
-        k2_plain_ms = time_ms(k2_plain)
+        k2_plain_ms = plain_time_ms(k2_plain)
         k2_split = stage_split(k2)
 
     def leaf():
@@ -998,7 +1037,7 @@ def multi_case(seed: int, batch: int, n_fft: int, lams: tuple,
         exact_out, lam, retain_graph=True))
     del exact_out
     chain_ms = time_ms(kernel_chain)
-    plain_chain_ms = time_ms(plain_chain)
+    plain_chain_ms = plain_time_ms(plain_chain)
     exact_chain_ms = time_ms(exact_chain)
 
     fb_nnz = int((fb != 0).sum())
@@ -1159,7 +1198,7 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
         del reim2, reim_p
         kernel_t = timed("ms", lambda: kernel(xm, w, g))
         direct_ms = time_ms(direct)
-        plain_ms = time_ms(lambda: framed.fwd_plain(xm, w, g))
+        plain_ms = plain_time_ms(lambda: framed.fwd_plain(xm, w, g))
         library_t = timed("library_ms", library)
         library_dev = device_ms(library)
         split = stage_split(lambda: kernel(xm, w, g))
@@ -1187,7 +1226,7 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
             dw_repeat = bool(torch.equal(d_k, d_k2))
             k4_t = timed("k4_ms", k4)
             k4_direct_ms = time_ms(k4_direct)
-            k4_plain_ms = time_ms(k4_plain)
+            k4_plain_ms = plain_time_ms(k4_plain)
             k4_split = stage_split(k4)
             k4_split_direct = stage_split(k4_direct)
 
@@ -1228,7 +1267,7 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
         exact_out, lam, retain_graph=True))
     del exact_out
     chain_ms = time_ms(kernel_chain)
-    plain_chain_ms = time_ms(plain_chain)
+    plain_chain_ms = plain_time_ms(plain_chain)
     exact_chain_ms = time_ms(exact_chain)
 
     fb_nnz = int((fb != 0).sum())
@@ -1327,7 +1366,7 @@ def k6_case(seed: int, batch: int, lambd: float, dev: torch.device,
         dw_rel_direct = rel_err(d_d, d_p)
         kernel_t = timed("ms", k6)
         direct_ms = time_ms(direct)
-        plain_ms = time_ms(k6_plain)
+        plain_ms = plain_time_ms(k6_plain)
         split, split_direct = stage_split(k6), stage_split(direct)
     lam = torch.tensor(lambd, device=dev, requires_grad=True)
     exact_out = mel_spectrogram(x, lam, impl="exact", n_mels=N_MELS,
@@ -2664,6 +2703,473 @@ def bn_variance_path(seed: int, dev: torch.device) -> dict:
     return res
 
 
+# --- packs of trials ----------------------------------------------------
+
+#: the published grid's lambdas (esc50_synth, fsd): the pack's trials
+PACK_LAMS = (13.33, 46.67, 400.0, 13.33, 46.67, 400.0)
+#: six trainable lambdas in the specband region of bucket 1024 that
+#: takes J 24 (lambda in (n_fft / 9.6, n_fft / 8]), so one hint serves all
+PACK_SPECBAND_LAMS = (110.0, 113.6, 117.2, 120.8, 124.4, 128.0)
+
+
+def _pack_signal(seed: int, k: int, batch: int, t: int, dev):
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (k * batch, t)).astype(np.float32)).to(dev)
+    return x - x.mean(dim=-1, keepdim=True)
+
+
+def _per_trial(k: int, batch: int, *tensors):
+    """Each trial's rows of every tensor, contiguous."""
+    return [[t[i * batch:(i + 1) * batch].contiguous() for t in tensors]
+            for i in range(k)]
+
+
+def packed_fused_case(seed: int, dev: torch.device, k: int = 6,
+                      batch: int = BATCH, n_fft: int = 4096,
+                      lams=PACK_LAMS, t: int = T) -> dict:
+    """K5 and K6 on a pack of ``k`` trials of ``batch`` clips (the
+    esc50_synth grid's pack at 4096): one launch each; trial i's forward
+    bit for bit the single launch's on its rows and window, its dw within
+    1e-6 of the largest entry; against the plain packed versions (the
+    plain function on each trial): log-mel 1e-4, dw 1e-3 of the largest;
+    dlambda (k,) through K5 + K6 and through K5 + the torch adjoint
+    against autograd of the plain chain, 1e-2 each.  Times: each packed
+    entry, the k single launches, its plain version, its bound (k times
+    the single one) and the packed exact route (frames, windows, rfft,
+    mel) as the yardstick."""
+    g = framed.Geom(n_fft, HOP, N_MELS, SR, 0.0, float(SR // 2))
+    x = _pack_signal(seed, k, batch, t, dev)
+    lam = torch.tensor(lams[:k], device=dev)
+    w = gaussian_window(lam, n_fft).contiguous()
+    fb_nnz = int((framed._fb(g, dev) != 0).sum())
+    with torch.no_grad():
+        out, reim = fused.fused_fwd_packed(x, w, g)
+        dmel = torch.from_numpy(np.random.default_rng(seed + 1)
+                                .standard_normal(tuple(out.shape))
+                                .astype(np.float32)).to(dev)
+        dw = fused.fused_dwindow_packed(x, reim, dmel, g, k)
+        singles = _per_trial(k, batch, x, dmel)
+        fwd_bits, dw_rel_single, reims = True, 0.0, []
+        for i, (xi, di) in enumerate(singles):
+            o1, r1 = fused.fused_fwd(xi, w[i].contiguous(), g)
+            reims.append(r1)
+            fwd_bits &= bool(torch.equal(out[i * batch:(i + 1) * batch], o1)
+                             and torch.equal(reim.chunk(k)[i], r1))
+            dw_rel_single = max(dw_rel_single, rel_err(
+                dw[i], fused.fused_dwindow(xi, r1, di, g)))
+        p_out, p_reim = framed._looped_fwd(framed.fwd_plain, x, w, g)
+        p_dw = framed.framed_dwindow_plain_packed(x, p_reim, dmel, g, k)
+        logmel_err = float((torch.log(out + LOG_EPS)
+                            - torch.log(p_out + LOG_EPS)).abs().max())
+        dw_err = max(rel_err(dw[i], p_dw[i]) for i in range(k))
+        del p_out, p_reim, p_dw
+        fwd_t = timed("ms", lambda: fused.fused_fwd_packed(x, w, g))
+        fwd_single = time_ms(lambda: [fused.fused_fwd(xi, w[i].contiguous(),
+                                                      g)
+                                      for i, (xi, _) in enumerate(singles)])
+        fwd_plain = plain_time_ms(lambda: framed._looped_fwd(
+            framed.fwd_plain, x, w, g))
+        fb = melscale_fbanks(n_fft // 2 + 1, 0.0, float(SR // 2), N_MELS, SR
+                             ).to(dev)
+        lib_fwd = timed("library_ms", lambda: (stft.stft_power_packed(
+            x.reshape(k, batch, t), w, n_fft, HOP).transpose(-1, -2) @ fb))
+        bwd_t = timed("k6_ms", lambda: fused.fused_dwindow_packed(
+            x, reim, dmel, g, k))
+        bwd_single = time_ms(lambda: [
+            fused.fused_dwindow(xi, reims[i], di, g)
+            for i, (xi, di) in enumerate(singles)])
+        bwd_plain = plain_time_ms(lambda: framed.framed_dwindow_plain_packed(
+            x, reim, dmel, g, k))
+        del reims
+    # dlambda through the chain: K5 + K6, K5 + the torch adjoint, plain
+    xk = x.reshape(k, batch, t)
+
+    def dlam(fn):
+        lv = lam.clone().requires_grad_()
+        (fn(lv) * dmel.reshape(k, batch, N_MELS, -1)).sum().backward()
+        return lv.grad
+
+    kw = dict(win_length=n_fft, n_fft=n_fft, hop_length=HOP, n_mels=N_MELS,
+              sample_rate=SR)
+    d_adj = dlam(lambda lv: fused.dmel_power(xk, lv, **kw))
+    fused.USE_FUSED_BWD = True
+    try:
+        d_k6 = dlam(lambda lv: fused.dmel_power(xk, lv, **kw))
+    finally:
+        fused.USE_FUSED_BWD = False
+    d_plain = dlam(lambda lv: torch.stack([
+        fused.dmel_power_plain(xk[i], lv[i], **kw) for i in range(k)]))
+    dl_rel = [max(abs(float(a[i] - d_plain[i])) / abs(float(d_plain[i]))
+                  for a in (d_adj, d_k6)) for i in range(k)]
+    b5 = framed_bound(batch, t, n_fft, fb_nnz)
+    b6 = k4_bound(batch, t, n_fft, fb_nnz)
+    res = dict(k=k, batch=batch, t=t, n_fft=n_fft, lambd=list(lams[:k]),
+               fwd_bit_identical_to_single=fwd_bits,
+               dw_rel_err_vs_single=dw_rel_single,
+               logmel_max_abs_err=logmel_err, dw_err_of_max=dw_err,
+               dlambd_rel_err=dl_rel, **fwd_t, single_launches_ms=fwd_single,
+               plain_ms=fwd_plain, **lib_fwd, bound_ms=k * b5[0],
+               bound_by=b5[1], **bwd_t, k6_single_launches_ms=bwd_single,
+               k6_plain_ms=bwd_plain, k6_bound_ms=k * b6[0],
+               k6_bound_by=b6[1])
+    say("K5/K6 packed " + json.dumps(res))
+    check(fwd_bits, "packed K5 differs from the single launches")
+    check(dw_rel_single <= 1e-6, f"packed K6 vs single {dw_rel_single:.3e}")
+    check(logmel_err <= GATE, f"packed K5 vs plain {logmel_err:.3e}")
+    check(dw_err <= DW_GATE, f"packed K6 vs plain {dw_err:.3e} of max")
+    check(max(dl_rel) <= GRAD_GATE, f"packed dlambda vs plain {dl_rel}")
+    return res
+
+
+def packed_specband_case(seed: int, dev: torch.device, k: int = 6,
+                         batch: int = BATCH, n_fft: int = 1024,
+                         lams=PACK_SPECBAND_LAMS, t: int = T) -> dict:
+    """K1 and K2 on a pack of ``k`` trials at 1024 (J 24, the model
+    path's mel power without the log epilogue): one launch each; trial
+    i's forward bit for bit the single launch's, its taps' gradient
+    within 1e-6; against the plain versions on each trial (log-mel 1e-4,
+    taps' gradient 1e-3 of the largest); dlambda (k,) through K1 + K2
+    against autograd of the plain function, 1e-2 each.  Times as
+    :func:`packed_fused_case`'s."""
+    hint = stft.pallas_compile_hint(lams[-1], n_fft, HOP)
+    check(all(stft.pallas_compile_hint(lam, n_fft, HOP) == hint
+              for lam in lams[:k]), "the pack's lambdas take two hints")
+    route, j = auto_route(signal_length=t, hop_length=HOP, n_mels=N_MELS,
+                          optimized=True, window_length=n_fft,
+                          lambd_hint=hint)
+    check(route == "specband" and j == 24, f"{route} J {j}")
+    g = specband._Geom(n_fft, HOP, N_MELS, SR, 0.0, float(SR // 2), j, False)
+    x = _pack_signal(seed, k, batch, t, dev)
+    lam = torch.tensor(lams[:k], device=dev)
+    rho = specband.window_taps_sym(gaussian_window(lam, n_fft), n_fft,
+                                   j).contiguous()
+    fb = specband._fb(g, dev)
+    fb_nnz = int((fb != 0).sum())
+    with torch.no_grad():
+        out, xext = specband.fwd_packed(x, rho, g)
+        dmel = torch.from_numpy(np.random.default_rng(seed + 1)
+                                .standard_normal(tuple(out.shape))
+                                .astype(np.float32)).to(dev)
+        drho = specband.specband_drho_packed(xext, rho, fb, dmel, None,
+                                             None, k)
+        singles = _per_trial(k, batch, x, dmel)
+        fwd_bits, drho_single, logmel_err, drho_err = True, 0.0, 0.0, 0.0
+        xexts = []
+        for i, (xi, di) in enumerate(singles):
+            o1, e1 = specband._fwd(xi, rho[i].contiguous(), g)
+            xexts.append(e1)
+            rows = slice(i * batch, (i + 1) * batch)
+            fwd_bits &= bool(torch.equal(out[rows], o1))
+            drho_single = max(drho_single, rel_err(
+                drho[i], specband.specband_drho(e1, rho[i].contiguous(), fb,
+                                                di)))
+            p_out, p_xext = specband._fwd_plain(xi, rho[i], g)
+            logmel_err = max(logmel_err, float(
+                (torch.log(out[rows] + LOG_EPS)
+                 - torch.log(p_out + LOG_EPS)).abs().max()))
+            drho_err = max(drho_err, rel_err(drho[i], specband.
+                                             specband_drho_plain(
+                                                 p_xext, rho[i], fb, di)))
+        fwd_t = timed("ms", lambda: specband.fwd_packed(x, rho, g))
+        fwd_single = time_ms(lambda: [specband._fwd(xi, rho[i].contiguous(),
+                                                    g)
+                                      for i, (xi, _) in enumerate(singles)])
+        fwd_plain = plain_time_ms(lambda: [
+            specband._fwd_plain(xi, rho[i], g)
+            for i, (xi, _) in enumerate(singles)])
+        fbank = melscale_fbanks(n_fft // 2 + 1, 0.0, float(SR // 2), N_MELS,
+                                SR).to(dev)
+        w = gaussian_window(lam, n_fft)
+        lib_fwd = timed("library_ms", lambda: (stft.stft_power_packed(
+            x.reshape(k, batch, t), w, n_fft, HOP).transpose(-1, -2) @ fbank))
+        bwd_t = timed("k2_ms", lambda: specband.specband_drho_packed(
+            xext, rho, fb, dmel, None, None, k))
+        bwd_single = time_ms(lambda: [
+            specband.specband_drho(xexts[i], rho[i].contiguous(), fb, di)
+            for i, (_, di) in enumerate(singles)])
+        bwd_plain = plain_time_ms(lambda: torch.stack([
+            specband.specband_drho_plain(xe, rho[i], fb, dm)
+            for i, (xe, dm) in enumerate(zip(xext.chunk(k), dmel.chunk(k)))]))
+        del xexts
+    xk = x.reshape(k, batch, t)
+
+    def dlam(fn):
+        lv = lam.clone().requires_grad_()
+        (fn(lv) * dmel.reshape(k, batch, N_MELS, -1)).sum().backward()
+        return lv.grad
+
+    kw = dict(n_fft=n_fft, hop_length=HOP, n_mels=N_MELS, sample_rate=SR,
+              j_taps=j)
+    d_k = dlam(lambda lv: specband.specband_mel_power(
+        xk, gaussian_window(lv, n_fft), **kw))
+    d_p = dlam(lambda lv: torch.stack([specband.specband_mel_power_plain(
+        xk[i], gaussian_window(lv[i], n_fft), **kw) for i in range(k)]))
+    dl_rel = [abs(float(d_k[i] - d_p[i])) / abs(float(d_p[i]))
+              for i in range(k)]
+    b1 = k1_bound(batch, n_fft, j, fb_nnz)
+    b2 = k2_bound(batch, n_fft, j, fb_nnz, False)
+    res = dict(k=k, batch=batch, t=t, n_fft=n_fft, j_taps=j, hint=hint,
+               lambd=list(lams[:k]), fwd_bit_identical_to_single=fwd_bits,
+               drho_rel_err_vs_single=drho_single,
+               logmel_max_abs_err=logmel_err, drho_err_of_max=drho_err,
+               dlambd_rel_err=dl_rel, **fwd_t, single_launches_ms=fwd_single,
+               plain_ms=fwd_plain, **lib_fwd, bound_ms=k * b1[0],
+               bound_by=b1[1], **bwd_t, k2_single_launches_ms=bwd_single,
+               k2_plain_ms=bwd_plain, k2_bound_ms=k * b2[0],
+               k2_bound_by=b2[1])
+    say("K1/K2 packed " + json.dumps(res))
+    check(fwd_bits, "packed K1 differs from the single launches")
+    check(drho_single <= 1e-6, f"packed K2 vs single {drho_single:.3e}")
+    check(logmel_err <= GATE, f"packed K1 vs plain {logmel_err:.3e}")
+    check(drho_err <= DRHO_GATE, f"packed K2 vs plain {drho_err:.3e} of max")
+    check(max(dl_rel) <= GRAD_GATE, f"packed dlambda vs plain {dl_rel}")
+    return res
+
+
+def pack_of_one_case(seed: int, dev: torch.device) -> dict:
+    """A pack of one trial is today's single launch, bit for bit, for
+    K1, K2, K5 and K6 (4096, lambda 400 on the fused route, 1024 at
+    lambda 128 on specband)."""
+    x = _pack_signal(seed, 1, BATCH, T, dev)
+    g5 = framed.Geom(4096, HOP, N_MELS, SR, 0.0, float(SR // 2))
+    w = gaussian_window(torch.tensor(400.0, device=dev), 4096)
+    g1 = specband._Geom(1024, HOP, N_MELS, SR, 0.0, float(SR // 2), 24,
+                        False)
+    rho = specband.window_taps_sym(gaussian_window(
+        torch.tensor(128.0, device=dev), 1024), 1024, 24).contiguous()
+    fb = specband._fb(g1, dev)
+    with torch.no_grad():
+        o, r = fused.fused_fwd(x, w, g5)
+        op, rp = fused.fused_fwd_packed(x, w[None].contiguous(), g5)
+        dmel = torch.ones_like(o)
+        same5 = bool(torch.equal(o, op) and torch.equal(r, rp))
+        same6 = bool(torch.equal(fused.fused_dwindow(x, r, dmel, g5),
+                                 fused.fused_dwindow_packed(x, r, dmel, g5,
+                                                            1)[0]))
+        o1, e1 = specband._fwd(x, rho, g1)
+        o1p, e1p = specband.fwd_packed(x, rho[None].contiguous(), g1)
+        same1 = bool(torch.equal(o1, o1p) and torch.equal(e1, e1p))
+        d1 = torch.ones_like(o1)
+        same2 = bool(torch.equal(
+            specband.specband_drho(e1, rho, fb, d1),
+            specband.specband_drho_packed(e1, rho[None].contiguous(), fb, d1,
+                                          None, None, 1)[0]))
+    res = dict(K1=same1, K2=same2, K5=same5, K6=same6)
+    say("pack of one " + json.dumps(res))
+    check(all(res.values()), f"a pack of one differs: {res}")
+    return res
+
+
+#: the pack's launches on one train step and one valid batch, by route:
+#: the packed counters
+_PACK_ROUTE_KERNELS = {"fused": (("K5p",), ("K5p",)),
+                       "specband": (("K1p", "K2p"), ("K1p",))}
+
+
+def counted_pack(run):
+    """``run()`` with every launch counter at 0, and the pack's epochs
+    observed: each epoch's geometry (from ``TrialPack.set_geometry``,
+    called once at each epoch's start), the cumulative launches at its
+    start, its train steps and their times (synchronised: the first and
+    the rest).  Returns ``(result, epochs, launches)``."""
+    from dmel_tpu_torch.models import packed as packed_mod
+    from dmel_tpu_torch.parallel import trials as trials_mod
+    epochs = []
+    real_geom = packed_mod.TrialPack.set_geometry
+    real_step = trials_mod.make_multitrial_step
+
+    def set_geometry(self, wl, hint):
+        epochs.append(dict(window_length=wl, lambd_hint=hint,
+                           start=launch_counts(), step_s=[]))
+        return real_geom(self, wl, hint)
+
+    def make_step(*a, **kw):
+        step = real_step(*a, **kw)
+
+        def timed_step(*sa, **skw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            m = step(*sa, **skw)
+            torch.cuda.synchronize()
+            epochs[-1]["step_s"].append(time.perf_counter() - t0)
+            return m
+        return timed_step
+
+    packed_mod.TrialPack.set_geometry = set_geometry
+    trials_mod.make_multitrial_step = make_step
+    try:
+        out, total = counted(run)
+    finally:
+        packed_mod.TrialPack.set_geometry = real_geom
+        trials_mod.make_multitrial_step = real_step
+    return out, epochs, total
+
+
+def check_pack_epochs(epochs, total, route: str, valid_batches: int,
+                      fused_bwd: bool = False) -> list:
+    """Each pack epoch's launches against ``route``'s: its packed train
+    kernels once a train step, its valid kernels once a valid batch, no
+    single-trial kernel; returns the epochs' summaries."""
+    out = []
+    ends = [e["start"] for e in epochs[1:]] + [total]
+    for i, (e, end) in enumerate(zip(epochs, ends)):
+        launched = {k: end[k] - e["start"][k] for k in COUNTERS}
+        steps = len(e["step_s"])
+        want = dict.fromkeys(COUNTERS, 0)
+        train_k, valid_k = _PACK_ROUTE_KERNELS[route]
+        if fused_bwd and route == "fused":
+            train_k = train_k + ("K6p",)
+        for k in train_k:
+            want[k] += steps
+        for k in valid_k:
+            want[k] += valid_batches
+        check(launched == want,
+              f"pack epoch {i}: launches "
+              f"{ {k: v for k, v in launched.items() if v} }, expected "
+              f"{ {k: v for k, v in want.items() if v} }")
+        s = e["step_s"]
+        out.append(dict(epoch=i, window_length=e["window_length"],
+                        lambd_hint=e["lambd_hint"], steps=steps,
+                        step_ms_first=s[0] * 1e3 if s else None,
+                        step_ms_steady=(float(np.median(s[1:])) * 1e3
+                                        if len(s) > 1 else None),
+                        launches={k: v for k, v in launched.items() if v}))
+    return out
+
+
+def pack_sweep_path(dev: torch.device, out: str, name: str = SWEEP_NAME,
+                    epochs: int = SWEEP_EPOCHS, data_dir: str | None = None,
+                    n_test: int = 400, repeat: bool = True,
+                    k6: bool = True, sequential: dict | None = None) -> dict:
+    """The space ``name`` through the CLI with ``--pack``, as a user runs
+    it: the grid's six trials as one program, launches counted by epoch
+    (one packed K5 launch a train step and a valid batch on the fused
+    route the pack's one bucket takes, none of K1-K4), the pack's step
+    ms (first and steady), its seconds and its data load's; six rows in
+    results.csv, each trial's best model without a sidecar (the JAX
+    package's layout); ``predict_test`` on every row; with ``repeat`` a
+    second run into another directory, bit-identical in every record and
+    weight; with ``k6`` one more pack epoch with ``fused.USE_FUSED_BWD``
+    set, whose steps launch K6 on the pack.  ``sequential`` is the same
+    space's sequential sweep (:func:`sweep_path`), for its seconds."""
+    from dmel_tpu_torch.eval import predict_test
+    from dmel_tpu_torch.experiments import cli, runner
+    from dmel_tpu_torch.training import load_checkpoint
+    data_dir = out if data_dir is None else data_dir
+    loads, sizes = [], {}
+    real_data = runner.get_dataset_by_config
+
+    def timed_data(config, ddir):
+        t0 = time.perf_counter()
+        splits = real_data(config, ddir)
+        loads.append(time.perf_counter() - t0)
+        sizes.update(valid=len(splits[1]), batch=int(config["batch_size"]))
+        return splits
+
+    def run(sub, max_epochs):
+        argv = ["--name", name, "--num_samples", "1", "--max_epochs",
+                str(max_epochs), "--output_dir", os.path.join(out, sub),
+                "--data_dir", data_dir, "--pack", "--verbose", "0"]
+        t0 = time.perf_counter()
+        (_, epochs_seen, total) = counted_pack(lambda: cli.main(argv))
+        torch.cuda.synchronize()
+        return time.perf_counter() - t0, epochs_seen, total
+
+    runner.get_dataset_by_config = timed_data
+    try:
+        sweep_s, seen, total = run("pack_a", epochs)
+        valid_batches = -(-sizes["valid"] // sizes["batch"])
+        ep = check_pack_epochs(seen, total, "fused", valid_batches)
+        check(all(e["window_length"] == 4096 and e["lambd_hint"] is None
+                  for e in ep), f"the pack's geometry {ep}")
+        runs = [os.path.join(out, "pack_a", name)]
+        if repeat:
+            run("pack_b", epochs)
+            runs.append(os.path.join(out, "pack_b", name))
+        k6_s = ep6 = None
+        if k6:
+            fused.USE_FUSED_BWD = True
+            try:
+                k6_s, seen6, total6 = run("pack_k6", 1)
+            finally:
+                fused.USE_FUSED_BWD = False
+            ep6 = check_pack_epochs(seen6, total6, "fused", valid_batches,
+                                    fused_bwd=True)
+            for k_, v in total6.items():
+                total[k_] += v
+    finally:
+        runner.get_dataset_by_config = real_data
+    sweep_dir = runs[0]
+    rows = runner.load_results(sweep_dir)
+    check(len(rows) == 6, f"{len(rows)} rows in results.csv")
+    for i, row in enumerate(rows):
+        ckpt = os.path.join(row["logdir"], "checkpoint_000000")
+        check(os.path.isfile(os.path.join(ckpt, "best_model")),
+              f"pack trial {i} has no best_model")
+        check(not os.path.exists(os.path.join(ckpt, "best_model.meta.json")),
+              f"pack trial {i} has a sidecar")
+    identical = None
+    if repeat:
+        identical = True
+        for i in range(6):
+            a, b = (os.path.join(d, f"trial_{i:05d}") for d in runs)
+            with open(os.path.join(a, "progress.csv")) as fa, \
+                    open(os.path.join(b, "progress.csv")) as fb_:
+                identical &= fa.read() == fb_.read()
+            wa, wb = (load_checkpoint(os.path.join(
+                d, "checkpoint_000000", "best_model"))["model"]
+                for d in (a, b))
+            identical &= all(torch.equal(wa[n], wb[n]) for n in wa)
+        check(identical, "two pack runs differ")
+    t0 = time.perf_counter()
+    scored = predict_test(sweep_dir, data_dir, verbose=0)
+    predict_s = time.perf_counter() - t0
+    preds = np.load(os.path.join(sweep_dir, f"{rows[0]['config/dataset_name']}"
+                                 "_predictionss.npy"))
+    check(preds.shape[:2] == (6, n_test), f"predictions {preds.shape}")
+    res = dict(name=name, sweep_s=sweep_s, data_load_s=loads,
+               epochs=ep, k6_epoch=ep6, k6_run_s=k6_s,
+               bit_identical_runs=identical, predict_test_s=predict_s,
+               test=[{k: r.get(k) for k in ("test_accuracy", "test_mAP",
+                                            "config/init_lambd",
+                                            "config/trainable",
+                                            "est_lambd", "lambd_est")
+                      if k in r} for r in scored],
+               launches=total,
+               sequential_sweep_s=(sequential or {}).get("sweep_s"))
+    say(f"pack sweep {name} " + json.dumps(res))
+    return res
+
+
+def pack_specband_path(seed: int, dev: torch.device) -> dict:
+    """``fit_trials`` on two trainable trials at lambda 110 and 120 (bf16
+    CNN6, batch 32, esc50_synth clips, lr_tf 1e-3, 2 epochs): both take
+    the hint 106.77 at bucket 1024 (specband, J 24), so the pack rides
+    K1 and K2 with a trial axis; launches counted by epoch against the
+    route :func:`_shared_specband_hint` picked."""
+    from dmel_tpu_torch.parallel import fit_trials
+    config = dict(TRAIN_CONFIG, model_dtype="bfloat16", lr_tf=1e-3)
+    trainset, validset, _ = get_dataset_by_config(config)
+    configs = [dict(config, init_lambd=lam) for lam in (110.0, 120.0)]
+    t0 = time.perf_counter()
+    (state, hists), seen, total = counted_pack(
+        lambda: fit_trials(configs, trainset, validset, seed=seed,
+                           device=dev))
+    fit_s = time.perf_counter() - t0
+    valid_batches = -(-len(validset) // BATCH)
+    hint = stft.pallas_compile_hint(120.0, 1024, HOP)
+    check(all(e["window_length"] == 1024 and e["lambd_hint"] == hint
+              for e in seen), f"pack geometry {seen}")
+    ep = check_pack_epochs(seen, total, "specband", valid_batches)
+    lam = state["pack"].params["spectrogram_layer.lambd"].detach().cpu()
+    check(bool(torch.isfinite(lam).all()) and float(lam[0]) != 110.0,
+          f"lambda {lam}")
+    res = dict(hint=hint, fit_s=fit_s, epochs=ep, lambd=lam.tolist(),
+               records=[h["records"] for h in hists], launches=total)
+    say("pack specband " + json.dumps(res))
+    return res
+
+
 def _kernel_entry(name, source, replaces, launches_by_path, err, err_of,
                   gate, case, prefix="", **fields):
     """One entry of the ``kernels`` line: ``max_abs_err`` is the gated
@@ -2783,6 +3289,14 @@ def main():
                   k6_case(seed, BATCH, 300.0, dev, None, t=1500),
                   k6_case(seed, BATCH, 140.0, dev, None, t=700)]
 
+    with phase("packed kernels"):
+        pack_one = pack_of_one_case(seed, dev)
+        pack5 = packed_fused_case(seed, dev)
+        pack1 = packed_specband_case(seed, dev)
+        # the "pack specband" path's own pack: two trials at 110 and 120
+        pack1_path = packed_specband_case(seed, dev, k=2,
+                                          lams=(110.0, 120.0))
+
     paths = {}
     with phase("model path"):
         paths["inference"] = model_path(seed, dev, 128.0)
@@ -2814,6 +3328,9 @@ def main():
     with tempfile.TemporaryDirectory() as out:
         with phase("CLI sweep"):
             paths["sweep"] = sweep_path(dev, out)[0]
+        with phase("pack sweep esc50_synth"):
+            paths["pack_sweep"] = pack_sweep_path(
+                dev, out, sequential=paths["sweep"])
         with phase("checkpoint prediction"):
             checkpoint_prediction(dev, os.path.join(out, SWEEP_NAME))
         with phase("kill and resume"):
@@ -2826,9 +3343,16 @@ def main():
             paths["sweep_esc50"] = esc50_path(seed, dev, out)
         with phase("fsd sweep"):
             paths["sweep_fsd"] = fsd_path(seed, dev, out)
+        with phase("pack fsd"):
+            paths["pack_fsd"] = pack_sweep_path(
+                dev, out, "fsd", 1, os.path.join(out, "fsd_data"),
+                n_test=FSD_EVAL, repeat=False, k6=False,
+                sequential=paths["sweep_fsd"])
         with phase("pretrained import"):
             paths["pretrained"] = pretrained_path(
                 seed, dev, out, os.path.join(out, "fsd_data"))
+    with phase("pack specband"):
+        paths["pack_specband"] = pack_specband_path(seed, dev)
     with phase("SpecAugment"):
         augment_path(seed, dev)
     with phase("Cnn14"):
@@ -2953,6 +3477,64 @@ def main():
             **fft_fields("K6", main6, cases6),
             dw_err_of_max_direct_stage=max(
                 c["dw_err_of_max_direct_stage"] for c in cases6)),
+    ]
+
+    def path_pack(case, prefix):
+        """A packed entry's numbers at the pack its path launches."""
+        return dict(trials=case["k"], lambd=case["lambd"],
+                    ms=case[prefix + "ms"],
+                    single_launches_ms=case[prefix + "single_launches_ms"],
+                    plain_ms=case[prefix + "plain_ms"],
+                    bound_ms=case[prefix + "bound_ms"])
+
+    def packed_entry(name, source, replaces, key, err, err_of, gate, case,
+                     prefix="", library=True, **fields):
+        lib = (_library(case, "library_ms") if library else
+               dict(library_ms=None))
+        return _kernel_entry(
+            name, source, replaces, by_path(key), err, err_of, gate, case,
+            prefix=prefix, **lib, trials=case["k"], batch=case["batch"],
+            n_fft=case["n_fft"],
+            single_launches_ms=case[prefix + "single_launches_ms"],
+            **fields)
+
+    kernels += [
+        packed_entry(
+            "fused_fwd_packed", "framed_fwd.cu",
+            "dmel_tpu/ops/pallas/fused_dmel.py:68", "K5p",
+            pack5["logmel_max_abs_err"], "log-mel", GATE, pack5,
+            bit_identical_to_single=pack5["fwd_bit_identical_to_single"],
+            pack_of_one_is_single=pack_one["K5"]),
+        packed_entry(
+            "fused_bwd_packed", "framed_bwd.cu",
+            "dmel_tpu/ops/pallas/fused_dmel.py:152", "K6p",
+            pack5["dw_err_of_max"], "dw / max |dw|", DW_GATE, pack5,
+            prefix="k6_", library=False,
+            rel_err_vs_single=pack5["dw_rel_err_vs_single"],
+            dlambd_rel_err=pack5["dlambd_rel_err"],
+            pack_of_one_is_single=pack_one["K6"]),
+        packed_entry(
+            "specband_fwd_packed", "specband_fwd.cu",
+            "dmel_tpu/ops/pallas/specband_dmel.py:476", "K1p",
+            max(c["logmel_max_abs_err"] for c in (pack1, pack1_path)),
+            "log-mel", GATE, pack1,
+            bit_identical_to_single=(pack1["fwd_bit_identical_to_single"]
+                                     and pack1_path[
+                                         "fwd_bit_identical_to_single"]),
+            pack_of_one_is_single=pack_one["K1"],
+            path_pack=path_pack(pack1_path, "")),
+        packed_entry(
+            "specband_bwd_packed", "specband_bwd.cu",
+            "dmel_tpu/ops/pallas/specband_dmel.py:749", "K2p",
+            max(c["drho_err_of_max"] for c in (pack1, pack1_path)),
+            "drho / max |drho|", DRHO_GATE, pack1,
+            prefix="k2_", library=False,
+            rel_err_vs_single=max(c["drho_rel_err_vs_single"]
+                                  for c in (pack1, pack1_path)),
+            dlambd_rel_err=pack1["dlambd_rel_err"]
+            + pack1_path["dlambd_rel_err"],
+            pack_of_one_is_single=pack_one["K2"],
+            path_pack=path_pack(pack1_path, "k2_")),
     ]
     for k in kernels:
         check(k["launches"] > 0, f"{k['name']} never launched on a path")

@@ -6,10 +6,11 @@ The port of ``dmel_tpu`` (JAX on TPU), module for module: ``ops``
 kernels), ``models`` (the DMEL and DSPEC front ends, the probe
 classifiers and MelPANNsNet), ``data`` (AudioMNIST, ESC-50 and the
 synthetic datasets, splits, batching and the prefetching feed),
-``training`` (``fit``, per-group optimizers), ``eval`` (prediction, the
-paper's tables, the complexity model), ``convert`` (weights from the JAX
-package) and ``precision`` (the numeric settings of ``fit`` and
-``predict``).  It imports neither JAX nor the JAX package.  Entry points
+``training`` (``fit``, per-group optimizers), ``parallel``
+(``fit_trials``: a sweep's trials packed into one program), ``eval``
+(prediction, the paper's tables, the complexity model), ``convert``
+(weights from the JAX package) and ``precision`` (the numeric settings
+of ``fit`` and ``predict``).  It imports neither JAX nor the JAX package.  Entry points
 run on ``cuda`` unless the caller passes ``device="cpu"``.
 """
 

@@ -86,3 +86,35 @@ def from_jax_variables(params: dict, batch_stats: dict | None = None):
         out[f"{module}.{stat_names[leaf]}"] = torch.tensor(a)
         out[f"{module}.num_batches_tracked"] = torch.tensor(0)
     return out
+
+
+def jax_trial(tree: dict, i: int) -> dict:
+    """Trial ``i``'s slice of a JAX pack's stacked tree (every leaf with
+    a leading trial axis: the params, batch stats or Adam moments of
+    ``dmel_tpu.parallel.fit_trials``)."""
+    return {key: jax_trial(value, i) if isinstance(value, dict)
+            else np.asarray(value)[i] for key, value in tree.items()}
+
+
+def stack_state_dicts(state_dicts: list) -> dict:
+    """K ``state_dict``s stacked name by name along a new leading axis,
+    as a :class:`~dmel_tpu_torch.models.packed.TrialPack` holds them."""
+    return {name: torch.stack([sd[name] for sd in state_dicts])
+            for name in state_dicts[0]}
+
+
+def from_jax_stacked(params: dict, batch_stats: dict | None = None) -> dict:
+    """The port's stacked tensors (name to ``(K, ...)``) of a JAX pack's
+    stacked ``params`` and ``batch_stats``: :func:`from_jax_variables` of
+    each trial's slice, stacked.  An Adam moment tree (``mu`` or ``nu``
+    of the pack's optimizer state, shaped as the params) converts the
+    same way."""
+    first = params or batch_stats
+    while isinstance(first, dict):
+        first = next(iter(first.values()))
+    k = np.shape(first)[0]
+    return stack_state_dicts([
+        from_jax_variables(jax_trial(params, i),
+                           None if batch_stats is None
+                           else jax_trial(batch_stats, i))
+        for i in range(k)])

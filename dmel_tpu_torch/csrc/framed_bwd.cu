@@ -175,6 +175,12 @@ adjoint_dw_kernel(const float* __restrict__ dreim,
   const int row0 = blockIdx.x * BM;
   const int col0 = blockIdx.y * BN;
   const int ncol = 2 * kp;
+  // trial blockIdx.z of a pack: its dRe|dIm rows, signal rows and partials
+  // (rows is one trial's)
+  const size_t trial = blockIdx.z;
+  dreim += trial * (size_t)rows * ncol;
+  x += trial * (size_t)(rows / nfr) * sig_len;
+  partials += trial * (size_t)n_fft * gridDim.x;
 
   // A loader: dRe|dIm rows a_m + 16 e at depth a_k; 16 neighbouring threads
   // read 16 neighbouring columns of one row.
@@ -357,6 +363,13 @@ adjoint_fft_dw_kernel(const float* __restrict__ x,
   extern __shared__ __align__(16) float2 fft_buf[];   // 2 x fr x n_fft/2
   const int m = n_fft / 2;
   const int n_bins = m + 1;
+  // trial blockIdx.y of a pack: its signal rows, residual, cotangent and
+  // partials (rows is one trial's)
+  const size_t trial = blockIdx.y;
+  x += trial * (size_t)(rows / nfr) * sig_len;
+  reim += trial * (size_t)rows * 2 * kp;
+  dmel += trial * (size_t)rows * n_mels;
+  partials += trial * (size_t)n_fft * gridDim.x;
   float2* a = fft_buf;
   float2* y = fft_buf + fr * m;
   const int n_groups = (rows + fr - 1) / fr;
@@ -474,11 +487,12 @@ int partial_blocks(int rows, int n_fft, bool fft) {
 int launch_bwd(const float* x, const float* reim, const float* table,
                const float* fb, const float* fb_t, const int* bin_lo,
                const int* bin_hi, const float* dmel, float* dreim,
-               float* partials, float* dw, int batch, int sig_len, int nfr,
-               int hop, int n_fft, int kp, int n_bins, int n_mels,
-               const FftPlan* plan, void* stream) {
+               float* partials, float* dw, int batch, int trials,
+               int sig_len, int nfr, int hop, int n_fft, int kp, int n_bins,
+               int n_mels, const FftPlan* plan, void* stream) {
   const int rows = batch * nfr;
-  if (batch <= 0 || nfr <= 0 || rows / nfr != batch || hop <= 0 ||
+  if (batch <= 0 || trials <= 0 || trials > 65535 || nfr <= 0 ||
+      rows / nfr != batch || hop <= 0 ||
       n_bins != n_fft / 2 + 1 || kp < n_bins || kp % BK != 0 ||
       n_mels <= 0) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -492,7 +506,7 @@ int launch_bwd(const float* x, const float* reim, const float* table,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    adjoint_fft_dw_kernel<<<n_blocks, FFT_THREADS, smem, s>>>(
+    adjoint_fft_dw_kernel<<<dim3(n_blocks, trials), FFT_THREADS, smem, s>>>(
         x, reim, table, fb_t, bin_lo, bin_hi, dmel, partials, rows, sig_len,
         nfr, hop, n_fft, kp, n_mels, fft_frames_per_block(n_fft), *plan);
   } else {
@@ -501,18 +515,24 @@ int launch_bwd(const float* x, const float* reim, const float* table,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    dreim_kernel<<<(rows + FR - 1) / FR, DP_THREADS, smem, s>>>(
-        reim, fb, bin_lo, bin_hi, dmel, dreim, rows, nfr, kp, n_bins, n_mels);
+    // per frame row: every trial's rows in one grid
+    const int all_rows = trials * rows;
+    dreim_kernel<<<(all_rows + FR - 1) / FR, DP_THREADS, smem, s>>>(
+        reim, fb, bin_lo, bin_hi, dmel, dreim, all_rows, nfr, kp, n_bins,
+        n_mels);
     err = cudaGetLastError();
     if (err != cudaSuccess) return static_cast<int>(err);
-    dim3 grid(n_blocks, (n_fft + BN - 1) / BN);
+    dim3 grid(n_blocks, (n_fft + BN - 1) / BN, trials);
     adjoint_dw_kernel<<<grid, GEMM_THREADS, 0, s>>>(
         dreim, table, x, partials, rows, sig_len, nfr, hop, n_fft, kp, n_bins);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
-  dw_sum_kernel<<<n_fft, SUM_THREADS, 0, s>>>(partials, dw, n_blocks);
+  // one block a (trial, window sample): partials and dw are (trials,
+  // n_fft, ...) in that order
+  dw_sum_kernel<<<trials * n_fft, SUM_THREADS, 0, s>>>(partials, dw,
+                                                      n_blocks);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -536,20 +556,25 @@ const char* framed_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Columns of the partials scratch the caller allocates, (n_fft, columns),
-// for rows = batch * nfr frame rows on the FFT stage (fft != 0) or the
-// direct stage.
+// Columns of the partials scratch the caller allocates, (trials, n_fft,
+// columns), for rows = batch * nfr frame rows of one trial on the FFT stage
+// (fft != 0) or the direct stage.
 int framed_bwd_partial_blocks(int rows, int n_fft, int fft) {
   return partial_blocks(rows, n_fft, fft != 0);
 }
 
-// x (batch, sig_len); reim (rows, 2*kp) as framed_fwd / fused_fwd wrote it;
-// table (2, n_fft) as there; fb (n_bins, n_mels) dense and fb_t, its
-// transpose (n_mels, n_bins); bin_lo / bin_hi (n_bins) int32, each bin's
-// nonzero mel range; dmel (batch, n_mels, nfr); dreim scratch (rows,
-// 2*kp), read only by the direct stage (null on the FFT stage); partials
-// scratch (n_fft, framed_bwd_partial_blocks(rows, n_fft, stage)); dw
-// (n_fft).  All fp32 unless stated, contiguous, on the current device.
+// A pack of `trials` trials, each of `batch` signal rows (rows = batch *
+// nfr frame rows a trial): x (trials*batch, sig_len); reim (trials*rows,
+// 2*kp) as framed_fwd / fused_fwd wrote it; table (2, n_fft) as there; fb
+// (n_bins, n_mels) dense and fb_t, its transpose (n_mels, n_bins); bin_lo /
+// bin_hi (n_bins) int32, each bin's nonzero mel range; dmel (trials*batch,
+// n_mels, nfr); dreim scratch (trials*rows, 2*kp), read only by the direct
+// stage (null on the FFT stage); partials scratch (trials, n_fft,
+// framed_bwd_partial_blocks(rows, n_fft, stage)); dw (trials, n_fft), one
+// gradient a trial.  Each trial's partials are its own blocks', summed in
+// the order of a launch with trials = 1 on its rows, so trial k's dw is
+// bit for bit that launch's.  All fp32 unless stated, contiguous, on the
+// current device.
 // radices (n_stages ints, host memory) is the FFT stage's plan, or null
 // with n_stages = -1 for the direct stage; a plan that is not one of the
 // complex FFT of length n_fft / 2 is refused.
@@ -558,16 +583,16 @@ int framed_bwd_partial_blocks(int rows, int n_fft, int fft) {
 int framed_bwd(const float* x, const float* reim, const float* table,
                const float* fb, const float* fb_t, const int* bin_lo,
                const int* bin_hi, const float* dmel, float* dreim,
-               float* partials, float* dw, int batch, int sig_len, int nfr,
-               int hop, int n_fft, int kp, int n_bins, int n_mels,
-               const int* radices, int n_stages, void* stream) {
+               float* partials, float* dw, int batch, int trials,
+               int sig_len, int nfr, int hop, int n_fft, int kp, int n_bins,
+               int n_mels, const int* radices, int n_stages, void* stream) {
   FftPlan plan;
   const FftPlan* chosen;
   if (n_fft < 128 || n_fft % 128 != 0 || n_fft > 1024 ||
       !stage_of(radices, n_stages, n_fft, &plan, &chosen))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_bwd(x, reim, table, fb, fb_t, bin_lo, bin_hi, dmel, dreim,
-                    partials, dw, batch, sig_len, nfr, hop, n_fft, kp,
+                    partials, dw, batch, trials, sig_len, nfr, hop, n_fft, kp,
                     n_bins, n_mels, chosen, stream);
 }
 
@@ -576,8 +601,8 @@ int framed_bwd(const float* x, const float* reim, const float* table,
 int fused_bwd(const float* x, const float* reim, const float* table,
               const float* fb, const float* fb_t, const int* bin_lo,
               const int* bin_hi, const float* dmel, float* dreim,
-              float* partials, float* dw, int batch, int sig_len, int nfr,
-              int hop, int n_fft, int kp, int n_bins, int n_mels,
+              float* partials, float* dw, int batch, int trials, int sig_len,
+              int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
               const int* radices, int n_stages, void* stream) {
   FftPlan plan;
   const FftPlan* chosen;
@@ -585,7 +610,7 @@ int fused_bwd(const float* x, const float* reim, const float* table,
       !stage_of(radices, n_stages, n_fft, &plan, &chosen))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_bwd(x, reim, table, fb, fb_t, bin_lo, bin_hi, dmel, dreim,
-                    partials, dw, batch, sig_len, nfr, hop, n_fft, kp,
+                    partials, dw, batch, trials, sig_len, nfr, hop, n_fft, kp,
                     n_bins, n_mels, chosen, stream);
 }
 

@@ -130,6 +130,12 @@ frame_dft_kernel(const float* __restrict__ x, const float* __restrict__ w,
   const int col0 = blockIdx.y * BN;
   const int ncol = 2 * kp;
   const int pad = n_fft / 2;
+  // trial blockIdx.z of a pack: its rows / nfr signal rows, its window,
+  // its Re|Im rows (rows is one trial's)
+  const size_t trial = blockIdx.z;
+  x += trial * (size_t)(rows / nfr) * sig_len;
+  w += trial * n_fft;
+  reim += trial * (size_t)rows * ncol;
 
   // A loader: 8 elements a thread, (row a_m + 16 e, depth a_k): 16
   // neighbouring threads read 16 neighbouring samples of one frame.
@@ -254,6 +260,9 @@ power_mel_kernel(const float* __restrict__ reim, const float* __restrict__ fb,
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * FR;
   const int ncol = 2 * kp;
+  // trial blockIdx.y of a pack (rows is one trial's)
+  reim += (size_t)blockIdx.y * rows * ncol;
+  out += (size_t)blockIdx.y * rows * n_mels;
 
   for (int i = tid; i < FR * n_bins; i += MEL_THREADS) {
     const int f = i / n_bins;
@@ -287,6 +296,13 @@ fused_fft_kernel(const float* __restrict__ x, const float* __restrict__ w,
   extern __shared__ __align__(16) float2 fft_buf[];   // 2 x fr x n_fft/2
   const int m = n_fft / 2;
   const int row0 = blockIdx.x * fr;
+  // trial blockIdx.y of a pack: its signal rows, window and outputs (rows
+  // is one trial's)
+  const size_t trial = blockIdx.y;
+  x += trial * (size_t)(rows / nfr) * sig_len;
+  w += trial * n_fft;
+  reim += trial * (size_t)rows * 2 * kp;
+  out += trial * (size_t)rows * n_mels;
   float2* a = fft_buf;
   float2* b = fft_buf + fr * m;
   fft_load_frames(a, x, w, row0, fr, rows, sig_len, nfr, hop, n_fft);
@@ -313,11 +329,11 @@ fused_fft_kernel(const float* __restrict__ x, const float* __restrict__ w,
 // The direct stage: frame_dft_kernel, then power_mel_kernel.
 int launch_direct(const float* x, const float* w, const float* table,
                   const float* fb, const int* mel_lo, const int* mel_hi,
-                  float* reim, float* out, int batch, int sig_len, int nfr,
-                  int hop, int n_fft, int kp, int n_bins, int n_mels,
-                  cudaStream_t s) {
+                  float* reim, float* out, int batch, int trials,
+                  int sig_len, int nfr, int hop, int n_fft, int kp,
+                  int n_bins, int n_mels, cudaStream_t s) {
   const int rows = batch * nfr;
-  dim3 grid1((rows + BM - 1) / BM, (2 * kp) / BN);
+  dim3 grid1((rows + BM - 1) / BM, (2 * kp) / BN, trials);
   frame_dft_kernel<<<grid1, GEMM_THREADS, 0, s>>>(
       x, w, table, reim, rows, sig_len, nfr, hop, n_fft, kp, n_bins);
   cudaError_t err = cudaGetLastError();
@@ -328,7 +344,8 @@ int launch_direct(const float* x, const float* w, const float* table,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  power_mel_kernel<<<(rows + FR - 1) / FR, MEL_THREADS, smem, s>>>(
+  power_mel_kernel<<<dim3((rows + FR - 1) / FR, trials), MEL_THREADS, smem,
+                     s>>>(
       reim, fb, mel_lo, mel_hi, out, rows, nfr, kp, n_bins, n_mels);
   return static_cast<int>(cudaGetLastError());
 }
@@ -336,8 +353,8 @@ int launch_direct(const float* x, const float* w, const float* table,
 // The FFT stage: one launch of fused_fft_kernel.
 int launch_fft(const float* x, const float* w, const float* table,
                const float* fb, const int* mel_lo, const int* mel_hi,
-               float* reim, float* out, int batch, int sig_len, int nfr,
-               int hop, int n_fft, int kp, int n_bins, int n_mels,
+               float* reim, float* out, int batch, int trials, int sig_len,
+               int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
                const FftPlan& plan, cudaStream_t s) {
   const int rows = batch * nfr;
   const int fr = fft_frames_per_block(n_fft);
@@ -346,15 +363,17 @@ int launch_fft(const float* x, const float* w, const float* table,
       fused_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_fft_kernel<<<(rows + fr - 1) / fr, FFT_THREADS, smem, s>>>(
+  fused_fft_kernel<<<dim3((rows + fr - 1) / fr, trials), FFT_THREADS, smem,
+                     s>>>(
       x, w, table, fb, mel_lo, mel_hi, reim, out, rows, sig_len, nfr, hop,
       n_fft, kp, n_bins, n_mels, fr, plan);
   return static_cast<int>(cudaGetLastError());
 }
 
-bool bad_geometry(int batch, int nfr, int hop, int n_fft, int kp, int n_bins,
-                  int n_mels) {
-  return batch <= 0 || nfr <= 0 || (batch * nfr) / nfr != batch ||
+bool bad_geometry(int batch, int trials, int nfr, int hop, int n_fft, int kp,
+                  int n_bins, int n_mels) {
+  return batch <= 0 || trials <= 0 || trials > 65535 || nfr <= 0 ||
+         (batch * nfr) / nfr != batch ||
          hop <= 0 || n_fft < 2 || n_fft % 2 != 0 || n_bins != n_fft / 2 + 1 ||
          kp < n_bins || (2 * kp) % BN != 0 || n_mels <= 0;
 }
@@ -363,22 +382,24 @@ bool bad_geometry(int batch, int nfr, int hop, int n_fft, int kp, int n_bins,
 // stage); a plan that is not one of n_fft is refused.
 int launch_stage(const float* x, const float* w, const float* table,
                  const float* fb, const int* mel_lo, const int* mel_hi,
-                 float* reim, float* out, int batch, int sig_len, int nfr,
-                 int hop, int n_fft, int kp, int n_bins, int n_mels,
+                 float* reim, float* out, int batch, int trials, int sig_len,
+                 int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
                  const int* radices, int n_stages, cudaStream_t s) {
-  if (bad_geometry(batch, nfr, hop, n_fft, kp, n_bins, n_mels)) {
+  if (bad_geometry(batch, trials, nfr, hop, n_fft, kp, n_bins, n_mels)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   if (n_stages < 0) {
     return launch_direct(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
-                         sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, s);
+                         trials, sig_len, nfr, hop, n_fft, kp, n_bins, n_mels,
+                         s);
   }
   FftPlan plan;
   if (!fft_plan_from(radices, n_stages, n_fft, &plan)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_fft(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
-                    sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, plan, s);
+                    trials, sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, plan,
+                    s);
 }
 
 }  // namespace
@@ -389,10 +410,14 @@ const char* framed_fwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x (batch, sig_len); w (n_fft); table (2, n_fft): cos then -sin of
-// 2 pi i / n_fft; fb (n_bins, n_mels) dense; mel_lo / mel_hi (n_mels) int32,
-// each band's nonzero bin range; reim (batch*nfr, 2*kp); out (batch, n_mels,
-// nfr).  All fp32 unless stated, contiguous, on the current device.
+// A pack of `trials` trials, each of `batch` signal rows: x (trials*batch,
+// sig_len), trial k's rows k*batch ..; w (trials, n_fft), one window a
+// trial; table (2, n_fft): cos then -sin of 2 pi i / n_fft; fb (n_bins,
+// n_mels) dense; mel_lo / mel_hi (n_mels) int32, each band's nonzero bin
+// range; reim (trials*batch*nfr, 2*kp); out (trials*batch, n_mels, nfr).
+// Each kernel takes the trial as a grid dimension, so trial k's outputs are
+// bit for bit those of a launch with trials = 1 on its rows and window.
+// All fp32 unless stated, contiguous, on the current device.
 
 // radices (n_stages ints, host memory) is the FFT stage's plan, or null
 // with n_stages = -1 for the direct stage; a plan that is not one of the
@@ -401,27 +426,27 @@ const char* framed_fwd_error_string(int code) {
 // K3: n_fft a multiple of 128, at most 1024 (the framed route's geometry).
 int framed_fwd(const float* x, const float* w, const float* table,
                const float* fb, const int* mel_lo, const int* mel_hi,
-               float* reim, float* out, int batch, int sig_len, int nfr,
-               int hop, int n_fft, int kp, int n_bins, int n_mels,
+               float* reim, float* out, int batch, int trials, int sig_len,
+               int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
                const int* radices, int n_stages, void* stream) {
   if (n_fft % 128 != 0 || n_fft > 1024) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_stage(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
-                      sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, radices,
-                      n_stages, static_cast<cudaStream_t>(stream));
+                      trials, sig_len, nfr, hop, n_fft, kp, n_bins, n_mels,
+                      radices, n_stages, static_cast<cudaStream_t>(stream));
 }
 
 // K5: any even n_fft up to 4096; w is the window centred in n_fft.
 int fused_fwd(const float* x, const float* w, const float* table,
               const float* fb, const int* mel_lo, const int* mel_hi,
-              float* reim, float* out, int batch, int sig_len, int nfr,
-              int hop, int n_fft, int kp, int n_bins, int n_mels,
+              float* reim, float* out, int batch, int trials, int sig_len,
+              int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
               const int* radices, int n_stages, void* stream) {
   if (n_fft > 4096) return static_cast<int>(cudaErrorInvalidValue);
   return launch_stage(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
-                      sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, radices,
-                      n_stages, static_cast<cudaStream_t>(stream));
+                      trials, sig_len, nfr, hop, n_fft, kp, n_bins, n_mels,
+                      radices, n_stages, static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

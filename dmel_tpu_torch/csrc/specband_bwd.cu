@@ -317,6 +317,14 @@ tap_grad_kernel(const float* __restrict__ xext, const float* __restrict__ rho,
   const int warp = tid >> 5;
   const int pad = (NT - n_taps) / 2;
   const int ncol = 2 * kp;
+  // trial blockIdx.y of a pack: its spectra rows, taps, cotangent and
+  // partials (rows is one trial's); every trial walks the same items
+  const size_t trial = blockIdx.y;
+  xext += trial * (size_t)rows * ncol;
+  rho += trial * (size_t)k_sig * n_taps;
+  dmel += trial * (size_t)rows * n_mels;
+  if (logmel != nullptr) logmel += trial * (size_t)rows * n_mels;
+  partials += trial * (size_t)k_sig * n_taps * gridDim.x;
   const bool masked = band_map != nullptr;
   // the staging's four-column loads: aligned rows and tile starts
   const bool vec = W % 4 == 0 && pad % 4 == 0 && kp % 4 == 0 &&
@@ -482,8 +490,8 @@ cudaError_t launch_grad(const float* xext, const float* rho, const float* fb,
                         const float* dmel, const float* logmel,
                         const int* band_map, const int* sig_range,
                         const int* bin_range, float* partials, int rows,
-                        int nfr, int kp, int k_ext, int n_bins, int n_taps,
-                        int n_mels, int k_sig, cudaStream_t s) {
+                        int trials, int nfr, int kp, int k_ext, int n_bins,
+                        int n_taps, int n_mels, int k_sig, cudaStream_t s) {
   const size_t smem = grad_smem_bytes<NT>(n_mels, k_sig);
   cudaError_t err = cudaFuncSetAttribute(
       tap_grad_kernel<NT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -493,7 +501,7 @@ cudaError_t launch_grad(const float* xext, const float* rho, const float* fb,
                              cudaFuncAttributePreferredSharedMemoryCarveout,
                              cudaSharedmemCarveoutMaxShared);
   if (err != cudaSuccess) return err;
-  tap_grad_kernel<NT><<<GRAD_BLOCKS, THREADS, smem, s>>>(
+  tap_grad_kernel<NT><<<dim3(GRAD_BLOCKS, trials), THREADS, smem, s>>>(
       xext, rho, fb, dmel, logmel, band_map, sig_range, bin_range, partials,
       rows, nfr, kp, k_ext, n_bins, n_taps, n_mels, k_sig);
   return cudaGetLastError();
@@ -507,8 +515,8 @@ const char* specband_bwd_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// Columns of the partials scratch the caller allocates, (k_sig * n_taps,
-// columns): one a block of the fixed grid.
+// Columns of the partials scratch the caller allocates, (trials * k_sig *
+// n_taps, columns): one a block of the fixed grid.
 int specband_bwd_partial_blocks() { return GRAD_BLOCKS; }
 
 // The tap count of the kernel instance that serves n_taps taps (its taps
@@ -518,20 +526,25 @@ int specband_bwd_tap_instance(int n_taps) {
   return n_taps <= 25 ? 25 : n_taps <= 33 ? 33 : n_taps <= 49 ? 49 : 127;
 }
 
-// xext (rows, 2*kp) as specband_fwd wrote it; rho (k_sig, n_taps); fb
-// (n_bins, n_mels); dmel and logmel (batch, n_mels, nfr), logmel null
+// A pack of `trials` trials, each of `rows` frame rows: xext (trials*rows,
+// 2*kp) as specband_fwd wrote it; rho (trials, k_sig, n_taps); fb (n_bins,
+// n_mels); dmel and logmel (trials*batch, n_mels, nfr), logmel null
 // without the log epilogue; band_map (n_mels) int32, each mel band's sigma
 // in [0, k_sig), or null for k_sig = 1; sig_range scratch (k_sig, 2) and
-// bin_range scratch (n_bins, 2), int32; partials scratch (k_sig * n_taps,
-// specband_bwd_partial_blocks()); drho (k_sig, n_taps).  All fp32 unless
-// stated, contiguous, on the current device.
+// bin_range scratch (n_bins, 2), int32, shared by the trials; partials
+// scratch (trials * k_sig * n_taps, specband_bwd_partial_blocks()); drho
+// (trials, k_sig, n_taps).  tap_grad_kernel takes the trial as a grid
+// dimension and each trial's partials are summed in the order of a launch
+// with trials = 1 on its rows, so trial k's drho is bit for bit that
+// launch's.  All fp32 unless stated, contiguous, on the current device.
 int specband_bwd(const float* xext, const float* rho, const float* fb,
                  const float* dmel, const float* logmel, const int* band_map,
                  int* sig_range, int* bin_range, float* partials, float* drho,
-                 int rows, int nfr, int kp, int k_ext, int n_bins, int n_taps,
-                 int n_mels, int k_sig, void* stream) {
+                 int rows, int trials, int nfr, int kp, int k_ext, int n_bins,
+                 int n_taps, int n_mels, int k_sig, void* stream) {
   const int nt = specband_bwd_tap_instance(n_taps);
-  if (rows <= 0 || nfr <= 0 || rows % nfr != 0 || k_ext > kp || nt == 0 ||
+  if (rows <= 0 || trials <= 0 || trials > 65535 || nfr <= 0 ||
+      rows % nfr != 0 || k_ext > kp || nt == 0 ||
       n_bins + n_taps - 1 != k_ext || n_mels <= 0 || k_sig < 1 ||
       k_sig > MAX_SIGMA || (k_sig > 1 && band_map == nullptr)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -551,11 +564,11 @@ int specband_bwd(const float* xext, const float* rho, const float* fb,
                 : nt == 33 ? launch_grad<33>
                 : nt == 49 ? launch_grad<49> : launch_grad<127>;
   err = launch(xext, rho, fb, dmel, logmel, band_map, sig_range, bin_range,
-               partials, rows, nfr, kp, k_ext, n_bins, n_taps, n_mels, k_sig,
-               s);
+               partials, rows, trials, nfr, kp, k_ext, n_bins, n_taps, n_mels,
+               k_sig, s);
   if (err != cudaSuccess) return static_cast<int>(err);
-  tap_sum_kernel<<<k_sig * n_taps, SUM_THREADS, 0, s>>>(partials, drho,
-                                                         GRAD_BLOCKS);
+  tap_sum_kernel<<<trials * k_sig * n_taps, SUM_THREADS, 0, s>>>(
+      partials, drho, GRAD_BLOCKS);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -237,6 +237,12 @@ band_mel_kernel(const float* __restrict__ xext, const float* __restrict__ rho,
   const int tid = threadIdx.x;
   const int row0 = blockIdx.x * FR;
   const int ncol = 2 * kp;
+  // trial blockIdx.y of a pack: its spectra rows, taps and output rows
+  // (rows is one trial's)
+  const size_t trial = blockIdx.y;
+  xext += trial * (size_t)rows * ncol;
+  rho += trial * (size_t)k_sig * n_taps;
+  out += trial * (size_t)rows * n_mels;
 
   for (int i = tid; i < k_sig * n_taps; i += BAND_THREADS) taps[i] = rho[i];
   for (int m = tid; m < n_mels; m += BAND_THREADS)
@@ -306,10 +312,16 @@ const char* specband_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
 }
 
-// x (batch, sig_len); rho (k_sig, n_taps), one tap vector a sigma; fb
-// (n_bins, n_mels); band_map (n_mels) int32, each mel band's sigma in
+// A pack of `trials` trials, each of `batch` signal rows: x (trials*batch,
+// sig_len); rho (trials, k_sig, n_taps), one tap vector a (trial, sigma);
+// fb (n_bins, n_mels); band_map (n_mels) int32, each mel band's sigma in
 // [0, k_sig), or null for k_sig = 1; sig_range scratch (k_sig, 2) int32;
-// xext scratch (batch*nfr, 2*kp); out (batch, n_mels, nfr).  The spectra
+// xext scratch (trials*batch*nfr, 2*kp); out (trials*batch, n_mels, nfr).
+// The spectra do not depend on the taps: one pass serves every trial's
+// rows.  The band stage takes the trial as a grid dimension, so trial k's
+// outputs are bit for bit those of a launch with trials = 1 on its rows
+// and taps.  The filterbank, the spectra stage's constants and the sigma
+// ranges are shared.  The spectra
 // stage: radices (n_stages ints, host memory), the FFT's plan, with table
 // (2, n_fft), cos then -sin of 2 pi i / n_fft, bins (kp) int32 and signs
 // (2, kp), the extended-bin map; or radices null and n_stages = -1 for
@@ -319,12 +331,13 @@ const char* specband_error_string(int code) {
 int specband_fwd(const float* x, const float* basis, const float* table,
                  const int* bins, const float* signs, const float* rho,
                  const float* fb, const int* band_map, int* sig_range,
-                 float* xext, float* out, int batch, int sig_len, int nfr,
-                 int hop, int n_fft, int kp, int k_ext, int n_bins,
+                 float* xext, float* out, int batch, int trials, int sig_len,
+                 int nfr, int hop, int n_fft, int kp, int k_ext, int n_bins,
                  int n_taps, int n_mels, int k_sig, int log_out,
                  const int* radices, int n_stages, void* stream) {
   const int rows = batch * nfr;
-  if (batch <= 0 || nfr <= 0 || rows / nfr != batch ||
+  if (batch <= 0 || trials <= 0 || trials > 65535 || nfr <= 0 ||
+      rows / nfr != batch || (trials * rows) / trials != rows ||
       (2 * kp) % BN != 0 || k_ext > kp || n_taps > MAX_TAPS ||
       n_bins != n_fft / 2 + 1 || n_bins + n_taps - 1 != k_ext ||
       n_mels <= 0 || k_sig < 1 || k_sig > MAX_SIGMA ||
@@ -345,6 +358,8 @@ int specband_fwd(const float* x, const float* basis, const float* table,
   cudaError_t err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
 
+  // the spectra of every trial's rows in one grid
+  const int all_rows = trials * rows;
   if (fft) {
     const int fr = fft_frames_per_block(n_fft);
     const size_t smem = fft_smem_bytes(n_fft);
@@ -352,13 +367,13 @@ int specband_fwd(const float* x, const float* basis, const float* table,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    ext_fft_kernel<<<(rows + fr - 1) / fr, FFT_THREADS, smem, s>>>(
-        x, table, bins, signs, xext, rows, sig_len, nfr, hop, n_fft, kp, fr,
-        plan);
+    ext_fft_kernel<<<(all_rows + fr - 1) / fr, FFT_THREADS, smem, s>>>(
+        x, table, bins, signs, xext, all_rows, sig_len, nfr, hop, n_fft, kp,
+        fr, plan);
   } else {
-    dim3 grid1((rows + BM - 1) / BM, (2 * kp) / BN);
+    dim3 grid1((all_rows + BM - 1) / BM, (2 * kp) / BN);
     ext_dft_kernel<<<grid1, GEMM_THREADS, 0, s>>>(
-        x, basis, xext, rows, sig_len, nfr, hop, n_fft, 2 * kp);
+        x, basis, xext, all_rows, sig_len, nfr, hop, n_fft, 2 * kp);
   }
   err = cudaGetLastError();
   if (err != cudaSuccess) return static_cast<int>(err);
@@ -369,7 +384,8 @@ int specband_fwd(const float* x, const float* basis, const float* table,
                              cudaFuncAttributeMaxDynamicSharedMemorySize,
                              static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  band_mel_kernel<<<(rows + FR - 1) / FR, BAND_THREADS, smem, s>>>(
+  band_mel_kernel<<<dim3((rows + FR - 1) / FR, trials), BAND_THREADS, smem,
+                    s>>>(
       xext, rho, fb, band_map, sig_range, out, rows, nfr, kp, k_ext, n_bins,
       n_taps, n_mels, k_sig, log_out);
   return static_cast<int>(cudaGetLastError());

@@ -8,7 +8,9 @@ resumed trial needs.
 
 :class:`PrefetchIterator` runs the slicing and the host-to-device
 placement of the next batches on a background thread;
-:func:`device_batches` builds that pipeline for a device.
+:func:`device_batches` builds that pipeline for a device, and
+:func:`stacked_batches` puts K loaders' batches side by side for a pack
+of trials.
 """
 
 from __future__ import annotations
@@ -176,6 +178,14 @@ class PrefetchIterator:
                 raise item.error
             raise StopIteration
         return item
+
+
+def stacked_batches(loaders):
+    """The batches of K loaders side by side, as a pack of K trials
+    takes them: each item ``(xs, ys, mask)`` with a leading axis of K,
+    trial k's from loader k; the shortest loader ends the stream."""
+    for batches in zip(*loaders):
+        yield tuple(np.stack(parts) for parts in zip(*batches))
 
 
 def device_batches(batches, device: torch.device, prefetch: int = 2):

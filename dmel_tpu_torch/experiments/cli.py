@@ -7,8 +7,9 @@ the same flags):
 
 ``--output_dir`` holds one directory per sweep; sweeps are resumable
 (finished trials are skipped on re-invocation).  The trials run on the
-GPU; ``--device cpu`` runs them on the CPU.  ``--pack`` (every trial in
-one vmapped program) is not ported yet and raises.
+GPU; ``--device cpu`` runs them on the CPU.  ``--pack`` trains every
+trial as one pack on the card (``runner.run_sweep_packed``), each trial
+stopping on its own patience.
 """
 
 from __future__ import annotations
@@ -35,8 +36,9 @@ def main(argv=None):
     parser.add_argument("--no_resume", action="store_true",
                         help="Re-run finished trials instead of skipping.")
     parser.add_argument("--pack", action="store_true",
-                        help="Run all trials as one vmapped program "
-                             "(not ported yet: raises).")
+                        help="Run all trials as one program (per-trial "
+                             "early stop via an active-mask freeze; see "
+                             "parallel/trials.py).")
     parser.add_argument("--device", type=str, default=None,
                         help="Device of the trials (default cuda).")
     args = parser.parse_args(argv)
@@ -44,7 +46,8 @@ def main(argv=None):
     if args.pack:
         sweep_dir = run_sweep_packed(args.name, args.num_samples,
                                      args.max_epochs, args.output_dir,
-                                     args.data_dir, verbose=args.verbose)
+                                     args.data_dir, verbose=args.verbose,
+                                     device=args.device)
     else:
         sweep_dir = run_sweep(args.name, args.num_samples, args.max_epochs,
                               args.output_dir, args.data_dir,

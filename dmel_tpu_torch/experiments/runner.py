@@ -18,7 +18,10 @@ directory of the same layout as the JAX package's:
 The ``config/*`` column convention is Ray's dataframe export, so the
 eval layer can rebuild any trial's model from a results row.
 ``resume=True`` skips the trials the manifest marks done, and a trial
-killed mid-run resumes from its live state.
+killed mid-run resumes from its live state.  :func:`run_sweep_packed`
+trains the whole grid as one pack of trials and writes the same layout
+(its checkpoints without the sidecar, as the JAX package's packed sweep
+writes them).
 
 The one difference: the JAX package reads and writes ``results.csv``
 with pandas and returns data frames; the port uses the ``csv`` module,
@@ -37,6 +40,7 @@ from typing import Optional
 import torch
 
 from dmel_tpu_torch.data.registry import get_dataset_by_config
+from dmel_tpu_torch.device import resolve_device
 from dmel_tpu_torch.experiments.configs import expand_grid, get_search_space
 from dmel_tpu_torch.training.train import fit
 
@@ -110,14 +114,66 @@ def run_trial(config: dict, data_dir: str, trial_dir: str,
 
 
 def run_sweep_packed(name: str, num_samples: int, max_epochs: int,
-                     output_dir: str, data_dir: str, **kwargs):
-    """The JAX package's packed sweep (every trial in one vmapped
-    program, ``dmel_tpu/parallel/trials.py:fit_trials``) is not ported
-    yet; raises ``NotImplementedError``."""
-    raise NotImplementedError(
-        "packed sweeps (fit_trials of the JAX package's parallel/trials.py)"
-        " are not ported yet; run the trials one after another with "
-        "run_sweep")
+                     output_dir: str, data_dir: str, *, verbose: int = 0,
+                     space: Optional[dict] = None, mesh=None, device=None):
+    """Run the whole grid as one pack of trials on ``device`` (default
+    ``cuda``): :func:`~dmel_tpu_torch.parallel.trials.fit_trials`, every
+    trial in one program, each stopping on its own patience, the pack
+    ending when all have.
+
+    Writes the layout of :func:`run_sweep` (``config.json``,
+    ``progress.csv``, ``result.json`` and ``best_model`` per trial,
+    ``manifest.json`` and ``results.csv``), as the JAX package's packed
+    sweep does: ``best_model`` is the trial's best-on-valid-loss state
+    (its last one if it never improved) with no geometry sidecar, so
+    test prediction takes the bucket and hint from the checkpoint's
+    lambda.  ``mesh`` raises ``NotImplementedError``, as in
+    :func:`~dmel_tpu_torch.parallel.trials.fit_trials`.  Returns the
+    sweep directory."""
+    from dmel_tpu_torch.parallel.trials import fit_trials
+    from dmel_tpu_torch.training.checkpoint import save_checkpoint
+
+    if mesh is not None:
+        raise NotImplementedError(
+            "run_sweep_packed: mesh (the trial axis over several cards, data "
+            "parallelism) is not ported yet")
+    device = resolve_device(device)
+    space = space if space is not None else get_search_space(name,
+                                                            max_epochs)
+    grid = expand_grid(space)
+    trials = [dict(cfg, trial_repeat=rep)
+              for rep in range(num_samples) for cfg in grid]
+
+    sweep_dir = os.path.join(output_dir, name)
+    os.makedirs(sweep_dir, exist_ok=True)
+
+    trainset, validset, _ = get_dataset_by_config(trials[0], data_dir)
+    state, histories = fit_trials(trials, trainset, validset, mesh=mesh,
+                                  verbose=verbose, device=device)
+    pack = state["pack"]
+    manifest = {}
+    for i, (config, hist) in enumerate(zip(trials, histories)):
+        tname = trial_dirname(i)
+        tdir = os.path.join(sweep_dir, tname)
+        os.makedirs(tdir, exist_ok=True)
+        with open(os.path.join(tdir, "config.json"), "w") as f:
+            json.dump(config, f, indent=2, default=str)
+        _write_progress_csv(os.path.join(tdir, "progress.csv"),
+                            hist["records"], config)
+        weights = hist.get("best_state") or pack.trial_state_dict(i)
+        save_checkpoint(os.path.join(tdir, "checkpoint_000000",
+                                     "best_model"), {"model": weights})
+        summary = {k: v for k, v in hist.items()
+                   if k not in ("records", "best_state")}
+        if hist["records"]:
+            summary.update(hist["records"][-1])
+        with open(os.path.join(tdir, "result.json"), "w") as f:
+            json.dump(summary, f, indent=2, default=float)
+        manifest[tname] = "done"
+    with open(os.path.join(sweep_dir, "manifest.json"), "w") as f:
+        json.dump(manifest, f, indent=2)
+    collect_results(sweep_dir)
+    return sweep_dir
 
 
 def run_sweep(name: str, num_samples: int, max_epochs: int,

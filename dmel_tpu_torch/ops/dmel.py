@@ -106,6 +106,16 @@ def mel_spectrogram(x, lambd, *, n_mels: int, sample_rate: int,
     kernel on the specband route.  ``impl`` is one of ``"exact"``,
     ``"specband"``, ``"framed"``, ``"fused"`` and ``"auto"`` (see the
     module docstring).
+
+    A vector ``lambd`` (K,) is a pack of K trials (the JAX package's
+    function under ``jax.vmap``): ``x`` (K, ..., T), trial k's rows
+    analysed with ``lambd[k]``'s window, the result ``(K, ..., n_mels,
+    n_frames)``.  Every trial takes the route the one static hint gives;
+    the kernels run once for the pack (the packed entries of
+    :mod:`~dmel_tpu_torch.ops.specband`, :mod:`~dmel_tpu_torch.ops.framed`
+    and :mod:`~dmel_tpu_torch.ops.fused`), and the exact route frames,
+    multiplies each trial's window and takes ``rfft``
+    (:func:`~dmel_tpu_torch.ops.stft.stft_power_packed`).
     """
     dev = resolve_device(device)
     x = torch.as_tensor(x).to(dev)
@@ -143,6 +153,10 @@ def mel_spectrogram(x, lambd, *, n_mels: int, sample_rate: int,
         raise ValueError(f"unknown impl {impl!r}: exact, specband, framed, "
                          "fused or auto")
 
+    if lambd.dim() > 1 or (lambd.dim() == 1 and x.dim() < 2):
+        raise ValueError("lambd is a scalar, or a vector (K,) with x (K, "
+                         f"..., T); got {tuple(lambd.shape)} and "
+                         f"{tuple(x.shape)}")
     if route == "specband":
         n_fft = int(window_length)
         w = gaussian_window(lambd, n_fft, norm=normalize_window,
@@ -222,7 +236,10 @@ def multi_sigma_mel_spectrogram(
     band ``j`` computed from the spectrogram analysed with window
     ``lambds[band_map[j]]`` (default :func:`default_band_map`).  With
     K == 1 this is :func:`mel_spectrogram`.  Differentiable in every
-    ``lambds[k]``; runs on ``device`` (default ``cuda``).
+    ``lambds[k]``; runs on ``device`` (default ``cuda``).  ``lambds`` (P,
+    K) is a pack of P trials, each with its K sigmas: ``x`` (P, ..., T),
+    the result ``(P, ..., n_mels, n_frames)``, the specband kernels run
+    once for the pack.
 
     The route is :func:`multi_sigma_route`'s: ``impl="auto"`` takes the
     specband kernels at ``k_sig = K`` (one shared spectra pass) where
@@ -233,7 +250,8 @@ def multi_sigma_mel_spectrogram(
     dev = resolve_device(device)
     x = torch.as_tensor(x).to(dev)
     lambds = torch.atleast_1d(torch.as_tensor(lambds, dtype=x.dtype)).to(dev)
-    k = lambds.shape[0]
+    packed = lambds.dim() == 2
+    k = lambds.shape[-1]
     if band_map is None:
         band_map = default_band_map(n_mels, k)
     if f_max is None:
@@ -247,9 +265,12 @@ def multi_sigma_mel_spectrogram(
         window_length=window_length, lambd_hint=lambd_hint, impl=impl)
     if route == "specband":
         wl = int(window_length)
-        windows = torch.stack([gaussian_window(lam, wl, norm=normalize_window,
-                                               dtype=x.dtype)
-                               for lam in lambds])
+        windows = (gaussian_window(lambds, wl, norm=normalize_window,
+                                   dtype=x.dtype) if packed else
+                   torch.stack([gaussian_window(lam, wl,
+                                                norm=normalize_window,
+                                                dtype=x.dtype)
+                                for lam in lambds]))
         return specband.specband_mel_power_multi(
             x, windows, band_map, n_fft=wl, hop_length=hop_length,
             n_mels=n_mels, sample_rate=sample_rate, f_min=f_min,
@@ -259,7 +280,7 @@ def multi_sigma_mel_spectrogram(
                                   hop_length=hop_length,
                                   norm=normalize_window,
                                   window_length=window_length)
-                      for lam in lambds])                  # (K, ..., F, Tt)
+                      for lam in lambds.unbind(-1)])       # (K, ..., F, Tt)
     fb_k = _masked_fbanks(ps.shape[-2], float(f_min), float(f_max), n_mels,
                           sample_rate, bm, k, ps.dtype, dev)
     return torch.einsum("k...ft,kfm->...mt", ps, fb_k)

@@ -223,7 +223,7 @@ def _fwd_lib() -> ctypes.CDLL:
     32-bit int), sizes as ``c_int``."""
     lib = _cuda.load("framed_fwd").cdll
     for entry in (lib.framed_fwd, lib.fused_fwd):
-        entry.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 8
+        entry.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
                           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         entry.restype = ctypes.c_int
     lib.framed_fwd_error_string.argtypes = [ctypes.c_int]
@@ -236,7 +236,7 @@ def _bwd_lib() -> ctypes.CDLL:
     :func:`_fwd_lib`)."""
     lib = _cuda.load("framed_bwd").cdll
     for entry in (lib.framed_bwd, lib.fused_bwd):
-        entry.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 8
+        entry.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
                           + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
         entry.restype = ctypes.c_int
     lib.framed_bwd_partial_blocks.argtypes = [ctypes.c_int] * 3
@@ -258,34 +258,48 @@ def _check_operands(name: str, device: torch.device, *tensors):
             raise ValueError(f"{name} takes contiguous operands")
 
 
+def _pack_rows(name: str, x2: torch.Tensor, windows: torch.Tensor,
+               n_fft: int) -> tuple[int, int]:
+    """``(trials, rows of one trial)`` of a launch: ``windows`` ``(n_fft,)``
+    is one trial, ``(K, n_fft)`` a pack of K whose trial k owns rows
+    ``k B .. (k + 1) B - 1`` of ``x2`` (K B, T); ``ValueError`` otherwise."""
+    trials = 1 if windows.dim() == 1 else windows.shape[0]
+    if (x2.dim() != 2 or windows.shape[-1] != n_fft or windows.dim() > 2
+            or trials < 1 or x2.shape[0] % trials):
+        raise ValueError(f"{name}: x (K B, T) and windows (n_fft,) or (K, "
+                         f"{n_fft}), got {tuple(x2.shape)} and "
+                         f"{tuple(windows.shape)}")
+    return trials, x2.shape[0] // trials
+
+
 def launch_fwd(entry: str, x2: torch.Tensor, window: torch.Tensor,
                g: Geom, radices: tuple[int, ...] | None = None):
     """Launch the forward kernel's entry point ``entry`` (``"framed_fwd"``
     for K3, ``"fused_fwd"`` for K5) on the current stream, without
     synchronising: ``(out, reim)`` as :func:`fwd_plain` gives them.
-    ``radices`` is the spectra stage, the FFT of that plan
-    (:func:`fft_plan.plan`) or ``None`` for the direct DFT.  Checks
+    ``window`` ``(K, n_fft)`` launches a pack of K trials in one grid
+    (:func:`_pack_rows`): trial k's rows and outputs are those of a launch
+    on its rows alone.  ``radices`` is the spectra stage, the FFT of that
+    plan (:func:`fft_plan.plan`) or ``None`` for the direct DFT.  Checks
     device, dtype, shape and contiguity; a failed build or launch (a plan
     that is not one of n_fft included) raises.  The caller counts the
     launch."""
     _check_operands(entry, x2.device, x2, window)
-    if x2.dim() != 2 or window.shape != (g.n_fft,):
-        raise ValueError(f"{entry}: x (B, T) and window ({g.n_fft},), got "
-                         f"{tuple(x2.shape)} and {tuple(window.shape)}")
-    b, t = x2.shape
+    trials, b = _pack_rows(entry, x2, window, g.n_fft)
+    t = x2.shape[1]
     nfr = num_frames(t, g.hop_length)
     n_bins, kp = g.n_fft // 2 + 1, kp_of(g.n_fft)
     with torch.cuda.device(x2.device):
         c = _kernel_consts(g, x2.device)
-        reim = torch.empty((b * nfr, 2 * kp), dtype=torch.float32,
+        reim = torch.empty((trials * b * nfr, 2 * kp), dtype=torch.float32,
                            device=x2.device)
-        out = torch.empty((b, g.n_mels, nfr), dtype=torch.float32,
+        out = torch.empty((trials * b, g.n_mels, nfr), dtype=torch.float32,
                           device=x2.device)
         lib = _fwd_lib()
         args = (x2.data_ptr(), window.data_ptr(), c.table.data_ptr(),
                 c.fb.data_ptr(), c.mel_lo.data_ptr(), c.mel_hi.data_ptr(),
-                reim.data_ptr(), out.data_ptr(), b, t, nfr, g.hop_length,
-                g.n_fft, kp, n_bins, g.n_mels)
+                reim.data_ptr(), out.data_ptr(), b, trials, t, nfr,
+                g.hop_length, g.n_fft, kp, n_bins, g.n_mels)
         rc = getattr(lib, entry)(
             *args, *_cuda.plan_args(radices),
             torch.cuda.current_stream(x2.device).cuda_stream)
@@ -334,23 +348,29 @@ def framed_dwindow_plain(x2: torch.Tensor, reim: torch.Tensor,
 
 def launch_bwd(entry: str, x2: torch.Tensor, reim: torch.Tensor,
                dmel: torch.Tensor, g: Geom,
-               radices: tuple[int, ...] | None = None) -> torch.Tensor:
+               radices: tuple[int, ...] | None = None,
+               trials: int = 1) -> torch.Tensor:
     """Launch the backward kernels' entry point ``entry`` (``"framed_bwd"``
     for K4, ``"fused_bwd"`` for K6) on the current stream, without
     synchronising: the window's gradient ``(n_fft,)`` as
-    :func:`framed_dwindow_plain` defines it.  ``radices`` is the stage
-    that computes dfw: the inverse FFT of that plan
-    (:func:`fft_plan.plan`) or ``None`` for the direct adjoint DFT.
-    Checks device, dtype, shape and contiguity; a failed build or launch
-    (a plan that is not one of n_fft included) raises.  The caller counts
-    the launch."""
+    :func:`framed_dwindow_plain` defines it; with ``trials`` K > 1 the
+    rows of ``x2`` are a pack of K trials (as :func:`launch_fwd`'s) and
+    the result is ``(K, n_fft)``, trial k's bit for bit a launch's on its
+    rows alone.  ``radices`` is the stage that computes dfw: the inverse
+    FFT of that plan (:func:`fft_plan.plan`) or ``None`` for the direct
+    adjoint DFT.  Checks device, dtype, shape and contiguity; a failed
+    build or launch (a plan that is not one of n_fft included) raises.
+    The caller counts the launch."""
     _check_operands(entry, x2.device, x2, reim, dmel)
-    b, t = x2.shape
+    bk, t = x2.shape
+    if trials < 1 or bk % trials:
+        raise ValueError(f"{entry}: {bk} rows are no pack of {trials}")
+    b = bk // trials
     nfr = num_frames(t, g.hop_length)
     n_bins, kp = g.n_fft // 2 + 1, kp_of(g.n_fft)
     rows = b * nfr
-    if (reim.shape != (rows, 2 * kp)
-            or dmel.shape != (b, g.n_mels, nfr)):
+    if (reim.shape != (trials * rows, 2 * kp)
+            or dmel.shape != (bk, g.n_mels, nfr)):
         raise ValueError(
             f"{entry}: inconsistent shapes x {tuple(x2.shape)}, "
             f"reim {tuple(reim.shape)}, dmel {tuple(dmel.shape)}")
@@ -361,16 +381,18 @@ def launch_bwd(entry: str, x2: torch.Tensor, reim: torch.Tensor,
                                                  int(radices is not None))
         # dRe|dIm scratch: the direct stage's only
         dreim = torch.empty_like(reim) if radices is None else None
-        partials = torch.empty((g.n_fft, n_blocks), dtype=torch.float32,
-                               device=x2.device)
-        dw = torch.empty(g.n_fft, dtype=torch.float32, device=x2.device)
+        partials = torch.empty((trials, g.n_fft, n_blocks),
+                               dtype=torch.float32, device=x2.device)
+        dw = torch.empty((trials, g.n_fft) if trials > 1 else (g.n_fft,),
+                         dtype=torch.float32, device=x2.device)
         rc = getattr(lib, entry)(
             x2.data_ptr(), reim.data_ptr(), c.table.data_ptr(),
             c.fb.data_ptr(), c.fb_t.data_ptr(), c.bin_lo.data_ptr(),
             c.bin_hi.data_ptr(), dmel.data_ptr(),
             None if dreim is None else dreim.data_ptr(),
-            partials.data_ptr(), dw.data_ptr(), b, t, nfr, g.hop_length,
-            g.n_fft, kp, n_bins, g.n_mels, *_cuda.plan_args(radices),
+            partials.data_ptr(), dw.data_ptr(), b, trials, t, nfr,
+            g.hop_length, g.n_fft, kp, n_bins, g.n_mels,
+            *_cuda.plan_args(radices),
             torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: "
@@ -419,6 +441,83 @@ def dx_plain(x2: torch.Tensor, window: torch.Tensor, dmel: torch.Tensor,
     return dx
 
 
+def _trial_rows(t: torch.Tensor, trials: int) -> list[torch.Tensor]:
+    """The rows of ``t`` split into ``trials`` equal parts, one a trial."""
+    return list(t.chunk(trials)) if trials > 1 else [t]
+
+
+def _looped_fwd(fwd, x2: torch.Tensor, windows: torch.Tensor, g: Geom):
+    """A forward wrapper's plain version on a pack: ``fwd`` on each
+    trial's rows and window, the outputs and residuals concatenated."""
+    outs = [fwd(xk, wk, g) for xk, wk in zip(_trial_rows(x2, len(windows)),
+                                               windows)]
+    return torch.cat([o for o, _ in outs]), torch.cat([r for _, r in outs])
+
+
+def _looped_dwindow(dwindow, x2: torch.Tensor, reim: torch.Tensor,
+                    dmel: torch.Tensor, g: Geom,
+                    trials: int) -> torch.Tensor:
+    """A window gradient's plain version on a pack: ``dwindow`` on each
+    trial's rows, stacked to ``(trials, n_fft)``."""
+    return torch.stack([dwindow(*parts, g) for parts in zip(
+        _trial_rows(x2, trials), _trial_rows(reim, trials),
+        _trial_rows(dmel, trials))])
+
+
+def framed_fwd_packed(x2: torch.Tensor, windows: torch.Tensor, g: Geom):
+    """K3's wrapper on a pack of K trials: ``x2`` (K B, T), trial k's rows
+    ``k B ..``, ``windows`` (K, n_fft); ``(out, reim)`` as
+    :func:`framed_fwd` gives them on each trial's rows, concatenated.
+    CPU tensors take :func:`fwd_plain` on each trial; CUDA tensors launch
+    ``csrc/framed_fwd.cu`` (entry ``framed_fwd``) once for the pack, and
+    add one to ``framed_fwd_packed.launches``."""
+    if x2.device.type == "cpu":
+        return _looped_fwd(fwd_plain, x2, windows, g)
+    res = launch_fwd("framed_fwd", x2, windows, g, fft_plan.plan(g.n_fft))
+    framed_fwd_packed.launches += 1
+    return res
+
+
+framed_fwd_packed.launches = 0
+
+
+def framed_dwindow_packed(x2: torch.Tensor, reim: torch.Tensor,
+                          dmel: torch.Tensor, g: Geom,
+                          trials: int) -> torch.Tensor:
+    """K4's wrapper on a pack of ``trials`` trials (rows as
+    :func:`framed_fwd_packed`'s): the windows' gradients ``(trials,
+    n_fft)``.  CPU tensors take :func:`framed_dwindow_plain` on each
+    trial; CUDA tensors launch ``csrc/framed_bwd.cu`` (entry
+    ``framed_bwd``) once for the pack, and add one to
+    ``framed_dwindow_packed.launches``."""
+    if x2.device.type == "cpu":
+        return _looped_dwindow(framed_dwindow_plain, x2, reim, dmel, g,
+                               trials)
+    dw = launch_bwd("framed_bwd", x2, reim, dmel, g,
+                    dwindow_radices(g.n_fft), trials)
+    framed_dwindow_packed.launches += 1
+    return dw.reshape(trials, g.n_fft)
+
+
+framed_dwindow_packed.launches = 0
+
+
+def framed_dwindow_plain_packed(x2: torch.Tensor, reim: torch.Tensor,
+                                dmel: torch.Tensor, g: Geom,
+                                trials: int) -> torch.Tensor:
+    """The torch adjoint :func:`framed_dwindow_plain` on each trial of a
+    pack, ``(trials, n_fft)``: the fused route's default backward."""
+    return _looped_dwindow(framed_dwindow_plain, x2, reim, dmel, g, trials)
+
+
+def dx_plain_packed(x2: torch.Tensor, windows: torch.Tensor,
+                    dmel: torch.Tensor, g: Geom) -> torch.Tensor:
+    """:func:`dx_plain` on each trial of a pack, concatenated."""
+    trials = len(windows)
+    return torch.cat([dx_plain(xk, wk, dk, g) for xk, wk, dk in zip(
+        _trial_rows(x2, trials), windows, _trial_rows(dmel, trials))])
+
+
 class WindowedMel(torch.autograd.Function):
     """``(x2, window) -> mel`` through the forward wrapper ``fwd``, which
     keeps the Re|Im residual, with the window's gradient from
@@ -447,6 +546,32 @@ class WindowedMel(torch.autograd.Function):
         return dx, dw, None, None, None
 
 
+class WindowedMelPacked(torch.autograd.Function):
+    """:class:`WindowedMel` on a pack of K trials: ``x2`` (K B, T), trial
+    k's rows ``k B ..``, ``windows`` (K, n_fft); ``fwd`` and ``dwindow``
+    are packed wrappers (``framed_fwd_packed``, ``fused_fwd_packed``,
+    ...), so the pack takes one launch of each kernel.  Returns the mel
+    of all K B rows; the windows' gradient is ``(K, n_fft)``."""
+
+    @staticmethod
+    def forward(ctx, x2, windows, g: Geom, fwd, dwindow):
+        out, reim = fwd(x2, windows, g)
+        ctx.g, ctx.dwindow = g, dwindow
+        ctx.save_for_backward(x2, windows, reim)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x2, windows, reim = ctx.saved_tensors
+        dout = dout.contiguous()
+        dx = dw = None
+        if ctx.needs_input_grad[1]:
+            dw = ctx.dwindow(x2, reim, dout, ctx.g, len(windows))
+        if ctx.needs_input_grad[0]:
+            dx = dx_plain_packed(x2, windows, dout, ctx.g)
+        return dx, dw, None, None, None
+
+
 def framed_mel_power(x: torch.Tensor, window: torch.Tensor, *, n_fft: int,
                      hop_length: int, n_mels: int, sample_rate: int,
                      f_min: float = 0.0,
@@ -461,6 +586,11 @@ def framed_mel_power(x: torch.Tensor, window: torch.Tensor, *, n_fft: int,
     synchronising, and take the window's gradient from K4; CPU tensors
     run the same autograd function over the plain versions.  Float32
     only on CUDA (``TypeError`` otherwise).
+
+    ``window`` ``(K, n_fft)`` is a pack of K trials: ``x`` (K, ..., T),
+    trial k's rows analysed with window k, the result ``(K, ...,
+    n_mels, n_frames)``; CUDA tensors launch K3 and K4 once for the pack
+    (:func:`framed_fwd_packed`, :func:`framed_dwindow_packed`).
     """
     if f_max is None:
         f_max = sample_rate // 2
@@ -473,8 +603,12 @@ def framed_mel_power(x: torch.Tensor, window: torch.Tensor, *, n_fft: int,
     x2 = x.reshape(-1, x.shape[-1]).to(torch.float32).contiguous()
     g = Geom(n_fft, hop_length, n_mels, sample_rate, float(f_min),
              float(f_max))
-    out = WindowedMel.apply(x2, window.to(torch.float32).contiguous(), g,
-                            framed_fwd, framed_dwindow)
+    window = window.to(torch.float32).contiguous()
+    if window.dim() == 2:
+        out = WindowedMelPacked.apply(x2, window, g, framed_fwd_packed,
+                                      framed_dwindow_packed)
+    else:
+        out = WindowedMel.apply(x2, window, g, framed_fwd, framed_dwindow)
     return out.reshape(lead + out.shape[-2:])
 
 

@@ -128,6 +128,47 @@ fused_dwindow.launches = 0
 fused_dwindow.fft_launches = 0
 
 
+def fused_fwd_packed(x2: torch.Tensor, windows: torch.Tensor,
+                     g: framed.Geom):
+    """K5's wrapper on a pack of K trials: ``x2`` (K B, T), trial k's rows
+    ``k B ..``, ``windows`` (K, n_fft) each centred in n_fft; ``(out,
+    reim)`` as :func:`fused_fwd` gives them on each trial's rows,
+    concatenated.  CPU tensors take :func:`framed.fwd_plain` on each
+    trial; CUDA tensors launch ``csrc/framed_fwd.cu`` (entry
+    ``fused_fwd``) once for the pack, and add one to
+    ``fused_fwd_packed.launches``."""
+    if x2.device.type == "cpu":
+        return framed._looped_fwd(framed.fwd_plain, x2, windows, g)
+    res = framed.launch_fwd("fused_fwd", x2, windows, g,
+                            fft_plan.plan(g.n_fft))
+    fused_fwd_packed.launches += 1
+    return res
+
+
+fused_fwd_packed.launches = 0
+
+
+def fused_dwindow_packed(x2: torch.Tensor, reim: torch.Tensor,
+                         dmel: torch.Tensor, g: framed.Geom,
+                         trials: int) -> torch.Tensor:
+    """K6's wrapper on a pack of ``trials`` trials (rows as
+    :func:`fused_fwd_packed`'s): the windows' gradients ``(trials,
+    n_fft)``.  CPU tensors take :func:`framed.framed_dwindow_plain` on
+    each trial; CUDA tensors launch ``csrc/framed_bwd.cu`` (entry
+    ``fused_bwd``) once for the pack, its partials per (trial, block),
+    and add one to ``fused_dwindow_packed.launches``."""
+    if x2.device.type == "cpu":
+        return framed._looped_dwindow(framed.framed_dwindow_plain, x2, reim,
+                                      dmel, g, trials)
+    dw = framed.launch_bwd("fused_bwd", x2, reim, dmel, g,
+                           fft_plan.plan(g.n_fft), trials)
+    fused_dwindow_packed.launches += 1
+    return dw.reshape(trials, g.n_fft)
+
+
+fused_dwindow_packed.launches = 0
+
+
 def dmel_power(x: torch.Tensor, lambd, *, win_length: int, n_fft: int,
                hop_length: int, n_mels: int, sample_rate: int,
                f_min: float = 0.0, f_max: float | None = None,
@@ -145,6 +186,12 @@ def dmel_power(x: torch.Tensor, lambd, *, win_length: int, n_fft: int,
     (``TypeError`` otherwise); CPU tensors run the same autograd function
     over the plain forward.  The window's gradient comes from K6 when
     :data:`USE_FUSED_BWD` is set, else from the torch adjoint.
+
+    A vector ``lambd`` (K,) is a pack of K trials: ``x`` (K, ..., T),
+    trial k's rows analysed with ``lambd[k]``'s window, the result ``(K,
+    ..., n_mels, n_frames)``; CUDA tensors launch K5 once for the pack
+    (:func:`fused_fwd_packed`) and K6 (:func:`fused_dwindow_packed`) or
+    the torch adjoint on each trial for the gradient.
     """
     if f_max is None:
         f_max = sample_rate // 2
@@ -156,8 +203,15 @@ def dmel_power(x: torch.Tensor, lambd, *, win_length: int, n_fft: int,
     g = framed.Geom(n_fft, hop_length, n_mels, sample_rate, float(f_min),
                     float(f_max))
     w = _window(lambd, win_length, n_fft, normalize_window, x.device)
-    dwindow = fused_dwindow if USE_FUSED_BWD else framed.framed_dwindow_plain
-    out = framed.WindowedMel.apply(x2, w, g, fused_fwd, dwindow)
+    if w.dim() == 2:
+        dwindow = (fused_dwindow_packed if USE_FUSED_BWD
+                   else framed.framed_dwindow_plain_packed)
+        out = framed.WindowedMelPacked.apply(x2, w.contiguous(), g,
+                                             fused_fwd_packed, dwindow)
+    else:
+        dwindow = (fused_dwindow if USE_FUSED_BWD
+                   else framed.framed_dwindow_plain)
+        out = framed.WindowedMel.apply(x2, w, g, fused_fwd, dwindow)
     return out.reshape(lead + out.shape[-2:])
 
 

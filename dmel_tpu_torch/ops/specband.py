@@ -411,7 +411,7 @@ def _fwd_lib() -> ctypes.CDLL:
     stream as ``c_void_p`` (ctypes would pass a bare Python int as a
     32-bit int), sizes as ``c_int``."""
     lib = _cuda.load("specband_fwd").cdll
-    lib.specband_fwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 12
+    lib.specband_fwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 13
                                  + [ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_void_p])
     lib.specband_fwd.restype = ctypes.c_int
@@ -423,7 +423,7 @@ def _fwd_lib() -> ctypes.CDLL:
 def _bwd_lib() -> ctypes.CDLL:
     """K2's library with its C signatures declared (as :func:`_fwd_lib`)."""
     lib = _cuda.load("specband_bwd").cdll
-    lib.specband_bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 8
+    lib.specband_bwd.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_int] * 9
                                  + [ctypes.c_void_p])
     lib.specband_bwd.restype = ctypes.c_int
     lib.specband_bwd_partial_blocks.argtypes = []
@@ -433,19 +433,36 @@ def _bwd_lib() -> ctypes.CDLL:
     return lib
 
 
+def _pack_of(rows: int, rho: torch.Tensor, trials: int | None):
+    """``(trials, rows of one trial, k_sig)`` of a launch: ``trials`` None
+    is one trial with ``rho`` ``(2J + 1,)`` or ``(k_sig, 2J + 1)``; an int
+    K is a pack whose ``rho`` has a leading axis of K and whose trial k
+    owns rows ``k (rows / K) ..``; ``ValueError`` otherwise."""
+    k = 1 if trials is None else trials
+    single_dim = rho.dim() - (trials is not None)
+    if (k < 1 or rows % k or (trials is not None and rho.shape[0] != k)
+            or single_dim not in (1, 2)):
+        raise ValueError(f"specband: {rows} rows and taps "
+                         f"{tuple(rho.shape)} are no pack of {k}")
+    return k, rows // k, rho.shape[-2] if single_dim == 2 else 1
+
+
 def launch_fwd(x2: torch.Tensor, rho: torch.Tensor, g: _Geom,
-               radices: tuple[int, ...] | None):
+               radices: tuple[int, ...] | None, trials: int | None = None):
     """Launch K1 (``csrc/specband_fwd.cu``) at ``k_sig`` = the taps' rows
     on the current stream, without synchronising: ``(out, xext)`` as
-    :func:`_fwd_plain` gives them.  ``radices`` is the spectra stage, the
-    FFT of that plan (:func:`fft_plan.plan`) or ``None`` for the direct
-    DFT.  A failed build or launch raises.  The caller counts the
-    launch."""
-    b, t = x2.shape
+    :func:`_fwd_plain` gives them.  ``trials`` K launches a pack of K
+    trials in one grid (:func:`_pack_of`; ``rho`` ``(K, ...)``): one
+    spectra pass over all rows, trial k's band stage with its own taps,
+    its outputs those of a launch on its rows alone.  ``radices`` is the
+    spectra stage, the FFT of that plan (:func:`fft_plan.plan`) or
+    ``None`` for the direct DFT.  A failed build or launch raises.  The
+    caller counts the launch."""
+    bk, t = x2.shape
+    k, b, k_sig = _pack_of(bk, rho, trials)
     nfr = num_frames(t, g.hop_length)
     n_bins, k_ext, _, _ = _geom(g.n_fft, g.j_taps)
     kp = _kp(g.n_fft, g.j_taps)
-    k_sig = _taps2(rho).shape[0]
     with torch.cuda.device(x2.device):
         fb = _fb(g, x2.device)
         basis = table = bins = signs = None
@@ -458,9 +475,9 @@ def launch_fwd(x2: torch.Tensor, rho: torch.Tensor, g: _Geom,
         rho = rho.contiguous()
         sig_range = torch.empty((k_sig, 2), dtype=torch.int32,
                                 device=x2.device)
-        xext = torch.empty((b * nfr, 2 * kp), dtype=torch.float32,
+        xext = torch.empty((bk * nfr, 2 * kp), dtype=torch.float32,
                            device=x2.device)
-        out = torch.empty((b, g.n_mels, nfr), dtype=torch.float32,
+        out = torch.empty((bk, g.n_mels, nfr), dtype=torch.float32,
                           device=x2.device)
         lib = _fwd_lib()
         rc = lib.specband_fwd(
@@ -468,7 +485,7 @@ def launch_fwd(x2: torch.Tensor, rho: torch.Tensor, g: _Geom,
                              for a in (basis, table, bins, signs)),
             rho.data_ptr(), fb.data_ptr(),
             None if band_map is None else band_map.data_ptr(),
-            sig_range.data_ptr(), xext.data_ptr(), out.data_ptr(), b, t,
+            sig_range.data_ptr(), xext.data_ptr(), out.data_ptr(), b, k, t,
             nfr, g.hop_length, g.n_fft, kp, k_ext, n_bins,
             2 * g.j_taps + 1, g.n_mels, k_sig, int(g.log_epilogue),
             *_cuda.plan_args(radices),
@@ -542,7 +559,8 @@ def specband_drho_plain(xext: torch.Tensor, rho: torch.Tensor,
                         for s, r in enumerate(rho)])
 
 
-def _check_drho_operands(xext, rho, fb, dmel, logmel, band_map):
+def _check_drho_operands(xext, rho, fb, dmel, logmel, band_map,
+                         trials=None):
     ops = [xext, rho, fb, dmel] + ([] if logmel is None else [logmel])
     for t in ops:
         if t.device != xext.device:
@@ -551,7 +569,8 @@ def _check_drho_operands(xext, rho, fb, dmel, logmel, band_map):
             raise TypeError("specband_drho takes float32 operands")
         if not t.is_contiguous():
             raise ValueError("specband_drho takes contiguous operands")
-    if (xext.dim() != 2 or rho.dim() != (1 if band_map is None else 2)
+    taps_dim = (1 if band_map is None else 2) + (trials is not None)
+    if (xext.dim() != 2 or rho.dim() != taps_dim
             or fb.dim() != 2 or dmel.dim() != 3):
         raise ValueError("specband_drho: xext (rows, 2 kp), rho (taps,) or "
                          "(K, taps) with a band_map, fb (n_bins, n_mels), "
@@ -570,7 +589,7 @@ def _check_drho_operands(xext, rho, fb, dmel, logmel, band_map):
 
 def specband_drho(xext: torch.Tensor, rho: torch.Tensor, fb: torch.Tensor,
                   dmel: torch.Tensor, logmel: torch.Tensor | None = None,
-                  band_map=None) -> torch.Tensor:
+                  band_map=None, trials: int | None = None) -> torch.Tensor:
     """K2's wrapper: the taps' gradient, ``(2J + 1,)`` or, with
     ``(K, 2J + 1)`` taps and a ``band_map``, ``(K, 2J + 1)``, as
     :func:`specband_drho_plain` defines it.
@@ -580,16 +599,20 @@ def specband_drho(xext: torch.Tensor, rho: torch.Tensor, fb: torch.Tensor,
     without synchronising, after checking device, dtype, shape and
     contiguity; a failed build or launch raises.  Each launch adds one
     to ``specband_drho.launches``, or with a ``band_map`` to
-    ``specband_drho.multi_launches``.
+    ``specband_drho.multi_launches``.  ``trials`` K (and ``rho`` ``(K,
+    ...)``) launches a pack of K trials in one grid, the caller counting
+    the launch (:func:`specband_drho_packed`); trial k's gradient is a
+    launch's on its rows alone, bit for bit.
     """
     if xext.device.type == "cpu":
         return specband_drho_plain(xext, rho, fb, dmel, logmel, band_map)
     if xext.device.type != "cuda":
         raise ValueError(f"specband runs on cpu or cuda, not {xext.device}")
-    _check_drho_operands(xext, rho, fb, dmel, logmel, band_map)
+    _check_drho_operands(xext, rho, fb, dmel, logmel, band_map, trials)
     rows, ncol = xext.shape
     n_bins, n_mels = fb.shape
-    k_sig, n_taps = _taps2(rho).shape
+    k, rows, k_sig = _pack_of(rows, rho, trials)
+    n_taps = rho.shape[-1]
     with torch.cuda.device(xext.device):
         bm = (None if band_map is None else _band_map_tensor(
             check_band_map(band_map, n_mels, k_sig), xext.device))
@@ -599,7 +622,7 @@ def specband_drho(xext: torch.Tensor, rho: torch.Tensor, fb: torch.Tensor,
         bin_range = torch.empty((n_bins, 2), dtype=torch.int32,
                                 device=xext.device)
         partials = torch.empty(
-            (k_sig * n_taps, lib.specband_bwd_partial_blocks()),
+            (k * k_sig * n_taps, lib.specband_bwd_partial_blocks()),
             dtype=torch.float32, device=xext.device)
         drho = torch.empty(rho.shape, dtype=torch.float32,
                            device=xext.device)
@@ -608,20 +631,94 @@ def specband_drho(xext: torch.Tensor, rho: torch.Tensor, fb: torch.Tensor,
             None if logmel is None else logmel.data_ptr(),
             None if bm is None else bm.data_ptr(), sig_range.data_ptr(),
             bin_range.data_ptr(), partials.data_ptr(), drho.data_ptr(), rows,
-            dmel.shape[2], ncol // 2, n_bins + n_taps - 1, n_bins, n_taps,
+            k, dmel.shape[2], ncol // 2, n_bins + n_taps - 1, n_bins, n_taps,
             n_mels, k_sig, torch.cuda.current_stream(xext.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("specband_bwd launch failed: "
                            + lib.specband_bwd_error_string(rc).decode())
-    if band_map is None:
-        specband_drho.launches += 1
-    else:
-        specband_drho.multi_launches += 1
+    if trials is None:
+        if band_map is None:
+            specband_drho.launches += 1
+        else:
+            specband_drho.multi_launches += 1
     return drho
 
 
 specband_drho.launches = 0
 specband_drho.multi_launches = 0
+
+
+def fwd_packed(x2: torch.Tensor, rho: torch.Tensor, g: _Geom):
+    """K1's wrapper on a pack of K trials: ``x2`` (K B, T), trial k's rows
+    ``k B ..``, ``rho`` (K, 2J + 1), or (K, k_sig, 2J + 1) with
+    ``g.band_map``; ``(out, xext)`` as :func:`_fwd` gives them on each
+    trial's rows, concatenated.  CPU tensors take :func:`_fwd_plain` on
+    each trial; CUDA tensors launch ``csrc/specband_fwd.cu`` once for the
+    pack (one spectra pass over every row, the band stage with each
+    trial's taps) and add one to ``fwd_packed.launches`` (with
+    ``g.band_map``, to ``fwd_packed.multi_launches``) and, on the FFT
+    stage, to ``fwd_packed.fft_launches``."""
+    trials = rho.shape[0]
+    if x2.device.type == "cpu":
+        outs = [_fwd_plain(xk, rk, g) for xk, rk in zip(x2.chunk(trials),
+                                                         rho)]
+        return torch.cat([o for o, _ in outs]), torch.cat([e for _, e in outs])
+    radices = fft_plan.plan(g.n_fft)
+    res = launch_fwd(x2, rho.contiguous(), g, radices, trials)
+    if g.band_map is None:
+        fwd_packed.launches += 1
+    else:
+        fwd_packed.multi_launches += 1
+    if radices is not None:
+        fwd_packed.fft_launches += 1
+    return res
+
+
+fwd_packed.launches = 0
+fwd_packed.multi_launches = 0
+fwd_packed.fft_launches = 0
+
+
+def specband_drho_packed(xext: torch.Tensor, rho: torch.Tensor,
+                         fb: torch.Tensor, dmel: torch.Tensor,
+                         logmel: torch.Tensor | None, band_map,
+                         trials: int) -> torch.Tensor:
+    """K2's wrapper on a pack of ``trials`` trials (rows as
+    :func:`fwd_packed`'s, ``rho`` with a leading trial axis): the taps'
+    gradients, shaped as ``rho``.  CPU tensors take
+    :func:`specband_drho_plain` on each trial; CUDA tensors launch
+    ``csrc/specband_bwd.cu`` once for the pack, its partials per (trial,
+    block), and add one to ``specband_drho_packed.launches`` (with a
+    ``band_map``, to ``specband_drho_packed.multi_launches``)."""
+    if xext.device.type == "cpu":
+        parts = zip(xext.chunk(trials), rho, dmel.chunk(trials),
+                    [None] * trials if logmel is None
+                    else logmel.chunk(trials))
+        return torch.stack([specband_drho_plain(xe, r, fb, dm, lm, band_map)
+                            for xe, r, dm, lm in parts])
+    drho = specband_drho(xext, rho, fb, dmel, logmel, band_map, trials)
+    if band_map is None:
+        specband_drho_packed.launches += 1
+    else:
+        specband_drho_packed.multi_launches += 1
+    return drho
+
+
+specband_drho_packed.launches = 0
+specband_drho_packed.multi_launches = 0
+
+
+def _dx(x2: torch.Tensor, rho: torch.Tensor, dout: torch.Tensor,
+        logmel: torch.Tensor | None, g: _Geom) -> torch.Tensor:
+    """The signal's gradient: a vjp through the plain rebuild, outside
+    any kernel, as in the JAX package."""
+    dmel = dout if logmel is None else dout * torch.exp(-logmel)
+    with torch.enable_grad():
+        xv = x2.detach().requires_grad_()
+        mel = _mel_from_taps_plain(xv, rho.detach(),
+                                   g._replace(log_epilogue=False))
+        dx, = torch.autograd.grad(mel, xv, dmel)
+    return dx
 
 
 class _SpecbandMel(torch.autograd.Function):
@@ -634,7 +731,7 @@ class _SpecbandMel(torch.autograd.Function):
     the band diagonals is this one.  The forward keeps K1's spectra
     buffer ``xext`` and, with the log epilogue, its output as the
     residuals.  ``dx`` (only when ``x2`` needs a gradient) is a vjp
-    through the plain rebuild, outside any kernel, as there.
+    through the plain rebuild, outside any kernel, as there (:func:`_dx`).
     """
 
     @staticmethod
@@ -655,12 +752,39 @@ class _SpecbandMel(torch.autograd.Function):
             drho = specband_drho(xext, rho.contiguous(), fb, dout, logmel,
                                  g.band_map)
         if ctx.needs_input_grad[0]:
-            dmel = dout if logmel is None else dout * torch.exp(-logmel)
-            with torch.enable_grad():
-                xv = x2.detach().requires_grad_()
-                mel = _mel_from_taps_plain(xv, rho.detach(),
-                                           g._replace(log_epilogue=False))
-                dx, = torch.autograd.grad(mel, xv, dmel)
+            dx = _dx(x2, rho, dout, logmel, g)
+        return dx, drho, None
+
+
+class _SpecbandMelPacked(torch.autograd.Function):
+    """:class:`_SpecbandMel` on a pack of K trials: ``x2`` (K B, T), trial
+    k's rows ``k B ..``, ``rho`` with a leading trial axis; one launch of
+    K1 (:func:`fwd_packed`) and of K2 (:func:`specband_drho_packed`) for
+    the pack.  Returns the mel of all K B rows."""
+
+    @staticmethod
+    def forward(ctx, x2, rho, g: _Geom):
+        out, xext = fwd_packed(x2, rho, g)
+        ctx.g = g
+        ctx.save_for_backward(x2, rho, xext, out if g.log_epilogue else None)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        x2, rho, xext, logmel = ctx.saved_tensors
+        g = ctx.g
+        trials = rho.shape[0]
+        dout = dout.contiguous()
+        dx = drho = None
+        if ctx.needs_input_grad[1]:
+            drho = specband_drho_packed(xext, rho.contiguous(),
+                                        _fb(g, xext.device), dout, logmel,
+                                        g.band_map, trials)
+        if ctx.needs_input_grad[0]:
+            logs = ([None] * trials if logmel is None
+                    else logmel.chunk(trials))
+            dx = torch.cat([_dx(xk, rk, dk, lk, g) for xk, rk, dk, lk in zip(
+                x2.chunk(trials), rho, dout.chunk(trials), logs)])
         return dx, drho, None
 
 
@@ -681,15 +805,24 @@ def specband_mel_power(x: torch.Tensor, window: torch.Tensor, *,
     synchronising; a failed build or launch raises.  The gradient in
     ``window`` comes from K2 through the taps (:func:`window_taps_sym`
     is differentiable), the gradient in ``x`` from the plain rebuild.
+
+    ``window`` ``(K, n_fft)`` is a pack of K trials: ``x`` (K, ..., T),
+    trial k's rows analysed with window k, the result ``(K, ...,
+    n_mels, n_frames)``.  CPU tensors take the plain function on each
+    trial; CUDA tensors launch K1 and K2 once for the pack
+    (:func:`fwd_packed`, :func:`specband_drho_packed`).
     """
     if f_max is None:
         f_max = sample_rate // 2
     _check(x, window, n_fft, hop_length, n_mels, j_taps)
+    kw = dict(n_fft=n_fft, hop_length=hop_length, n_mels=n_mels,
+              sample_rate=sample_rate, f_min=f_min, f_max=f_max,
+              j_taps=j_taps, log_epilogue=log_epilogue)
     if x.device.type == "cpu":
-        return specband_mel_power_plain(
-            x, window, n_fft=n_fft, hop_length=hop_length, n_mels=n_mels,
-            sample_rate=sample_rate, f_min=f_min, f_max=f_max,
-            j_taps=j_taps, log_epilogue=log_epilogue)
+        if window.dim() == 2:
+            return torch.stack([specband_mel_power_plain(xk, wk, **kw)
+                                for xk, wk in zip(x, window)])
+        return specband_mel_power_plain(x, window, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"specband runs on cpu or cuda, not {x.device}")
     if x.dtype != torch.float32 or window.dtype != torch.float32:
@@ -700,7 +833,8 @@ def specband_mel_power(x: torch.Tensor, window: torch.Tensor, *,
               float(f_max), j_taps, log_epilogue)
     with torch.cuda.device(x.device):
         rho = window_taps_sym(window, n_fft, j_taps)
-        out = _SpecbandMel.apply(x2, rho, g)
+        fn = _SpecbandMelPacked if window.dim() == 2 else _SpecbandMel
+        out = fn.apply(x2, rho, g)
     return out.reshape(lead + out.shape[-2:])
 
 
@@ -726,16 +860,26 @@ def specband_mel_power_multi(x: torch.Tensor, windows: torch.Tensor,
     the FFT stage), float32 only, on the current
     stream and without synchronising; the gradient in ``windows`` comes
     from K2 at ``k_sig = K`` through the ``(K, 2J + 1)`` taps.
+
+    ``windows`` ``(P, K, n_fft)`` is a pack of P trials, each with its K
+    sigma groups: ``x`` (P, ..., T), the result ``(P, ..., n_mels,
+    n_frames)``; CUDA tensors launch K1 and K2 at ``k_sig = K`` once for
+    the pack, the trial axis beside the sigma one.
     """
     if f_max is None:
         f_max = sample_rate // 2
-    bm = _check_multi(x, windows, band_map, n_fft, hop_length, n_mels,
-                      j_taps)
+    packed = windows.dim() == 3
+    bm = _check_multi(x, windows[0] if packed else windows, band_map, n_fft,
+                      hop_length, n_mels, j_taps)
+    kw = dict(n_fft=n_fft, hop_length=hop_length, n_mels=n_mels,
+              sample_rate=sample_rate, f_min=f_min, f_max=f_max,
+              j_taps=j_taps)
     if x.device.type == "cpu":
-        return specband_mel_power_multi_plain(
-            x, windows, bm, n_fft=n_fft, hop_length=hop_length,
-            n_mels=n_mels, sample_rate=sample_rate, f_min=f_min,
-            f_max=f_max, j_taps=j_taps)
+        if packed:
+            return torch.stack([specband_mel_power_multi_plain(xk, wk, bm,
+                                                               **kw)
+                                for xk, wk in zip(x, windows)])
+        return specband_mel_power_multi_plain(x, windows, bm, **kw)
     if x.device.type != "cuda":
         raise ValueError(f"specband runs on cpu or cuda, not {x.device}")
     if x.dtype != torch.float32 or windows.dtype != torch.float32:
@@ -746,7 +890,8 @@ def specband_mel_power_multi(x: torch.Tensor, windows: torch.Tensor,
               float(f_max), j_taps, False, bm)
     with torch.cuda.device(x.device):
         rho = window_taps_sym(windows, n_fft, j_taps)
-        out = _SpecbandMel.apply(x2, rho, g)
+        fn = _SpecbandMelPacked if packed else _SpecbandMel
+        out = fn.apply(x2, rho, g)
     return out.reshape(lead + out.shape[-2:])
 
 

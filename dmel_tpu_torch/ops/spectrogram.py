@@ -11,7 +11,7 @@ from __future__ import annotations
 
 import torch
 
-from dmel_tpu_torch.ops.stft import stft_power
+from dmel_tpu_torch.ops.stft import stft_power, stft_power_packed
 from dmel_tpu_torch.ops.window import gaussian_window
 
 
@@ -42,7 +42,9 @@ def spectrogram(x: torch.Tensor, lambd, *, optimized: bool = False,
     T//hop + 1)`` of ``x`` (..., T); differentiable in ``lambd``.
 
     ``window_length`` is required in optimized mode and ignored
-    otherwise.
+    otherwise.  A vector ``lambd`` (K,) is a pack of K trials: ``x`` (K,
+    ..., T), trial k's rows analysed with ``lambd[k]``'s window
+    (:func:`~dmel_tpu_torch.ops.stft.stft_power_packed`).
     """
     t = x.shape[-1]
     if optimized:
@@ -58,4 +60,6 @@ def spectrogram(x: torch.Tensor, lambd, *, optimized: bool = False,
     if not isinstance(lambd, torch.Tensor):
         lambd = torch.tensor(float(lambd), device=x.device)
     window = gaussian_window(lambd, win_length, norm=norm, dtype=x.dtype)
+    if lambd.dim() == 1:
+        return stft_power_packed(x, window, n_fft, hop_length)
     return stft_power(x, window, n_fft, hop_length)

@@ -53,6 +53,25 @@ def stft_power(x: torch.Tensor, window: torch.Tensor, n_fft: int,
     return power.reshape(lead + power.shape[-2:])
 
 
+def stft_power_packed(x: torch.Tensor, windows: torch.Tensor, n_fft: int,
+                      hop_length: int) -> torch.Tensor:
+    """:func:`stft_power` of a pack of K trials, each with its own
+    window: ``x`` (K, ..., T) and ``windows`` (K, win_length) give ``(K,
+    ..., n_fft//2 + 1, n_frames)``.
+
+    ``torch.stft`` takes one window, so this frames ``x``
+    (:func:`frame_signal`), multiplies each trial's frames by its window
+    centre-padded to ``n_fft`` and takes ``torch.fft.rfft``: the steps
+    ``torch.stft`` takes, and on the CPU its result bit for bit.
+    """
+    win = windows.shape[-1]
+    left = (n_fft - win) // 2
+    w = F.pad(windows, (left, n_fft - win - left))
+    w = w.reshape(w.shape[:1] + (1,) * (x.dim() - 1) + w.shape[1:])
+    spec = torch.fft.rfft(frame_signal(x, n_fft, hop_length) * w, dim=-1)
+    return torch.view_as_real(spec).square().sum(-1).transpose(-1, -2)
+
+
 # --- host-side dispatch guards, verbatim from the JAX package ---------
 
 #: default half-support (in bins) of the truncated window spectrum.

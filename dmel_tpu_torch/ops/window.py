@@ -15,9 +15,11 @@ def gaussian_window(lambd, window_length: int, norm: bool = False,
     """``w[m] = exp(-0.5 * ((m - L/2) / (lambd + eps))^2)``, ``m < L``.
 
     The centre is ``L/2``, not ``(L-1)/2``.  Differentiable in
-    ``lambd`` (a scalar tensor or float).  ``norm=True`` divides by
-    ``sqrt(sum(w^2))``.  The window lies on ``lambd``'s device when
-    ``lambd`` is a tensor, else on ``device`` (default CPU).
+    ``lambd`` (a scalar tensor or float), ``(L,)``; a tensor ``lambd``
+    of shape ``S`` (a pack's one a trial) gives ``S + (L,)``, one window
+    a value.  ``norm=True`` divides each by ``sqrt(sum(w^2))``.  The
+    window lies on ``lambd``'s device when ``lambd`` is a tensor, else on
+    ``device`` (default CPU).
     """
     if isinstance(lambd, torch.Tensor):
         lambd = lambd.to(dtype)
@@ -25,10 +27,11 @@ def gaussian_window(lambd, window_length: int, norm: bool = False,
     else:
         lambd = torch.tensor(float(lambd), dtype=dtype, device=device)
     m = torch.arange(window_length, dtype=dtype, device=device)
-    z = (m - window_length / 2) / (lambd + LAMBD_EPS)
+    z = (m - window_length / 2) / (lambd[..., None] + LAMBD_EPS)
     window = torch.exp(-0.5 * z * z)
     if norm:
-        window = window / torch.sqrt(torch.sum(window * window))
+        window = window / torch.sqrt(torch.sum(window * window, -1,
+                                               keepdim=True))
     return window
 
 

@@ -105,6 +105,14 @@ def loss_and_metrics(model: torch.nn.Module, xs: torch.Tensor,
     label.  ``energy`` is the sum of the features over the kept rows.
     """
     logits, s = model(xs, generator=generator)
+    return metrics_of(logits, s, ys, mask, one_hot=one_hot,
+                      n_classes=n_classes)
+
+
+def metrics_of(logits: torch.Tensor, s: torch.Tensor, ys: torch.Tensor,
+               mask: torch.Tensor, *, one_hot: bool, n_classes: int):
+    """``(loss, acc, energy)`` of a model's outputs ``logits`` and
+    features ``s`` on one batch (:func:`loss_and_metrics`)."""
     preds = logits.argmax(dim=-1)
     if ys.dim() == 2:
         y = ys.to(logits.dtype)

@@ -18,6 +18,7 @@ import shutil
 
 import numpy as np
 import pytest
+import torch
 
 from dmel_tpu import experiments as jexperiments
 from dmel_tpu.experiments import cli as jcli
@@ -299,14 +300,20 @@ def test_cli_flags_match_jax(capsys):
     assert _flags(tcli.main, capsys) == want | {"--device"}
 
 
-def test_cli_refuses_pack(tmp_path):
-    with pytest.raises(NotImplementedError, match="packed"):
+def test_cli_refuses_pack(tmp_path, monkeypatch):
+    """``--pack`` runs on the card: without one, and without ``--device
+    cpu``, it raises before it builds anything; a ``mesh`` (the trial
+    axis over several cards) is not ported and raises."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(["--name", "esc50_synth", "--num_samples", "1",
                    "--max_epochs", "1", "--output_dir", str(tmp_path),
                    "--data_dir", "/nonexistent", "--pack"])
-    with pytest.raises(NotImplementedError, match="packed"):
+    with pytest.raises(NotImplementedError, match="mesh"):
         trunner.run_sweep_packed("esc50_synth", 1, 1, str(tmp_path),
-                                 "/nonexistent")
+                                 "/nonexistent", mesh=object(),
+                                 device="cpu")
+    assert not os.listdir(tmp_path)
 
 
 def test_cli_runs_sweep(tmp_path, monkeypatch, capsys):

@@ -1161,3 +1161,239 @@ def test_prefetch_is_bit_identical(cuda, tmp_path):
     assert hist_a == hist_b
     for key, value in sd_a.items():
         assert torch.equal(value, sd_b[key]), key
+
+
+# --- packs of trials: K1, K2, K3-K6 with a trial axis ----------------------
+
+# (trials, batch, T, n_fft, win_length, hop, n_mels, lambdas): the FFT stage
+# at 2048 and 4096, faithful mode's direct stage (n_fft 1400), trials whose
+# frame rows do not fill a block
+PACK_FUSED_CASES = [
+    (3, 2, 3000, 2048, 2048, 80, 64, (250.0, 300.0, 341.0)),
+    (2, 3, 9000, 4096, 4096, 80, 64, (13.33, 400.0)),
+    (2, 3, 700, 1400, 700, 1, 32, (60.0, 90.0)),
+]
+# (trials, batch, T, n_fft, hop, n_mels, lambdas): the framed FFT and
+# direct (896) stages
+PACK_FRAMED_CASES = [
+    (3, 2, 2000, 512, 80, 64, (40.0, 46.7, 50.0)),
+    (2, 3, 3000, 896, 80, 64, (100.0, 120.0)),
+]
+# (trials, batch, T, n_fft, hop, n_mels, lambdas, J, log)
+PACK_SPECBAND_CASES = [
+    (3, 2, 4000, 1024, 80, 64, (110.0, 120.0, 128.0), 24, True),
+    (2, 3, 9000, 4096, 80, 64, (400.0, 420.0), 12, False),
+    (2, 2, 2000, 896, 80, 64, (112.0, 120.0), 24, True),
+]
+
+
+def _rel(got, want):
+    return float((got - want).abs().max() / want.abs().max())
+
+
+def _pack_geom(n_fft, hop, n_mels):
+    return framed.Geom(n_fft, hop, n_mels, 8000, 0.0, 4000.0)
+
+
+@pytest.mark.parametrize("case", PACK_FUSED_CASES,
+                         ids=lambda c: f"nfft{c[3]}-k{c[0]}")
+def test_packed_k5_k6_match_single_launches(cuda, case):
+    """K5 and K6 on a pack: one launch each; trial k's outputs are the
+    single launch's on its rows and window, forward bit for bit and dw
+    within 1e-6 of its largest entry; the pack against its plain version
+    (the plain function on each trial) within the single kernels' gates."""
+    k, b, t, n_fft, win, hop, n_mels, lams = case
+    g = _pack_geom(n_fft, hop, n_mels)
+    x = _signal((k * b, t), seed=3).to(cuda)
+    w = torch.stack([fused.pad_window(ops.gaussian_window(lam, win), n_fft)
+                     for lam in lams]).to(cuda)
+    before = fused.fused_fwd_packed.launches
+    out, reim = fused.fused_fwd_packed(x, w, g)
+    assert fused.fused_fwd_packed.launches == before + 1
+    dmel = torch.randn(out.shape, generator=torch.Generator().manual_seed(1)
+                       ).to(cuda)
+    before = fused.fused_dwindow_packed.launches
+    dw = fused.fused_dwindow_packed(x, reim, dmel, g, k)
+    assert fused.fused_dwindow_packed.launches == before + 1
+    for i in range(k):
+        rows = slice(i * b, (i + 1) * b)
+        o1, r1 = fused.fused_fwd(x[rows].contiguous(), w[i].contiguous(), g)
+        assert torch.equal(out[rows], o1)
+        assert torch.equal(reim.chunk(k)[i], r1)
+        d1 = fused.fused_dwindow(x[rows].contiguous(), r1,
+                                 dmel[rows].contiguous(), g)
+        assert _rel(dw[i], d1) <= 1e-6
+    p_out, p_reim = framed._looped_fwd(framed.fwd_plain, x, w, g)
+    assert (torch.log(out + 1e-10) - torch.log(p_out + 1e-10)).abs().max() \
+        <= GATE
+    p_dw = framed.framed_dwindow_plain_packed(x, p_reim, dmel, g, k)
+    for i in range(k):
+        assert _rel(dw[i], p_dw[i]) <= DW_GATE
+
+
+@pytest.mark.parametrize("case", PACK_FRAMED_CASES,
+                         ids=lambda c: f"nfft{c[3]}-k{c[0]}")
+def test_packed_k3_k4_match_single_launches(cuda, case):
+    """K3 and K4 take the trial axis through the same launchers: one
+    launch each, trial k bit for bit the single launch's forward and
+    within 1e-6 in dw."""
+    k, b, t, n_fft, hop, n_mels, lams = case
+    g = _pack_geom(n_fft, hop, n_mels)
+    x = _signal((k * b, t), seed=4).to(cuda)
+    w = torch.stack([ops.gaussian_window(lam, n_fft) for lam in lams]
+                    ).to(cuda)
+    before = (framed.framed_fwd_packed.launches,
+              framed.framed_dwindow_packed.launches)
+    out, reim = framed.framed_fwd_packed(x, w, g)
+    dmel = torch.randn(out.shape, generator=torch.Generator().manual_seed(2)
+                       ).to(cuda)
+    dw = framed.framed_dwindow_packed(x, reim, dmel, g, k)
+    assert (framed.framed_fwd_packed.launches,
+            framed.framed_dwindow_packed.launches) == (before[0] + 1,
+                                                       before[1] + 1)
+    for i in range(k):
+        rows = slice(i * b, (i + 1) * b)
+        o1, r1 = framed.framed_fwd(x[rows].contiguous(), w[i].contiguous(),
+                                   g)
+        assert torch.equal(out[rows], o1)
+        d1 = framed.framed_dwindow(x[rows].contiguous(), r1,
+                                   dmel[rows].contiguous(), g)
+        assert _rel(dw[i], d1) <= 1e-6
+
+
+@pytest.mark.parametrize("case", PACK_SPECBAND_CASES,
+                         ids=lambda c: f"nfft{c[3]}-k{c[0]}")
+def test_packed_k1_k2_match_single_launches(cuda, case):
+    """K1 and K2 on a pack: one launch each; trial k bit for bit the
+    single launch's forward, its taps' gradient within 1e-6; the pack
+    against the plain functions on each trial within the gates."""
+    k, b, t, n_fft, hop, n_mels, lams, j, log = case
+    g = specband._Geom(n_fft, hop, n_mels, 8000, 0.0, 4000.0, j, log)
+    x = _signal((k * b, t), seed=5).to(cuda)
+    w = torch.stack([ops.gaussian_window(lam, n_fft) for lam in lams]
+                    ).to(cuda)
+    rho = specband.window_taps_sym(w, n_fft, j).contiguous()
+    before = (specband.fwd_packed.launches,
+              specband.specband_drho_packed.launches)
+    out, xext = specband.fwd_packed(x, rho, g)
+    fb = specband._fb(g, x.device)
+    dmel = torch.randn(out.shape, generator=torch.Generator().manual_seed(3)
+                       ).to(cuda)
+    logmel = out if log else None
+    drho = specband.specband_drho_packed(xext, rho, fb, dmel, logmel, None, k)
+    assert (specband.fwd_packed.launches,
+            specband.specband_drho_packed.launches) == (before[0] + 1,
+                                                        before[1] + 1)
+    for i in range(k):
+        rows = slice(i * b, (i + 1) * b)
+        o1, e1 = specband._fwd(x[rows].contiguous(), rho[i].contiguous(), g)
+        assert torch.equal(out[rows], o1)
+        d1 = specband.specband_drho(e1, rho[i].contiguous(), fb,
+                                    dmel[rows].contiguous(),
+                                    o1 if log else None)
+        assert _rel(drho[i], d1) <= 1e-6
+        p_out, p_xext = specband._fwd_plain(x[rows], rho[i], g)
+        mel_err = (out[rows] - p_out) if log else (
+            torch.log(out[rows] + 1e-10) - torch.log(p_out + 1e-10))
+        assert mel_err.abs().max() <= GATE
+        p_d = specband.specband_drho_plain(p_xext, rho[i], fb, dmel[rows],
+                                           p_out if log else None)
+        assert _rel(drho[i], p_d) <= DRHO_GATE
+
+
+def test_packed_k1_k2_multi_sigma(cuda):
+    """K1 and K2 at k_sig 4 on a pack of 2: the trial axis beside the
+    sigma one, one launch each, trial k bit for bit the single multi
+    launch's forward."""
+    k, b, t, n_fft, j = 2, 2, 4000, 1024, 24
+    bm = tuple(int(v) for v in ops.default_band_map(64, 4))
+    g = specband._Geom(n_fft, 80, 64, 8000, 0.0, 4000.0, j, False, bm)
+    x = _signal((k * b, t), seed=6).to(cuda)
+    lams = ((100.0, 110.0, 120.0, 128.0), (105.0, 112.0, 118.0, 125.0))
+    w = torch.stack([torch.stack([ops.gaussian_window(lam, n_fft)
+                                  for lam in ls]) for ls in lams]).to(cuda)
+    rho = specband.window_taps_sym(w, n_fft, j).contiguous()
+    before = specband.fwd_packed.multi_launches
+    out, xext = specband.fwd_packed(x, rho, g)
+    assert specband.fwd_packed.multi_launches == before + 1
+    fb = specband._fb(g, x.device)
+    dmel = torch.randn(out.shape, generator=torch.Generator().manual_seed(4)
+                       ).to(cuda)
+    drho = specband.specband_drho_packed(xext, rho, fb, dmel, None, bm, k)
+    for i in range(k):
+        rows = slice(i * b, (i + 1) * b)
+        o1, e1 = specband._fwd(x[rows].contiguous(), rho[i].contiguous(), g)
+        assert torch.equal(out[rows], o1)
+        d1 = specband.specband_drho(e1, rho[i].contiguous(), fb,
+                                    dmel[rows].contiguous(), None, bm)
+        assert _rel(drho[i], d1) <= 1e-6
+
+
+@pytest.mark.parametrize("impl,wl,lams", [
+    ("fused", 4096, (13.33, 46.67, 400.0)),
+    ("framed", 512, (40.0, 46.7, 50.0)),
+    ("specband", 1024, (110.0, 120.0, 128.0)),
+    ("exact", 512, (13.33, 46.67, 60.0))])
+def test_packed_mel_spectrogram_is_per_trial(cuda, impl, wl, lams):
+    """``mel_spectrogram`` with lambda (K,) on the card: trial k's
+    log-mel bit for bit the single call's on the framed and fused routes,
+    within 1e-5 on the exact route (cuFFT plans a batch of K B rows apart
+    from one of B) and the specband route (the taps sum a (K, n_fft,
+    2J + 1) product over n_fft where the single call sums an (n_fft,
+    2J + 1) one, and the card may sum the two in another order);
+    dlambda within 1e-6; and the pack's forward launches its packed
+    kernel once.  The signal's mean is taken off beforehand: a mean over
+    (K, B) rows may sum in another order than over (B,)."""
+    kw = dict(n_mels=64, sample_rate=8000, hop_length=80, optimized=True,
+              window_length=wl, impl=impl, device=cuda, subtract_mean=False,
+              lambd_hint=128.0 * 1.001 if impl == "specband" else None)
+    x = _signal((len(lams), 2, 4000), seed=7).to(cuda)
+    counters = {"fused": fused.fused_fwd_packed,
+                "framed": framed.framed_fwd_packed,
+                "specband": specband.fwd_packed}
+    before = counters[impl].launches if impl in counters else 0
+    lam = torch.tensor(lams, device=cuda, requires_grad=True)
+    out = ops.log_mel_spectrogram(x, lam, **kw)
+    if impl in counters:
+        assert counters[impl].launches == before + 1
+    out.sum().backward()
+    for i, li in enumerate(lams):
+        l1 = torch.tensor(li, device=cuda, requires_grad=True)
+        o1 = ops.log_mel_spectrogram(x[i], l1, **kw)
+        o1.sum().backward()
+        if impl in ("exact", "specband"):
+            assert (out[i] - o1).abs().max() <= 1e-5
+        else:
+            assert torch.equal(out[i], o1)
+        assert abs(float(lam.grad[i] - l1.grad)) <= 1e-6 * abs(float(l1.grad))
+
+
+def test_fit_trials_launches_k5_once_a_step(cuda):
+    """``fit_trials`` on a bf16 CNN6 pack at 4096 (the esc50_synth
+    grid's shape, cut to 3 trials of 64 clips): the fused route, one K5
+    launch a train step, none of K1-K4, and per-trial histories."""
+    from dmel_tpu_torch.parallel import fit_trials
+    config = dict(model_name="panns_cnn6", dataset_name="esc50_synth",
+                  n_points=40000, hop_length=80, optimized=True, impl="pallas",
+                  normalize_window=False, n_mels=64, resample_rate=8000,
+                  optimizer_name="adam", lr_model=1e-4, lr_tf=1.0,
+                  batch_size=16, max_epochs=1, patience=10,
+                  model_dtype="bfloat16")
+    configs = [dict(config, init_lambd=lam, trainable=tr)
+               for lam, tr in ((13.33, True), (46.67, True), (400.0, False))]
+    rng = np.random.default_rng(0)
+    from dmel_tpu_torch.data import ArrayDataset
+    train = ArrayDataset(rng.standard_normal((64, 40000)).astype(np.float32),
+                         rng.integers(0, 10, 64).astype(np.int32), 8000)
+    valid = ArrayDataset(rng.standard_normal((16, 40000)).astype(np.float32),
+                         rng.integers(0, 10, 16).astype(np.int32), 8000)
+    counters = (fused.fused_fwd_packed, specband.fwd_packed,
+                framed.framed_fwd_packed, fused.fused_dwindow_packed)
+    before = [c.launches for c in counters]
+    state, hists = fit_trials(configs, train, valid, device=cuda)
+    after = [c.launches - b for c, b in zip(counters, before)]
+    assert state["window_length"] == 4096 and state["lambd_hint"] is None
+    assert after == [64 // 16 + 1, 0, 0, 0]
+    assert all(len(h["records"]) == 1 for h in hists)
+    lam = state["pack"].params["spectrogram_layer.lambd"].detach().cpu()
+    assert float(lam[2]) == 400.0 and float(lam[0]) != 13.33
