@@ -230,7 +230,31 @@ Phases, each announced by a flushed line when it starts and ends:
    ``--pack`` for one epoch; ``fit_trials`` of two trainable trials at
    lambda 110 and 120 (bf16 CNN6, lr_tf 1e-3), whose shared hint takes
    packed K1 and K2 every epoch.
-23. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
+23. data parallel (after "batch-norm variance"): ``fit(mesh=...)`` on
+   a one-rank NCCL mesh in this process, bit for bit the same ``fit``
+   without a mesh (the train path's config at lambda 128, float32, one
+   epoch); then two gloo ranks sharing the card, started by
+   ``dmel_tpu_torch.parallel.dryrun``'s launcher, on the same config at
+   a global batch of 32 (16 rows a rank): after two steps lambda
+   within 1e-4 relative of the one process, every batch-norm buffer
+   within 1e-4 max-abs and every other parameter too, but for Adam's
+   sign flips (at most 4 lr, in at most 1e-4 of the entries;
+   ``ADAM_FLIP_SHARE``); after the epoch its loss and lambda within
+   3e-3 relative (``DP_EPOCH_GATE``), beside the same ``fit`` with
+   cuDNN off against it (the card's float32 floor, held to the same
+   gate), and the largest
+   parameter difference reported; the ranks bit-identical; each rank's
+   K1 and K2 launches by epoch as its route says; the same in bf16 for
+   2 epochs (lambda and losses within 1e-1 relative); the esc50_synth
+   grid in float32 for one epoch, split over the two ranks (three
+   trials each, packed K5), against the pack on one card: every trial's
+   loss within 3e-3 relative, the same files written once, each rank's packed
+   launches the card's pack's, ``predict_test`` on the rows; two NCCL
+   ranks where there are two cards (else a line saying why not).  Step
+   ms, first and steady, of each rank and of the one process, beside
+   the card's name and power limit: the ranks shared one card, so they
+   say nothing of scaling.
+24. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
    ran; its times, plain times, bounds and yardsticks at every measured
    shape, ``shapes``; launches also from the sweeps, the pretrained
    trial, the resume run and the packs; the packed entries with their
@@ -2703,6 +2727,277 @@ def bn_variance_path(seed: int, dev: torch.device) -> dict:
     return res
 
 
+# --- data parallelism ---------------------------------------------------
+
+#: the data-parallel phase's training: the flagship train path (esc50_synth
+#: CNN6 at full width, lambda 128: specband at 1024, J 24), float32, one
+#: epoch; global batch 32, 16 rows a rank on two ranks
+DP_CONFIG = dict(TRAIN_CONFIG, max_epochs=1)
+#: the esc50_synth grid the pack runs on one card and over the ranks, in
+#: float32 (the space's own dtype is bf16)
+DP_SPACE_OVERRIDE = {"model_dtype": "float32"}
+DP_RANKS = 2
+#: data parallel against one process, float32, after two steps: lambda
+#: relative, batch-norm buffers and parameters max-abs (dmel_tpu's
+#: ``tests/test_parallel.py`` gate)
+DP_GATE = 1e-4
+#: the same after a whole epoch (11 Adam steps, lr_tf 1.0) and for the
+#: pack's trials, relative: there one process's float32 run differs from
+#: itself under a mere change of summation order by about 1e-4-1e-3 (on
+#: the CPU at 1 and 8 threads, lambda 3.3e-4 and the loss 1.3e-4; on the
+#: card the control ``fit`` with cuDNN off, which must read under this
+#: gate too), so 1e-4 there would test the rounding, not the port.  Set
+#: a little over the largest sound reading on an H100 (a split trial's
+#: loss, 1.3e-3)
+DP_EPOCH_GATE = 3e-3
+#: Adam's exception to that gate after two steps: a gradient entry near 0
+#: takes the sign of its rounding, and Adam moves it by about lr a step
+#: whatever its size, so one process and two ranks summing in another
+#: order can part by 2 lr a step.  Such entries may exceed DP_GATE up to
+#: that bound, in at most this share of all entries (on an H100: 186-188
+#: of 4.57 million, at most 2.2e-4)
+ADAM_FLIP_SHARE = 1e-4
+#: the two ranks' seconds, the model build and the data included
+DP_TIMEOUT_S = 420
+
+
+def _counter_spec() -> dict:
+    """:data:`COUNTERS` as the dry run's jobs name them."""
+    return {k: [obj.__module__, obj.__qualname__, attr]
+            for k, (obj, attr) in COUNTERS.items()}
+
+
+def _two_steps_errors(got: dict, want: dict) -> dict:
+    """After two steps: lambda's relative difference, the batch-norm
+    buffers' and the other parameters' largest difference, and the
+    parameter entries beyond :data:`DP_GATE`."""
+    out = dict(lambd=0.0, buffers=0.0, params=0.0, over=0, entries=0)
+    for k, w in want.items():
+        if k.endswith("num_batches_tracked"):
+            continue
+        d = (got[k].double() - w.double()).abs()
+        leaf = k.rpartition(".")[2]
+        if leaf == "lambd":
+            out["lambd"] = float((d / w.double().abs()).max())
+        elif leaf.startswith("running_"):
+            out["buffers"] = max(out["buffers"], float(d.max()))
+        else:
+            out["params"] = max(out["params"], float(d.max()))
+            out["over"] += int((d > DP_GATE).sum())
+            out["entries"] += d.numel()
+    return out
+
+
+def _max_abs(a: dict, b: dict) -> float:
+    return max(float((a[k].double().cpu() - b[k].double().cpu()).abs().max())
+               for k in b if k.rpartition(".")[2] != "num_batches_tracked")
+
+
+def _files(root: str) -> list:
+    return sorted(os.path.relpath(os.path.join(d, f), root)
+                  for d, _, files in os.walk(root) for f in files)
+
+
+def _ms(step_ms: list) -> dict:
+    return dict(first=step_ms[0], steady=float(np.median(step_ms[1:])))
+
+
+def data_parallel_path(seed: int, dev: torch.device, out: str,
+                       smi: str) -> dict:
+    """``fit``, ``fit_trials`` and ``run_sweep_packed`` over a mesh, held
+    against one process: a one-rank NCCL mesh in this process, bit for
+    bit; two gloo ranks sharing the card (``dmel_tpu_torch.parallel
+    .dryrun``'s launcher), within :data:`DP_GATE` after two steps and
+    :data:`DP_EPOCH_GATE` after the epoch, bit-identical to each other,
+    each launching K1 and K2 as its route says; the esc50_synth grid
+    split over the two ranks (three trials each, packed K5) against the
+    pack on one card; two ranks over NCCL where there are two cards."""
+    import torch.distributed as dist
+
+    from dmel_tpu_torch.eval import predict_test
+    from dmel_tpu_torch.experiments import runner
+    from dmel_tpu_torch.experiments.configs import get_search_space
+    from dmel_tpu_torch.parallel import dryrun, mesh as pmesh
+
+    config = DP_CONFIG
+    trainset, validset, _ = get_dataset_by_config(config)
+    steps = -(-len(trainset) // BATCH)
+    valid_batches = -(-len(validset) // BATCH)
+
+    # 1. a one-rank NCCL mesh against the same fit without one
+    (state0, hist0), launches0 = counted(lambda: fit(
+        config, trainset, validset, seed=seed, device=dev))
+    pmesh.initialize_distributed(f"127.0.0.1:{dryrun.free_port()}", 1, 0,
+                                 backend="nccl")
+    try:
+        mesh1 = pmesh.make_mesh()
+        (state1, hist1), launches1 = counted(lambda: fit(
+            config, trainset, validset, seed=seed, mesh=mesh1))
+    finally:
+        dist.destroy_process_group()
+    sd0, sd1 = state0["model"].state_dict(), state1["model"].state_dict()
+    nccl_identical = (hist0["records"] == hist1["records"]
+                      and all(torch.equal(v, sd1[k]) for k, v in sd0.items()))
+    check(nccl_identical, "the one-rank NCCL fit differs from fit alone")
+    check(launches1 == launches0, f"NCCL launches {launches1} != {launches0}")
+    # the one process against itself in another summation order: the
+    # card's float32 floor for the epoch's gates
+    with torch.backends.cudnn.flags(enabled=False):
+        _, hist_ctl = fit(config, trainset, validset, seed=seed, device=dev)
+
+    # the single process's first steps, its bf16 fit and its pack
+    one = pmesh.make_mesh(devices=dev)               # no process group
+    steps_spec = dict(job="steps", name="dp_steps", config=config,
+                      seed=seed, n_steps=6, snapshot=2)
+    single_steps, single_snap = dryrun.run_steps(steps_spec, one)
+    bf16 = dict(config, model_dtype="bfloat16", max_epochs=2)
+    _, hist_bf16 = fit(bf16, trainset, validset, seed=seed, device=dev)
+    space = dict(get_search_space(SWEEP_NAME, 1), **DP_SPACE_OVERRIDE)
+    t0 = time.perf_counter()
+    one_dir, one_launches = counted(lambda: runner.run_sweep_packed(
+        SWEEP_NAME, 1, 1, os.path.join(out, "dp_one"), out, space=space,
+        device=dev))
+    torch.cuda.synchronize()
+    one_s = time.perf_counter() - t0
+
+    # 2./3. two gloo ranks on the one card
+    counters = _counter_spec()
+    jobs = [steps_spec,
+            dict(job="fit", name="dp_fit", config=config, seed=seed,
+                 counters=counters),
+            dict(job="fit", name="dp_fit_bf16", config=bf16, seed=seed),
+            dict(job="sweep", name="dp_sweep", space_name=SWEEP_NAME,
+                 max_epochs=1, output_dir=os.path.join(out, "dp_two"),
+                 data_dir=out, override=DP_SPACE_OVERRIDE,
+                 counters=counters)]
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    ranks = dryrun.launch(DP_RANKS, "cuda", "gloo", jobs, out=out,
+                          timeout=DP_TIMEOUT_S)
+    ranks_s = time.perf_counter() - t0
+
+    def agree(name):
+        """The ranks' result of ``name`` (their times aside), which must be
+        the same on every rank."""
+        got = [{k: v for k, v in r[name].items()
+                if k not in ("fit_s", "step_ms", "sweep_s", "launches")}
+               for r in ranks]
+        check(all(g == got[0] for g in got[1:]),
+              f"the ranks differ in {name}: {got}")
+        return ranks[0][name]
+
+    snap = torch.load(os.path.join(out, "dp_steps.pt"), weights_only=True)
+    two_steps_err = _two_steps_errors(snap["state"], single_snap["state"])
+    agree("dp_steps")
+    fit2 = agree("dp_fit")
+    rel = lambda a, b: abs(a - b) / max(abs(b), 1e-30)  # noqa: E731
+    loss_err = max(rel(r["loss"], w["loss"]) for r, w in
+                   zip(fit2["records"], hist0["records"]))
+    ctl_loss_err = max(rel(r["loss"], w["loss"]) for r, w in
+                       zip(hist_ctl["records"], hist0["records"]))
+    ctl_lam_err = rel(hist_ctl["est_lambd"], hist0["est_lambd"])
+    lam_err = rel(fit2["est_lambd"], hist0["est_lambd"])
+    fit_sd = torch.load(os.path.join(out, "dp_fit.pt"),
+                        weights_only=True)["model"]
+    epoch_err = _max_abs(fit_sd, sd0)
+    rank_epochs = []
+    for r in ranks:
+        ep = epoch_launches(config, config["init_lambd"],
+                            r["dp_fit"]["records"], r["dp_fit"]["launches"],
+                            steps, valid_batches)
+        check_epochs(ep)
+        check(ep[0]["route"] == "specband", f"route {ep[0]['route']}")
+        rank_epochs.append(ep)
+    bf = agree("dp_fit_bf16")
+    bf16_lam_err = rel(bf["est_lambd"], hist_bf16["est_lambd"])
+    bf16_loss_err = max(rel(r["loss"], w["loss"]) for r, w in
+                        zip(bf["records"], hist_bf16["records"]))
+
+    sweep = agree("dp_sweep")
+    two_dir = sweep["sweep_dir"]
+    trial_loss_err = []
+    for i in range(6):
+        got, want = (json.load(open(os.path.join(
+            d, f"trial_{i:05d}", "result.json"))) for d in (two_dir, one_dir))
+        trial_loss_err.append(rel(got["loss"], want["loss"]))
+    files_equal = _files(two_dir) == _files(one_dir)
+    scored = predict_test(two_dir, out, verbose=0)
+    for r in ranks:
+        check(r["dp_sweep"]["launches"] == one_launches,
+              f"a rank's pack launches {r['dp_sweep']['launches']}, the "
+              f"card's pack {one_launches}")
+
+    res = dict(
+        card=smi, note="two gloo ranks shared one card: no scaling claim",
+        nccl_one_rank_bit_identical=nccl_identical,
+        single_step_ms=_ms(single_steps["step_ms"]),
+        rank_step_ms=[_ms(r["dp_steps"]["step_ms"]) for r in ranks],
+        two_steps_err=two_steps_err,
+        epoch_loss_rel_err=loss_err, lambd_rel_err=lam_err,
+        control_cudnn_off_loss_rel_err=ctl_loss_err,
+        control_cudnn_off_lambd_rel_err=ctl_lam_err,
+        epoch_params_max_abs_err=epoch_err,
+        lambd=[fit2["est_lambd"], hist0["est_lambd"]],
+        rank_fit_s=[r["dp_fit"]["fit_s"] for r in ranks],
+        rank_epochs=[[dict(route=e["route"], launches={
+            k: v for k, v in e["launches"].items() if v}) for e in ep]
+            for ep in rank_epochs],
+        bf16_lambd_rel_err=bf16_lam_err, bf16_loss_rel_err=bf16_loss_err,
+        pack_trial_loss_rel_err=trial_loss_err,
+        pack_files_equal=files_equal,
+        pack_one_card_s=one_s,
+        rank_sweep_s=[r["dp_sweep"]["sweep_s"] for r in ranks],
+        rank_pack_launches=[{k: v for k, v in r["dp_sweep"]["launches"]
+                             .items() if v} for r in ranks],
+        pack_test_accuracy=[s.get("test_accuracy") for s in scored],
+        ranks_s=ranks_s)
+
+    # 4. two ranks over NCCL, one card each, where the machine has two
+    if torch.cuda.device_count() >= DP_RANKS:
+        nccl = dryrun.launch(DP_RANKS, "cuda", "nccl", jobs[1:2], out=out,
+                             timeout=DP_TIMEOUT_S)
+        got = [r["dp_fit"]["digest"] for r in nccl]
+        check(len(set(got)) == 1, "the NCCL ranks differ")
+        res["nccl_two_ranks_loss_rel_err"] = max(
+            rel(r["loss"], w["loss"]) for r, w in
+            zip(nccl[0]["dp_fit"]["records"], hist0["records"]))
+    else:
+        say(f"data parallel: two NCCL ranks not run: "
+            f"{torch.cuda.device_count()} CUDA device(s), NCCL needs one "
+            f"a rank (the two-rank runs above used gloo on one card)")
+    say("data parallel " + json.dumps(res))
+    for r, ms in zip(range(DP_RANKS), res["rank_step_ms"]):
+        say(f"data parallel step ms: rank {r} of {DP_RANKS} (gloo, sharing "
+            f"one card) first {ms['first']:.3f} steady {ms['steady']:.3f}; "
+            f"one process first {res['single_step_ms']['first']:.3f} steady "
+            f"{res['single_step_ms']['steady']:.3f}; {smi}")
+    flip_bound = 2 * 2 * config["lr_model"]
+    check(two_steps_err["lambd"] <= DP_GATE
+          and two_steps_err["buffers"] <= DP_GATE
+          and two_steps_err["params"] <= flip_bound
+          and two_steps_err["over"] <= ADAM_FLIP_SHARE
+          * two_steps_err["entries"],
+          f"after two steps: {two_steps_err}")
+    check(loss_err <= DP_EPOCH_GATE, f"epoch loss differs by {loss_err}")
+    check(lam_err <= DP_EPOCH_GATE, f"lambda differs by {lam_err}")
+    check(max(ctl_loss_err, ctl_lam_err) <= DP_EPOCH_GATE,
+          f"the cuDNN-off control reads loss {ctl_loss_err}, lambda "
+          f"{ctl_lam_err}: the float32 floor is over the epoch gate")
+    check(bf16_lam_err <= BF16_DLAMBD_GATE and
+          bf16_loss_err <= BF16_DLAMBD_GATE,
+          f"bf16: lambda {bf16_lam_err}, loss {bf16_loss_err}")
+    check(max(trial_loss_err) <= DP_EPOCH_GATE,
+          f"pack trial losses differ by {trial_loss_err}")
+    check(res["pack_files_equal"], "the two-rank sweep's files differ")
+    check(len(scored) == 6 and all(
+        0.0 <= s["test_accuracy"] <= 1.0 for s in scored),
+        f"predict_test {res['pack_test_accuracy']}")
+    res["launches"] = {k: launches1[k] + sum(
+        r["dp_fit"]["launches"][-1][k] + r["dp_sweep"]["launches"][k]
+        for r in ranks) for k in COUNTERS}
+    return res
+
+
 # --- packs of trials ----------------------------------------------------
 
 #: the published grid's lambdas (esc50_synth, fsd): the pack's trials
@@ -3359,6 +3654,9 @@ def main():
         cnn14_path(seed, dev)
     with phase("batch-norm variance"):
         bn_variance_path(seed, dev)
+    with phase("data parallel"):
+        with tempfile.TemporaryDirectory() as out:
+            paths["data_parallel"] = data_parallel_path(seed, dev, out, smi)
 
     def by_path(key):
         return {name: r["launches"][key] for name, r in paths.items()}

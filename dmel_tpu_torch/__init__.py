@@ -7,7 +7,8 @@ kernels), ``models`` (the DMEL and DSPEC front ends, the probe
 classifiers and MelPANNsNet), ``data`` (AudioMNIST, ESC-50 and the
 synthetic datasets, splits, batching and the prefetching feed),
 ``training`` (``fit``, per-group optimizers), ``parallel``
-(``fit_trials``: a sweep's trials packed into one program), ``eval``
+(data parallelism over a mesh of ranks, and ``fit_trials``: a sweep's
+trials packed into one program), ``eval``
 (prediction, the paper's tables, the complexity model), ``convert``
 (weights from the JAX package) and ``precision`` (the numeric settings
 of ``fit`` and ``predict``).  It imports neither JAX nor the JAX package.  Entry points

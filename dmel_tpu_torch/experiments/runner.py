@@ -41,6 +41,7 @@ import torch
 
 from dmel_tpu_torch.data.registry import get_dataset_by_config
 from dmel_tpu_torch.device import resolve_device
+from dmel_tpu_torch.distributed import barrier, gather_object
 from dmel_tpu_torch.experiments.configs import expand_grid, get_search_space
 from dmel_tpu_torch.training.train import fit
 
@@ -127,30 +128,40 @@ def run_sweep_packed(name: str, num_samples: int, max_epochs: int,
     sweep does: ``best_model`` is the trial's best-on-valid-loss state
     (its last one if it never improved) with no geometry sidecar, so
     test prediction takes the bucket and hint from the checkpoint's
-    lambda.  ``mesh`` raises ``NotImplementedError``, as in
-    :func:`~dmel_tpu_torch.parallel.trials.fit_trials`.  Returns the
-    sweep directory."""
+    lambda.
+
+    ``mesh`` splits the trials over its ranks
+    (:func:`~dmel_tpu_torch.parallel.trials.fit_trials`); each trial's
+    best snapshot is gathered to rank 0, which alone writes the layout,
+    the same files as the pack on one card.  Every rank returns once the
+    layout is written.  Returns the sweep directory."""
     from dmel_tpu_torch.parallel.trials import fit_trials
     from dmel_tpu_torch.training.checkpoint import save_checkpoint
 
-    if mesh is not None:
-        raise NotImplementedError(
-            "run_sweep_packed: mesh (the trial axis over several cards, data "
-            "parallelism) is not ported yet")
-    device = resolve_device(device)
+    device = resolve_device(device) if mesh is None else None
     space = space if space is not None else get_search_space(name,
                                                             max_epochs)
     grid = expand_grid(space)
     trials = [dict(cfg, trial_repeat=rep)
               for rep in range(num_samples) for cfg in grid]
 
+    if mesh is not None and len(trials) % mesh.size:
+        raise ValueError(f"{len(trials)} trials do not split over "
+                         f"{mesh.size} ranks")
     sweep_dir = os.path.join(output_dir, name)
-    os.makedirs(sweep_dir, exist_ok=True)
-
     trainset, validset, _ = get_dataset_by_config(trials[0], data_dir)
     state, histories = fit_trials(trials, trainset, validset, mesh=mesh,
                                   verbose=verbose, device=device)
     pack = state["pack"]
+    weights = {i: histories[i].get("best_state") or pack.trial_state_dict(j)
+               for j, i in enumerate(state["trials"])}
+    if mesh is not None:
+        shares = gather_object(weights, mesh)
+        if mesh.rank != 0:
+            barrier(mesh)
+            return sweep_dir
+        weights = {i: w for share in shares for i, w in share.items()}
+    os.makedirs(sweep_dir, exist_ok=True)
     manifest = {}
     for i, (config, hist) in enumerate(zip(trials, histories)):
         tname = trial_dirname(i)
@@ -160,9 +171,8 @@ def run_sweep_packed(name: str, num_samples: int, max_epochs: int,
             json.dump(config, f, indent=2, default=str)
         _write_progress_csv(os.path.join(tdir, "progress.csv"),
                             hist["records"], config)
-        weights = hist.get("best_state") or pack.trial_state_dict(i)
         save_checkpoint(os.path.join(tdir, "checkpoint_000000",
-                                     "best_model"), {"model": weights})
+                                     "best_model"), {"model": weights[i]})
         summary = {k: v for k, v in hist.items()
                    if k not in ("records", "best_state")}
         if hist["records"]:
@@ -173,6 +183,8 @@ def run_sweep_packed(name: str, num_samples: int, max_epochs: int,
     with open(os.path.join(sweep_dir, "manifest.json"), "w") as f:
         json.dump(manifest, f, indent=2)
     collect_results(sweep_dir)
+    if mesh is not None:
+        barrier(mesh)
     return sweep_dir
 
 

@@ -18,7 +18,10 @@ their constructor is given.  The conv probes flatten ``(C, F, T)``, as
 torch's NCHW layout does; the JAX package flattens NHWC ``(F, T, C)``,
 and :func:`~dmel_tpu_torch.convert.from_jax_variables` permutes ``fc1``'s
 inputs to match.  Dropout follows the training mode (the JAX package's
-``eval_dropout`` is not ported).
+``eval_dropout`` is not ported).  The probes' dropout and
+:class:`BatchNormLinearNet`'s batch norm are
+:mod:`~dmel_tpu_torch.models.panns`'s, so under a data-parallel mesh
+scope they draw at the global batch and normalise by its statistics.
 """
 
 from __future__ import annotations

@@ -20,7 +20,11 @@ own slice:
   (:class:`~dmel_tpu_torch.models.panns.BiasedBatchNorm1d`'s update);
 - dropout and SpecAugment draw their masks over the whole pack from one
   generator, so every trial draws its own; CNN6's bf16 casts are those
-  of :class:`~dmel_tpu_torch.models.panns.Cnn6`.
+  of :class:`~dmel_tpu_torch.models.panns.Cnn6`.  Each mask is split
+  over an axis that holds the trials in order (the trial axis, or the
+  conv stack's trial-major channels), so a pack whose trials are split
+  over ranks (a ``mesh_scope`` with ``axis="trial"``) draws the whole
+  pack's and keeps its trials' part.
 
 ``torch.func.vmap`` over ``functional_call`` does not serve here: its
 batch-norm rule refuses a bf16 input with float32 statistics (torch
@@ -240,7 +244,7 @@ def _mel_panns(pack, p, x, generator):
                         block.dtype or h.dtype)
         h = F.avg_pool2d(F.relu(batch_norm(h, p, name + ".bn1", block.bn1,
                                            pack.training)), 2)
-        h = dropout(h, 0.2, pack.training, generator)
+        h = dropout(h, 0.2, pack.training, generator, dim=1)
     h = h.to(p[pre + "fc1.weight"].dtype).mean(dim=3)     # f32, over mel
     h = h.max(dim=2).values + h.mean(dim=2)                # over time
     h = h.reshape(b, k, -1).transpose(0, 1)                # (K, B, 512)

@@ -10,6 +10,12 @@ Xavier-uniform with zero biases, drawn from a ``torch.Generator``;
 SpecAugment's and dropout's masks in training come from the generator
 the caller passes to ``forward``.
 
+Inside a :func:`~dmel_tpu_torch.distributed.mesh_scope` of more than
+one rank each rank holds its rows of the global batch: the masks are
+drawn at the global shape and each rank keeps its rows, and the batch
+norms take their statistics over the global batch
+(:func:`_global_batch_norm`).
+
 ``dtype=torch.bfloat16`` runs the conv stack in bf16, as the JAX
 package's ``model_dtype="bfloat16"`` does: each block's convolutions,
 batch-norm outputs, ReLUs, pooling and dropout.  The casts are explicit,
@@ -32,6 +38,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from dmel_tpu_torch.distributed import all_reduce_sum, data_mesh, rank_rand
+
 
 def xavier_uniform_(weight: torch.Tensor,
                     generator: Optional[torch.Generator] = None) -> None:
@@ -46,17 +54,19 @@ def xavier_uniform_(weight: torch.Tensor,
 
 
 def dropout(x: torch.Tensor, p: float, training: bool,
-            generator: Optional[torch.Generator] = None) -> torch.Tensor:
+            generator: Optional[torch.Generator] = None,
+            dim: int = 0) -> torch.Tensor:
     """Inverted dropout with flax's semantics: keep each element with
     probability ``1 - p`` and scale it by ``1 / (1 - p)``.  The mask is
     drawn from ``generator`` (on ``x``'s device; None takes torch's
     default generator) in float32 whatever ``x``'s dtype, so a bf16 and
-    a float32 model draw the same masks from the same generator state.
+    a float32 model draw the same masks from the same generator state;
+    in a mesh scope, at the global shape, each rank keeping its slice of
+    the split axis ``dim`` (:func:`~dmel_tpu_torch.distributed.rank_rand`).
     The identity outside training."""
     if not training:
         return x
-    keep = torch.rand(x.shape, generator=generator, device=x.device,
-                      dtype=torch.float32) >= p
+    keep = rank_rand(x.shape, generator, x.device, dim) >= p
     return torch.where(keep, x / (1.0 - p), torch.zeros((), dtype=x.dtype,
                                                          device=x.device))
 
@@ -72,13 +82,18 @@ class _BiasedVariance:
     kernel runs as it is, statistics in float32 whatever the input's
     dtype, on a copy of ``rv_old`` (autograd keeps the tensor it
     updates, which must not change again), and the repair takes no
-    second pass over the activations."""
+    second pass over the activations.  In a data-parallel mesh scope of
+    more than one rank the statistics are the global batch's
+    (:func:`_global_batch_norm`)."""
 
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         if not (self.training and self.track_running_stats):
             return super().forward(x)
         self._check_input_dim(x)
         self.num_batches_tracked.add_(1)
+        mesh = data_mesh()
+        if mesh is not None:
+            return _global_batch_norm(self, x, mesh)
         rv = self.running_var.clone()
         y = F.batch_norm(x, self.running_mean, rv, self.weight, self.bias,
                          True, self.momentum, self.eps)
@@ -87,6 +102,32 @@ class _BiasedVariance:
             old = self.running_var
             old.copy_(rv - (rv - (1.0 - self.momentum) * old) / n)
         return y
+
+
+def _global_batch_norm(bn: nn.Module, x: torch.Tensor, mesh) -> torch.Tensor:
+    """Training-mode batch norm of this rank's rows ``x`` with the mean and
+    the biased variance of the global batch: per-channel sums (float32,
+    or ``x``'s dtype where wider) summed over the ranks through the
+    differentiable all-reduce, first the mean's, then the squared
+    deviations' (two passes, as exact as a single device's kernel).  The
+    running statistics take flax's update at the global ``n``; the
+    output is in ``x``'s dtype."""
+    c = x.shape[1]
+    dims = [0] + list(range(2, x.dim()))
+    shape = [1, c] + [1] * (x.dim() - 2)
+    xf = x.to(torch.promote_types(x.dtype, torch.float32))
+    n = x.numel() // c * mesh.size
+    mean = all_reduce_sum(xf.sum(dims), mesh) / n
+    d = xf - mean.reshape(shape)
+    var = all_reduce_sum((d * d).sum(dims), mesh) / n
+    y = d * torch.rsqrt(var + bn.eps).reshape(shape)
+    if bn.affine:
+        y = y * bn.weight.reshape(shape) + bn.bias.reshape(shape)
+    with torch.no_grad():
+        m = bn.momentum
+        bn.running_mean.mul_(1.0 - m).add_(mean, alpha=m)
+        bn.running_var.mul_(1.0 - m).add_(var, alpha=m)
+    return y.to(x.dtype)
 
 
 class BiasedBatchNorm1d(_BiasedVariance, nn.BatchNorm1d):
@@ -122,8 +163,9 @@ def time_mask(x: torch.Tensor, mask_param: int,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """SpecAugment time masking of ``(B, 1, T, M)``, iid per clip: the
     widths' uniforms, then the starts', drawn from ``generator`` (on
-    ``x``'s device; None takes torch's default generator)."""
-    u = torch.rand((2, x.shape[0]), generator=generator, device=x.device)
+    ``x``'s device; None takes torch's default generator); in a mesh
+    scope at the global batch, each rank keeping its clips'."""
+    u = rank_rand((2, x.shape[0]), generator, x.device, dim=1)
     return mask_span(x, 2, mask_param, u[0], u[1])
 
 
@@ -131,7 +173,7 @@ def freq_mask(x: torch.Tensor, mask_param: int,
               generator: Optional[torch.Generator] = None) -> torch.Tensor:
     """SpecAugment frequency masking over the mel axis of ``(B, 1, T,
     M)``, drawn as :func:`time_mask` draws."""
-    u = torch.rand((2, x.shape[0]), generator=generator, device=x.device)
+    u = rank_rand((2, x.shape[0]), generator, x.device, dim=1)
     return mask_span(x, 3, mask_param, u[0], u[1])
 
 

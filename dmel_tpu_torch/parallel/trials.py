@@ -12,9 +12,12 @@ rates of a scale-free optimizer
 (:class:`~dmel_tpu_torch.training.optim.PackedOptimizer`), which for SGD
 and Adam is each trial's own optimizer.
 
-Not ported yet, and refused with ``NotImplementedError``: ``mesh``, the
-trial axis sharded over several cards (data parallelism is the next
-slice).
+A ``mesh`` splits the trial axis over its ranks, as the JAX package's
+``device_put`` onto ``P("data")`` does: each rank packs its contiguous
+share of the trials, which never communicate.  The ranks share the
+pack's hint, the loop's end and the histories; the pack-wide masks are
+drawn on every rank, each keeping its trials' (a ``mesh_scope`` with
+``axis="trial"``).
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ from dmel_tpu_torch.models.packed import TrialPack
 from dmel_tpu_torch.models.registry import get_model_by_config, n_classes_for
 from dmel_tpu_torch.ops.spectrogram import bucketed_window_length
 from dmel_tpu_torch.ops.stft import pallas_compile_hint
+from dmel_tpu_torch.distributed import all_gather_object, mesh_scope
 from dmel_tpu_torch.precision import precision_scope
 from dmel_tpu_torch.training.optim import PackedOptimizer
 from dmel_tpu_torch.training.train import metrics_of
@@ -154,41 +158,50 @@ def fit_trials(configs: Sequence[dict], trainset, validset, *, mesh=None,
     diverged gets its last finite estimate back, so that no NaN enters
     the front end again (``diverged`` in its history).
 
-    ``state`` holds the ``pack``, the ``optimizer`` and the geometry of
-    the last epoch (``window_length``, ``lambd_hint``); each history
-    holds ``records`` (one per epoch the trial was active), the best
-    valid loss and accuracy, ``converged``, ``init_lambd`` and
-    ``best_lambd_est``.  Runs inside
+    ``state`` holds the ``pack``, the ``optimizer``, the geometry of the
+    last epoch (``window_length``, ``lambd_hint``) and the indices of the
+    pack's ``trials``; each history holds ``records`` (one per epoch the
+    trial was active), the best valid loss and accuracy, ``converged``,
+    ``init_lambd`` and ``best_lambd_est``.  Runs inside
     :func:`~dmel_tpu_torch.precision.precision_scope`.
+
+    ``mesh`` (a :class:`~dmel_tpu_torch.parallel.mesh.Mesh`) splits the
+    trials over its ranks, on the mesh's device (``device`` unused): K
+    must divide over the ranks (else ``ValueError``).  Each rank packs
+    its contiguous share, trial i keeping its seeds by its index in
+    ``configs``; every rank returns all K histories, and ``best_state``
+    only in its own trials'.
     """
-    if mesh is not None:
-        raise NotImplementedError(
-            "fit_trials: mesh (the trial axis over several cards, data "
-            "parallelism) is not ported yet")
-    dev = resolve_device(device)
     k = len(configs)
     c0 = configs[0]
     for c in configs:
         for key in SHARED_KEYS:
             if c[key] != c0[key]:
                 raise ValueError(f"trial configs differ in {key}")
+    ranks = 1 if mesh is None else mesh.size
+    if k % ranks:
+        raise ValueError(f"{k} trials do not split over {ranks} ranks")
+    dev = resolve_device(device) if mesh is None else mesh.device
+    lo = 0 if mesh is None else mesh.rank * (k // ranks)
+    ids = range(lo, lo + k // ranks)
     one_hot = "panns" in c0["model_name"]
     n_classes = n_classes_for(c0["dataset_name"])
     batch_size = int(c0["batch_size"])
     max_epochs = int(c0["max_epochs"])
-    prefetch = int(c0.get("prefetch", 2))
+    prefetch = int(c0.get("prefetch", 2 if ranks == 1 else 0))
 
     wl = None
     if c0.get("optimized", False):
         wl = max(bucketed_window_length(float(c["init_lambd"]),
                                         int(c0["n_points"]))
                  for c in configs)
-    pack = TrialPack([get_model_by_config(c, window_length=wl, device=dev,
-                                          seed=seed + i)
-                      for i, c in enumerate(configs)])
+    mine = [configs[i] for i in ids]
+    pack = TrialPack([get_model_by_config(configs[i], window_length=wl,
+                                          device=dev, seed=seed + i)
+                      for i in ids])
     lrs = [_lr_tree(pack.params,
                     float(c["lr_tf"]) if c.get("trainable", True) else 0.0,
-                    float(c["lr_model"])) for c in configs]
+                    float(c["lr_model"])) for c in mine]
     lrs = {n: torch.tensor([lr[n] for lr in lrs], dtype=torch.float32,
                            device=dev) for n in pack.params}
     optimizer = PackedOptimizer(c0["optimizer_name"], pack.params, lrs)
@@ -196,31 +209,37 @@ def fit_trials(configs: Sequence[dict], trainset, validset, *, mesh=None,
     evaluate = make_multitrial_eval(pack, one_hot, n_classes)
     generator = torch.Generator(device=dev).manual_seed(seed)
 
-    lambds_host = np.asarray([float(c["init_lambd"]) for c in configs])
+    # every trial's last lambda and active flag (all ranks'), from which
+    # the pack's hint and the loop's end are decided alike on every rank
+    lambds_all = np.asarray([float(c["init_lambd"]) for c in configs])
+    active_all = np.ones(k, dtype=np.float32)
     loaders = [BatchLoader(trainset, batch_size, shuffle=True,
-                           seed=seed + 13 * i) for i in range(k)]
+                           seed=seed + 13 * i) for i in ids]
     validloader = BatchLoader(validset, batch_size, shuffle=False)
     histories = [{"records": [], "best_valid_loss": np.inf,
                   "best_valid_acc": 0.0, "converged": False,
                   "init_lambd": float(c["init_lambd"]),
                   "best_lambd_est": float(c["init_lambd"])}
-                 for c in configs]
+                 for c in mine]
+    k = len(mine)                       # this rank's trials from here on
     patiences = np.asarray([int(c.get("patience", max_epochs))
-                            for c in configs])
+                            for c in mine])
     patience_counts = np.zeros(k, dtype=int)
     active_np = np.ones(k, dtype=np.float32)
     hint = None
     lam_leaf = pack.params["spectrogram_layer.lambd"]
 
     for epoch in range(max_epochs):
-        hint = _shared_specband_hint(c0, wl, lambds_host, active_np)
+        hint = _shared_specband_hint(c0, wl, lambds_all, active_all)
         pack.set_geometry(wl, hint)
         active = torch.tensor(active_np, device=dev)
         losses = []
         batches = device_batches(stacked_batches(loaders), dev, prefetch)
         try:
-            for xs, ys, mask in batches:
-                losses.append(step(active, xs, ys, mask, generator)["loss"])
+            with mesh_scope(mesh, "trial"):
+                for xs, ys, mask in batches:
+                    losses.append(step(active, xs, ys, mask,
+                                       generator)["loss"])
         finally:
             batches.close()
         count = len(losses)
@@ -284,9 +303,22 @@ def fit_trials(configs: Sequence[dict], trainset, validset, *, mesh=None,
         if verbose:
             print(f"epoch {epoch}: valid_acc={v_acc}, lambd={lambds}, "
                   f"active={active_np}")
-        if not active_np.any():
+        if mesh is not None:
+            shares = all_gather_object((lambds_host, active_np), mesh)
+            lambds_all = np.concatenate([lam for lam, _ in shares])
+            active_all = np.concatenate([act for _, act in shares])
+        else:
+            lambds_all, active_all = lambds_host, active_np
+        if not active_all.any():
             break
 
+    if mesh is not None:
+        own = histories
+        shares = all_gather_object(
+            [{n: v for n, v in h.items() if n != "best_state"}
+             for h in own], mesh)
+        histories = [h for share in shares for h in share]
+        histories[lo:lo + k] = own
     state = {"pack": pack, "optimizer": optimizer, "window_length": wl,
-             "lambd_hint": hint}
+             "lambd_hint": hint, "trials": list(ids)}
     return state, histories

@@ -32,9 +32,15 @@ With ``checkpoint_dir``, ``fit`` writes what the JAX package's does:
 
 ``pretrained_state_dict`` (a PANNs Cnn6 checkpoint's weights) is
 imported into the fresh model before its optimizer is built
-(:func:`~dmel_tpu_torch.training.checkpoint.import_panns_cnn6`).  Not
-ported yet, and refused with ``NotImplementedError``: data parallelism
-(``mesh``).
+(:func:`~dmel_tpu_torch.training.checkpoint.import_panns_cnn6`).
+
+With a ``mesh`` (:mod:`~dmel_tpu_torch.parallel.mesh`) ``fit`` is data
+parallel and computes what one process computes on the same global
+batch: every rank takes its rows of each batch, the losses and metrics
+count the global batch's kept rows, the gradients are summed over the
+ranks before each update, and the models' batch norms and masks run in
+a data-parallel :func:`~dmel_tpu_torch.distributed.mesh_scope`.  Rank
+0 alone writes the checkpoints; every rank reads the live state.
 """
 
 from __future__ import annotations
@@ -54,6 +60,9 @@ from dmel_tpu_torch.models.registry import (dispatch_hint_for,
                                             get_model_by_config,
                                             n_classes_for)
 from dmel_tpu_torch.ops.spectrogram import bucketed_window_length
+from dmel_tpu_torch.distributed import (all_reduce_, all_reduce_gradients,
+                                        assert_replicated, data_mesh,
+                                        mesh_scope, replicate, shard_rows)
 from dmel_tpu_torch.precision import precision_scope
 from dmel_tpu_torch.training.checkpoint import (import_panns_cnn6,
                                                 load_checkpoint,
@@ -64,8 +73,28 @@ BCE_LOG_FLOOR = -100.0  # torch binary_cross_entropy clamps log at -100
 
 
 def _masked_mean(per_row: torch.Tensor, mask: torch.Tensor) -> torch.Tensor:
+    """The mean of ``per_row`` over the kept rows.  In a data-parallel mesh
+    scope the count is the global batch's, so this rank's value is its
+    share of the global mean: the shares sum to it, and so do their
+    gradients."""
     m = mask.to(per_row.dtype)
-    return (per_row * m).sum() / m.sum().clamp_min(1)
+    count = m.sum()
+    mesh = data_mesh()
+    if mesh is not None:
+        count = all_reduce_(count.detach(), mesh)
+    return (per_row * m).sum() / count.clamp_min(1)
+
+
+def _global(mesh, metrics: dict) -> dict:
+    """``metrics`` (scalar tensors) summed over the mesh's ranks in one
+    collective, each in its own dtype; as they are without a mesh of more
+    than one rank."""
+    if mesh is None or mesh.size == 1:
+        return metrics
+    flat = all_reduce_(torch.stack([v.double() for v in metrics.values()]),
+                       mesh)
+    return {k: flat[i].to(v.dtype) for i, (k, v) in enumerate(
+        metrics.items())}
 
 
 def bce_loss(probs: torch.Tensor, one_hot_labels: torch.Tensor,
@@ -103,6 +132,8 @@ def loss_and_metrics(model: torch.nn.Module, xs: torch.Tensor,
     float labels ``ys`` (B, n_classes) take BCE (from logits where the
     model outputs logits) and count a hit when the argmax is a true
     label.  ``energy`` is the sum of the features over the kept rows.
+    In a data-parallel mesh scope each is this rank's share of the global
+    batch's value.
     """
     logits, s = model(xs, generator=generator)
     return metrics_of(logits, s, ys, mask, one_hot=one_hot,
@@ -135,29 +166,42 @@ def metrics_of(logits: torch.Tensor, s: torch.Tensor, ys: torch.Tensor,
 
 
 def train_step(model, optimizer, xs, ys, mask, *, one_hot: bool,
-               n_classes: int, generator: Optional[torch.Generator] = None):
+               n_classes: int, generator: Optional[torch.Generator] = None,
+               mesh=None):
     """One training step: forward in train mode, backward, optimizer
-    step.  Returns the step's metrics as detached device tensors."""
+    step.  Returns the step's metrics as detached device tensors.
+
+    With a ``mesh`` the batch is this rank's rows of the global batch:
+    the forward and backward run in a data-parallel mesh scope, and the
+    gradients are summed over the ranks before the update, which is then
+    the single process's on the global batch; the metrics are the global
+    batch's."""
     model.train()
     optimizer.zero_grad(set_to_none=True)
-    loss, acc, energy = loss_and_metrics(model, xs, ys, mask,
-                                         one_hot=one_hot,
-                                         n_classes=n_classes,
-                                         generator=generator)
-    loss.backward()
+    with mesh_scope(mesh):
+        loss, acc, energy = loss_and_metrics(model, xs, ys, mask,
+                                             one_hot=one_hot,
+                                             n_classes=n_classes,
+                                             generator=generator)
+        loss.backward()
+    if mesh is not None:
+        all_reduce_gradients(model.parameters(), mesh)
     optimizer.step()
-    return {"loss": loss.detach(), "acc": acc.detach(),
-            "energy": energy.detach()}
+    return _global(mesh, {"loss": loss.detach(), "acc": acc.detach(),
+                          "energy": energy.detach()})
 
 
-def eval_step(model, xs, ys, mask, *, one_hot: bool, n_classes: int):
-    """Eval-mode metrics of one batch, without gradients."""
+def eval_step(model, xs, ys, mask, *, one_hot: bool, n_classes: int,
+              mesh=None):
+    """Eval-mode metrics of one batch, without gradients; with a
+    ``mesh``, of the global batch whose rows this rank holds."""
     model.eval()
-    with torch.no_grad():
+    with torch.no_grad(), mesh_scope(mesh):
         loss, acc, energy = loss_and_metrics(model, xs, ys, mask,
                                              one_hot=one_hot,
                                              n_classes=n_classes)
-    return {"loss": loss, "acc": acc, "energy": energy, "n": mask.sum()}
+    return _global(mesh, {"loss": loss, "acc": acc, "energy": energy,
+                          "n": mask.sum()})
 
 
 def current_lambd(model: torch.nn.Module) -> float:
@@ -207,10 +251,27 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
     is the model's lambda once any live state is restored: a resumed
     trial reports the lambda it resumed at, as the JAX package's does.
     Runs inside :func:`~dmel_tpu_torch.precision.precision_scope`.
+
+    ``mesh`` (a :class:`~dmel_tpu_torch.parallel.mesh.Mesh`) trains data
+    parallel on the mesh's device, ``device`` unused: ``batch_size`` must
+    divide over its ranks (``AssertionError``, before any collective);
+    the model and the optimizer state are replicated from rank 0; each
+    rank takes its rows of every batch (``prefetch`` defaults to 0 above
+    one rank); lambda must hold the same bits on every rank at each
+    epoch boundary, where the bucket is chosen (else ``RuntimeError``).
+    Every rank returns the same state and history.  ``checkpoint_dir``
+    is one directory for all ranks: rank 0 writes the best model, its
+    sidecar and the live state, and every rank resumes from the live
+    state.
     """
     if mesh is not None:
-        raise NotImplementedError("fit: mesh is not ported yet")
-    dev = resolve_device(device)
+        assert int(config["batch_size"]) % mesh.size == 0, (
+            f"batch_size {config['batch_size']} not divisible by the mesh "
+            f"size {mesh.size}")
+        dev = mesh.device
+    else:
+        dev = resolve_device(device)
+    writer = mesh is None or mesh.rank == 0
     one_hot = "panns" in config["model_name"]
     n_classes = n_classes_for(config["dataset_name"])
     max_epochs = int(config["max_epochs"])
@@ -219,7 +280,14 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
     optimized = bool(config.get("optimized", False))
     per_step = optimized and config.get("bucket_update", "epoch") == "step"
     n_points = int(config["n_points"])
-    prefetch = int(config.get("prefetch", 2))
+    prefetch = int(config.get("prefetch", 2 if mesh is None or mesh.size == 1
+                                  else 0))
+
+    def batches_of(loader):
+        if mesh is None:
+            return device_batches(loader, dev, prefetch)
+        return device_batches((shard_rows(b, mesh) for b in loader), dev,
+                              prefetch)
 
     def bucket_for(lambd_value):
         if not optimized:
@@ -273,10 +341,15 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
         if verbose >= 1:
             print(f"resuming trial at epoch {start_epoch} "
                   f"(live state: {live_path})")
+    if mesh is not None:
+        replicate(model, mesh)
+        replicate(optimizer, mesh)
+        assert_replicated(torch.tensor(float(start_epoch)), mesh,
+                          "the epoch the trial starts at")
     history["init_lambd"] = current_lambd(model)
 
     def save_live(epoch):
-        if (live_path is None or live_every <= 0
+        if (live_path is None or live_every <= 0 or not writer
                 or (epoch + 1) % live_every != 0):
             return
         meta = dict(epoch=epoch, patience_count=patience_count,
@@ -290,6 +363,8 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
                                     "meta": meta})
 
     for epoch in range(start_epoch, max_epochs):
+        if mesh is not None:
+            assert_replicated(model.spectrogram_layer.lambd, mesh, "lambda")
         lam_now = current_lambd(model)
         if not np.isfinite(lam_now):
             # a NaN/inf loss cascade; record it and stop the trial (the
@@ -304,7 +379,7 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
         model.spectrogram_layer.set_geometry(wl, hint)
 
         steps = []
-        batches = device_batches(trainloader, dev, prefetch)
+        batches = batches_of(trainloader)
         try:
             for batch in batches:
                 if per_step:
@@ -317,7 +392,8 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
                         wl, hint = new_wl, new_hint
                         model.spectrogram_layer.set_geometry(wl, hint)
                 steps.append(train_step(model, optimizer, *batch,
-                                        generator=generator, **kw))
+                                        generator=generator, mesh=mesh,
+                                        **kw))
         finally:
             batches.close()
         agg = _fetch(steps, ("loss", "energy"))
@@ -328,9 +404,10 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
             print(f"epoch {epoch}, train loss = {train_loss}")
             print(f"est. lambd = {current_lambd(model)}")
 
-        batches = device_batches(validloader, dev, prefetch)
+        batches = batches_of(validloader)
         try:
-            valid = [eval_step(model, *batch, **kw) for batch in batches]
+            valid = [eval_step(model, *batch, mesh=mesh, **kw)
+                     for batch in batches]
         finally:
             batches.close()
         vagg = _fetch(valid, ("loss", "acc"))
@@ -339,7 +416,7 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
         valid_acc = sum(vagg["acc"]) / max(v_n, 1)
 
         if valid_loss < best_valid_loss:
-            if checkpoint_dir is not None:
+            if checkpoint_dir is not None and writer:
                 # the sidecar holds the geometry this checkpoint was
                 # validated at: a lambda that crossed a bucket edge
                 # during the epoch must not pick another at test time
@@ -388,7 +465,7 @@ def fit(config: dict, trainset, validset, *, seed: int = 0, device=None,
     history["est_lambd"] = current_lambd(model)
     # the trial ended (converged, diverged or out of epochs): the live
     # state is only for a trial killed mid-run
-    if live_path is not None and os.path.exists(live_path):
+    if writer and live_path is not None and os.path.exists(live_path):
         os.remove(live_path)
     state = {"model": model, "optimizer": optimizer,
              "window_length": wl, "lambd_hint": hint}

@@ -29,6 +29,7 @@ from dmel_tpu_torch.eval import predict_test
 from dmel_tpu_torch.experiments import cli as tcli
 from dmel_tpu_torch.experiments import configs as tconfigs
 from dmel_tpu_torch.experiments import runner as trunner
+from dmel_tpu_torch.parallel import mesh as tmesh
 from dmel_tpu_torch.training import load_checkpoint
 
 from tests.test_experiments import tiny_space
@@ -302,16 +303,17 @@ def test_cli_flags_match_jax(capsys):
 
 def test_cli_refuses_pack(tmp_path, monkeypatch):
     """``--pack`` runs on the card: without one, and without ``--device
-    cpu``, it raises before it builds anything; a ``mesh`` (the trial
-    axis over several cards) is not ported and raises."""
+    cpu``, it raises before it builds anything; so does a ``mesh`` whose
+    ranks do not split the grid's six trials (``ValueError``)."""
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         tcli.main(["--name", "esc50_synth", "--num_samples", "1",
                    "--max_epochs", "1", "--output_dir", str(tmp_path),
                    "--data_dir", "/nonexistent", "--pack"])
-    with pytest.raises(NotImplementedError, match="mesh"):
+    with pytest.raises(ValueError, match="6 trials do not split over 4"):
         trunner.run_sweep_packed("esc50_synth", 1, 1, str(tmp_path),
-                                 "/nonexistent", mesh=object(),
+                                 "/nonexistent", mesh=tmesh.Mesh(
+                                     ("data",), 0, 4, torch.device("cpu")),
                                  device="cpu")
     assert not os.listdir(tmp_path)
 

@@ -5,7 +5,7 @@ kernels (K3 forward, K4 the window's gradient) and the fused forward
 shapes and at AudioMNIST's batch of 64 one-second clips, train steps
 through them, the GPU rules of the entry points, and ``fit``'s
 precision flags, reproducibility (CNN6 and the audio_mnist space's mel
-probe) and prefetching feed.
+probe), prefetching feed and one-rank NCCL mesh.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -1029,6 +1029,35 @@ def test_fit_is_reproducible_on_specband(cuda):
     assert lam_a[-1] != config["init_lambd"]
     for key, value in sd_a.items():
         assert torch.equal(value, sd_b[key]), key
+
+
+def test_one_rank_nccl_fit_is_fit(cuda):
+    """``fit`` over a one-rank NCCL mesh (the model broadcast, the
+    gradients all-reduced and lambda checked over NCCL) against the same
+    ``fit`` without a mesh, on the specband route (lambda 128) for one
+    epoch of 2 steps, the second padded: the records and every tensor of
+    the state bit for bit."""
+    import torch.distributed as dist
+
+    from dmel_tpu_torch.parallel import mesh as pmesh
+    from dmel_tpu_torch.parallel.dryrun import free_port
+    config = dict(FIT_CONFIG, init_lambd=128.0, max_epochs=1, n_samples=20)
+    trainset, validset, _ = get_dataset_by_config(config)
+    assert -(-len(trainset) // config["batch_size"]) == 2
+    state0, hist0 = fit(config, trainset, validset, seed=0, device=cuda)
+    pmesh.initialize_distributed(f"127.0.0.1:{free_port()}", 1, 0,
+                                 backend="nccl")
+    try:
+        before = specband.specband_drho.launches
+        state1, hist1 = fit(config, trainset, validset, seed=0,
+                            mesh=pmesh.make_mesh())
+        assert specband.specband_drho.launches == before + 2
+    finally:
+        dist.destroy_process_group()
+    assert hist1["records"] == hist0["records"]
+    sd1 = state1["model"].state_dict()
+    for key, value in state0["model"].state_dict().items():
+        assert torch.equal(value, sd1[key]), key
 
 
 def test_bf16_fit_is_reproducible(cuda):

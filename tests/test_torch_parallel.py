@@ -44,6 +44,7 @@ from dmel_tpu_torch.experiments import runner as trunner
 from dmel_tpu_torch.models import classifiers as tclassifiers
 from dmel_tpu_torch.models import packed as tpacked
 from dmel_tpu_torch.models import panns as tpanns
+from dmel_tpu_torch.parallel import mesh as tmesh
 from dmel_tpu_torch.parallel import trials as ttrials
 from dmel_tpu_torch.training import load_checkpoint
 from dmel_tpu_torch.training.optim import PackedOptimizer
@@ -228,7 +229,7 @@ class _NoDropout(nn.Module):
 
 def _no_dropout(monkeypatch):
     monkeypatch.setattr(nn, "Dropout", _NoDropout)
-    identity = lambda x, p, training, generator=None: x  # noqa: E731
+    identity = lambda x, p, training, generator=None, dim=0: x  # noqa: E731
     monkeypatch.setattr(tpanns, "dropout", identity)
     monkeypatch.setattr(tpacked, "dropout", identity)
 
@@ -572,7 +573,7 @@ def test_packed_forward_matches_single_models(monkeypatch, case, training):
     and their counts equal.  Dropout is patched out on both sides (the
     pack draws its masks over the whole pack); SpecAugment is off."""
     name, over = case
-    identity = lambda x, p, training, generator=None: x  # noqa: E731
+    identity = lambda x, p, training, generator=None, dim=0: x  # noqa: E731
     for module in (tpanns, tpacked, tclassifiers):
         monkeypatch.setattr(module, "dropout", identity)
     cfg = dict(small_cfg(model_name=name), **over)
@@ -660,9 +661,13 @@ def test_fit_trials_makes_a_diverged_row_inert():
 
 
 def test_fit_trials_refuses_mesh_and_mixed_configs():
-    with pytest.raises(NotImplementedError, match="mesh"):
-        ttrials.fit_trials([small_cfg()], toy(16), toy(16), mesh=object(),
-                           device="cpu")
+    """Mixed shared keys, a model without a packed forward and trials that
+    do not split over the mesh's ranks are refused (``ValueError``
+    before any collective: the mesh record has no process group)."""
+    with pytest.raises(ValueError, match="6 trials do not split over 4"):
+        ttrials.fit_trials([small_cfg()] * 6, toy(16), toy(16),
+                           mesh=tmesh.Mesh(("data",), 0, 4,
+                                           torch.device("cpu")))
     with pytest.raises(ValueError, match="batch_size"):
         ttrials.fit_trials([small_cfg(), small_cfg(batch_size=8)], toy(16),
                            toy(16), device="cpu")

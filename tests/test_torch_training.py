@@ -28,6 +28,7 @@ from dmel_tpu_torch.data import get_dataset_by_config
 from dmel_tpu_torch.models import layers as tlayers
 from dmel_tpu_torch.models import panns as tpanns
 from dmel_tpu_torch.ops.spectrogram import bucketed_window_length
+from dmel_tpu_torch.parallel import mesh as tmesh
 from dmel_tpu_torch.training import train as ttrain
 
 T = 4000
@@ -402,7 +403,12 @@ def test_fit_early_stopping():
     assert history["converged"] and len(history["records"]) == 1
 
 
-@pytest.mark.parametrize("kwargs", [dict(mesh=object())], ids=["mesh"])
+@pytest.mark.parametrize("kwargs", [dict(mesh=tmesh.Mesh(
+    ("data",), 0, 8, torch.device("cpu")))], ids=["mesh"])
 def test_fit_refuses_what_is_not_ported(kwargs):
-    with pytest.raises(NotImplementedError):
-        fit(FIT_CONFIG, None, None, device="cpu", **kwargs)
+    """dmel_tpu's ``test_dp_batch_divisibility_check``: a global batch of
+    12 on a mesh of 8 ranks raises ``AssertionError`` before any
+    collective (the mesh record has no process group to reach)."""
+    with pytest.raises(AssertionError, match="not divisible"):
+        fit(dict(FIT_CONFIG, batch_size=12), None, None, device="cpu",
+            **kwargs)
