@@ -23,7 +23,9 @@ Phases, each announced by a flushed line when it starts and ends:
    through the same C entry at the same shapes (``direct_ms``, gated
    like the kernel), and ``torch.profiler`` splits both into their
    launches (``split``, ``split_direct``: device ms a launch by kernel,
-   with the launches the profiler recorded of 5 calls).
+   with the launches the profiler recorded of 5 calls); the band stage's
+   share (``band_ms``) stands beside its own bound (``band_bound_ms``,
+   :func:`k1_band_bound`), here, for K1 multi and for K1 packed.
    Times with CUDA events: the kernel, the plain version and, as a
    yardstick, one torch.stft + mel matmul of the same function, whose
    card time from ``torch.profiler`` (``library_device_ms``) is K1's
@@ -457,9 +459,9 @@ def timed(key: str, fn) -> dict:
 
 
 def _kernel_name(key: str) -> str:
-    """A profiler event's kernel name without namespace, template
-    arguments or parameters."""
-    key = key.replace("(anonymous namespace)::", "")
+    """A profiler event's kernel name without return type, namespace,
+    template arguments or parameters."""
+    key = key.replace("(anonymous namespace)::", "").removeprefix("void ")
     return key.split("(")[0].split("<")[0].split("::")[-1].strip()
 
 
@@ -548,6 +550,38 @@ def k1_bound(batch: int, n_fft: int, j_taps: int, fb_nnz: int,
                                  else "bytes")
 
 
+#: K1's band stage in a profiler split (``stage_split``)
+BAND_KERNEL = "group_mel_kernel"
+
+
+def k1_band_bound(rows: int, n_fft: int, j_taps: int, fb_nnz: int,
+                  widths: list[int], log: bool, k_sig: int = 1):
+    """(ms, 'bytes' | 'operations'): the least time one H100 needs for
+    K1's band stage on ``rows`` frame rows: the spectra ``xext`` read
+    once (2 k_ext floats a row), the taps and the filterbank's nonzeros
+    read and the mel written once, at the HBM rate; for each sigma group
+    over its own bins (``widths``, :func:`sigma_bins`) the band
+    convolution with symmetric real taps (6J + 2 flops a bin) and the
+    power (3), the sparse mel projection (2 a filterbank nonzero) and the
+    log, at the fp32 peak."""
+    k_ext = n_fft // 2 + 1 + 2 * j_taps
+    flops = rows * ((6 * j_taps + 5) * sum(widths) + 2 * fb_nnz
+                    + (N_MELS if log else 0))
+    nbytes = 4 * (rows * 2 * k_ext + rows * N_MELS + fb_nnz
+                  + k_sig * (2 * j_taps + 1))
+    t_ops = flops / PEAK_FP32_FLOPS * 1e3
+    t_bytes = nbytes / PEAK_BYTES_S * 1e3
+    return max(t_ops, t_bytes), ("operations" if t_ops >= t_bytes
+                                 else "bytes")
+
+
+def band_stage_ms(split) -> float | str:
+    """K1's band-stage device ms a launch from a profiler ``split``."""
+    if isinstance(split, str) or BAND_KERNEL not in split:
+        return "not measured"
+    return split[BAND_KERNEL][0]
+
+
 def k1_case(seed: int, batch: int, n_fft: int, lambd: float,
             dev: torch.device, t: int = T) -> dict:
     """Kernel against plain version (and the exact STFT) at one
@@ -613,6 +647,9 @@ def k1_case(seed: int, batch: int, n_fft: int, lambd: float,
     fb_nnz = int((fb != 0).sum())
     bound_ms, bound_by = k1_bound(batch, n_fft, j, fb_nnz, t=t)
     least, direct_flops = k1_flops(batch, n_fft, j, fb_nnz, t=t)
+    band_bound_ms, band_bound_by = k1_band_bound(
+        batch * nfr, n_fft, j, fb_nnz, sigma_bins(n_fft, (0,) * N_MELS, 1),
+        True)
     res = dict(batch=batch, t=t, n_fft=n_fft, lambd=lambd, j_taps=j,
                stage=fft_plan.stage_name(n_fft),
                radices=fft_plan.plan(n_fft), mel_rel_err=rel,
@@ -623,6 +660,8 @@ def k1_case(seed: int, batch: int, n_fft: int, lambd: float,
                **library_t, library_device_ms=library_dev,
                bound_ms=bound_ms, bound_by=bound_by,
                split=split, split_direct=split_direct,
+               band_ms=band_stage_ms(split), band_bound_ms=band_bound_ms,
+               band_bound_by=band_bound_by,
                least_gflop=least / 1e9, direct_dft_gflop=direct_flops / 1e9,
                direct_dft_tflops_achieved=direct_flops / direct_ms / 1e9)
     say("K1 " + json.dumps(res))
@@ -1070,6 +1109,8 @@ def multi_case(seed: int, batch: int, n_fft: int, lams: tuple,
                                                 widths)
     k2_bound_ms, k2_bound_by, k2_gflop = k2m_bound(batch, n_fft, j, fb_nnz,
                                                    widths)
+    band_bound_ms, band_bound_by = k1_band_bound(batch * nfr, n_fft, j,
+                                                 fb_nnz, widths, False, k)
     res = dict(batch=batch, n_fft=n_fft, lambd=list(lams), hint=hint,
                j_taps=j, k_sig=k, sigma_bins=widths,
                stage=fft_plan.stage_name(n_fft),
@@ -1078,6 +1119,8 @@ def multi_case(seed: int, batch: int, n_fft: int, lams: tuple,
                logmel_err_direct_stage=err_direct, xext_err_of_max=xext_err,
                xext_repeat_bit_identical=bool(torch.equal(xext, xext2)),
                direct_ms=direct_ms, split=split, split_direct=split_direct,
+               band_ms=band_stage_ms(split), band_bound_ms=band_bound_ms,
+               band_bound_by=band_bound_by,
                dlambd=g_k.tolist(), dlambd_rel_err=_group_rel(g_k, g_p),
                dlambd_rel_err_vs_exact=_group_rel(g_k, g_x),
                dlambd_repeat_bit_identical=bool(torch.equal(g_k, g_k2)),
@@ -3166,6 +3209,7 @@ def packed_specband_case(seed: int, dev: torch.device, k: int = 6,
                                              specband_drho_plain(
                                                  p_xext, rho[i], fb, di)))
         fwd_t = timed("ms", lambda: specband.fwd_packed(x, rho, g))
+        fwd_split = stage_split(lambda: specband.fwd_packed(x, rho, g))
         fwd_single = time_ms(lambda: [specband._fwd(xi, rho[i].contiguous(),
                                                     g)
                                       for i, (xi, _) in enumerate(singles)])
@@ -3203,13 +3247,18 @@ def packed_specband_case(seed: int, dev: torch.device, k: int = 6,
               for i in range(k)]
     b1 = k1_bound(batch, n_fft, j, fb_nnz)
     b2 = k2_bound(batch, n_fft, j, fb_nnz, False)
+    band_b = k1_band_bound(batch * stft.num_frames(t, HOP), n_fft, j, fb_nnz,
+                           sigma_bins(n_fft, (0,) * N_MELS, 1), False)
     res = dict(k=k, batch=batch, t=t, n_fft=n_fft, j_taps=j, hint=hint,
                lambd=list(lams[:k]), fwd_bit_identical_to_single=fwd_bits,
                drho_rel_err_vs_single=drho_single,
                logmel_max_abs_err=logmel_err, drho_err_of_max=drho_err,
                dlambd_rel_err=dl_rel, **fwd_t, single_launches_ms=fwd_single,
                plain_ms=fwd_plain, **lib_fwd, bound_ms=k * b1[0],
-               bound_by=b1[1], **bwd_t, k2_single_launches_ms=bwd_single,
+               bound_by=b1[1], split=fwd_split,
+               band_ms=band_stage_ms(fwd_split), band_bound_ms=k * band_b[0],
+               band_bound_by=band_b[1], **bwd_t,
+               k2_single_launches_ms=bwd_single,
                k2_plain_ms=bwd_plain, k2_bound_ms=k * b2[0],
                k2_bound_by=b2[1])
     say("K1/K2 packed " + json.dumps(res))
@@ -3691,6 +3740,9 @@ def main():
                              bound_ms=c[prefix + "bound_ms"],
                              library_ms=lib if isinstance(lib, float)
                              else c[lib_key])
+            if not prefix and "band_ms" in c:
+                out[name].update(band_ms=c["band_ms"],
+                                 band_bound_ms=c["band_bound_ms"])
         return out
 
     main1, main2 = cases[1], cases2[2]   # the model's and the train's shape
@@ -3704,6 +3756,7 @@ def main():
             main1, **_library(main1, "library_ms"),
             **fft_fields("K1", main1, cases),
             shapes=shapes(cases, "", "library_ms"),
+            band_ms=main1["band_ms"], band_bound_ms=main1["band_bound_ms"],
             xext_err_of_max=max(c["xext_err_of_max"] for c in cases)),
         _kernel_entry(
             "specband_bwd", "specband_bwd.cu",
@@ -3753,6 +3806,8 @@ def main():
             max(c["logmel_max_abs_err"] for c in cases_m), "log-mel", GATE,
             main_m, **_library(main_m, "library_ms"), k_sig=main_m["k_sig"],
             **fft_fields("K1m", main_m, cases_m),
+            shapes=shapes(cases_m, "", "library_ms"),
+            band_ms=main_m["band_ms"], band_bound_ms=main_m["band_bound_ms"],
             xext_err_of_max=max(c["xext_err_of_max"] for c in cases_m),
             logmel_err_vs_exact_route=max(
                 c["logmel_err_vs_exact_route"] for c in cases_m)),
@@ -3820,6 +3875,7 @@ def main():
                                      and pack1_path[
                                          "fwd_bit_identical_to_single"]),
             pack_of_one_is_single=pack_one["K1"],
+            band_ms=pack1["band_ms"], band_bound_ms=pack1["band_bound_ms"],
             path_pack=path_pack(pack1_path, "")),
         packed_entry(
             "specband_bwd_packed", "specband_bwd.cu",

@@ -60,6 +60,10 @@ _KP_ALIGN = 64
 #: most sigma groups of one multi-sigma call (the JAX package's
 #: ``k_sig * 128 <= 1024``)
 MAX_SIGMA = 8
+#: bins K1's band stage convolves at a time (``CHUNK`` in
+#: ``csrc/specband_fwd.cu``); a band group spans one or two of them
+#: (:func:`band_plan`)
+BAND_CHUNK = 128
 
 
 def supported(n_fft: int, hop_length: int, n_mels: int,
@@ -330,6 +334,84 @@ def _fb(g: _Geom, device: torch.device) -> torch.Tensor:
                      device)
 
 
+class BandPlan(NamedTuple):
+    """K1's band groups for one geometry (:func:`band_plan`).
+
+    ``groups`` ``(n_groups, 5)`` int32: each group's sigma, its bin range
+    ``[lo, hi)`` (the union of its bands' nonzero ranges; ``[0, 0)`` when
+    they have none) and its bands ``[m0, m1)``; ``bands`` ``(n_mels, 2)``
+    int32: each band's nonzero bin range of the filterbank (``[0, 0)`` for
+    an all-zero column); ``max_bands``: the most bands a group holds;
+    ``cap``: the most bins a group of more than one band spans."""
+    groups: np.ndarray
+    bands: np.ndarray
+    max_bands: int
+    cap: int
+
+
+@functools.lru_cache(maxsize=32)
+def band_plan(n_fft: int, n_mels: int, sample_rate: int, f_min: float,
+              f_max: float, band_map: tuple | None = None) -> BandPlan:
+    """Cut the mel bands into K1's band groups: runs of consecutive bands
+    that share one sigma under ``band_map`` (``None``: all sigma 0), each
+    cut where adding a band would make its bins span more than the cap,
+    counted from its first bin rounded down to a multiple of 4 (where the
+    kernel's 16-byte loads start).  A band wider than the cap is a group
+    of its own.  The kernel walks a group in chunks of :data:`BAND_CHUNK`
+    bins.
+
+    The cap is one chunk where no band spans more than half a chunk, else
+    two.  A cut between two groups of one sigma costs the bins their
+    neighbouring triangles share, about half a band convolved twice; a
+    second chunk costs its halo, 2J columns staged again.  Bands wider
+    than half a chunk (n_fft 2048 and 4096 at 8 kHz) make the cut the
+    dearer.
+
+    Read from the numpy filterbank that :func:`_fb_dense` uploads, so the
+    plan and the filterbank the kernel reads are one geometry's."""
+    fb = melscale_fbanks_np(n_fft // 2 + 1, f_min, f_max, n_mels,
+                            sample_rate)
+    sigma = (0,) * n_mels if band_map is None else band_map
+    bands = np.zeros((n_mels, 2), np.int32)
+    for m in range(n_mels):
+        nz = np.flatnonzero(fb[:, m])
+        if nz.size:
+            bands[m] = nz[0], nz[-1] + 1
+    widest = int((bands[:, 1] - bands[:, 0]).max())
+    cap = BAND_CHUNK if 2 * widest <= BAND_CHUNK else 2 * BAND_CHUNK
+    groups = []
+    for m in range(n_mels):
+        lo, hi = bands[m]
+        g = groups[-1] if groups else None
+        if g is not None and g[0] == sigma[m]:
+            if hi == lo:
+                g[4] = m + 1
+                continue
+            glo, ghi = (lo, hi) if g[1] == g[2] else (min(g[1], lo),
+                                                      max(g[2], hi))
+            if ghi - (glo & ~3) <= cap or g[1] == g[2]:
+                g[1:3], g[4] = (glo, ghi), m + 1
+                continue
+        groups.append([sigma[m], lo, hi, m, m + 1])
+    groups = np.array(groups, np.int32)
+    for a in (groups, bands):
+        a.flags.writeable = False
+    return BandPlan(groups, bands, int((groups[:, 4] - groups[:, 3]).max()),
+                    cap)
+
+
+@functools.lru_cache(maxsize=16)
+def _band_plan_tensors(n_fft: int, n_mels: int, sample_rate: int,
+                       f_min: float, f_max: float, band_map: tuple | None,
+                       device: torch.device):
+    """:func:`band_plan` as int32 tensors on ``device``, copied there
+    once: ``(groups, bands, n_groups, max_bands)``."""
+    plan = band_plan(n_fft, n_mels, sample_rate, f_min, f_max, band_map)
+    return (torch.tensor(plan.groups, device=device),
+            torch.tensor(plan.bands, device=device), len(plan.groups),
+            plan.max_bands)
+
+
 @functools.lru_cache(maxsize=8)
 def _kernel_consts(n_fft: int, j_taps: int, n_mels: int, sample_rate: int,
                    f_min: float, f_max: float, device: torch.device):
@@ -411,7 +493,7 @@ def _fwd_lib() -> ctypes.CDLL:
     stream as ``c_void_p`` (ctypes would pass a bare Python int as a
     32-bit int), sizes as ``c_int``."""
     lib = _cuda.load("specband_fwd").cdll
-    lib.specband_fwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 13
+    lib.specband_fwd.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 15
                                  + [ctypes.c_void_p, ctypes.c_int,
                                     ctypes.c_void_p])
     lib.specband_fwd.restype = ctypes.c_int
@@ -448,7 +530,8 @@ def _pack_of(rows: int, rho: torch.Tensor, trials: int | None):
 
 
 def launch_fwd(x2: torch.Tensor, rho: torch.Tensor, g: _Geom,
-               radices: tuple[int, ...] | None, trials: int | None = None):
+               radices: tuple[int, ...] | None, trials: int | None = None,
+               *, band_stage: bool = True):
     """Launch K1 (``csrc/specband_fwd.cu``) at ``k_sig`` = the taps' rows
     on the current stream, without synchronising: ``(out, xext)`` as
     :func:`_fwd_plain` gives them.  ``trials`` K launches a pack of K
@@ -456,8 +539,10 @@ def launch_fwd(x2: torch.Tensor, rho: torch.Tensor, g: _Geom,
     spectra pass over all rows, trial k's band stage with its own taps,
     its outputs those of a launch on its rows alone.  ``radices`` is the
     spectra stage, the FFT of that plan (:func:`fft_plan.plan`) or
-    ``None`` for the direct DFT.  A failed build or launch raises.  The
-    caller counts the launch."""
+    ``None`` for the direct DFT.  The band stage takes the geometry's
+    :func:`band_plan`; ``band_stage=False`` launches the spectra stage
+    alone and gives ``(None, xext)``.  A failed build or launch raises.
+    The caller counts the launch."""
     bk, t = x2.shape
     k, b, k_sig = _pack_of(bk, rho, trials)
     nfr = num_frames(t, g.hop_length)
@@ -470,25 +555,22 @@ def launch_fwd(x2: torch.Tensor, rho: torch.Tensor, g: _Geom,
             basis = _consts(g, x2.device)[0]
         else:
             table, bins, signs = _fft_consts(g.n_fft, g.j_taps, x2.device)
-        band_map = (None if g.band_map is None
-                    else _band_map_tensor(g.band_map, x2.device))
+        groups, bands, n_groups, max_bands = _band_plan_tensors(
+            g.n_fft, g.n_mels, g.sample_rate, g.f_min, g.f_max, g.band_map,
+            x2.device)
         rho = rho.contiguous()
-        sig_range = torch.empty((k_sig, 2), dtype=torch.int32,
-                                device=x2.device)
         xext = torch.empty((bk * nfr, 2 * kp), dtype=torch.float32,
                            device=x2.device)
-        out = torch.empty((bk, g.n_mels, nfr), dtype=torch.float32,
-                          device=x2.device)
+        out = (torch.empty((bk, g.n_mels, nfr), dtype=torch.float32,
+                           device=x2.device) if band_stage else None)
         lib = _fwd_lib()
         rc = lib.specband_fwd(
             x2.data_ptr(), *(None if a is None else a.data_ptr()
-                             for a in (basis, table, bins, signs)),
-            rho.data_ptr(), fb.data_ptr(),
-            None if band_map is None else band_map.data_ptr(),
-            sig_range.data_ptr(), xext.data_ptr(), out.data_ptr(), b, k, t,
-            nfr, g.hop_length, g.n_fft, kp, k_ext, n_bins,
+                             for a in (basis, table, bins, signs, rho, fb,
+                                       groups, bands, xext, out)),
+            b, k, t, nfr, g.hop_length, g.n_fft, kp, k_ext, n_bins,
             2 * g.j_taps + 1, g.n_mels, k_sig, int(g.log_epilogue),
-            *_cuda.plan_args(radices),
+            n_groups, max_bands, *_cuda.plan_args(radices),
             torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError("specband_fwd launch failed: "

@@ -831,6 +831,114 @@ def test_multi_train_step_runs_both_kernels(cuda):
     assert torch.isfinite(m["loss"])
 
 
+# --- K1's band stage: band groups at their edges -----------------------
+
+#: (label, batch, T, n_fft, hop, n_mels, sample_rate, lambdas, J, band
+#: map): a group at the cap's edge, two chunks (4096, 8 kHz, 64 mels),
+#: bands of up to 402 bins walked in chunks (44.1 kHz, 32 mels),
+#: k_sig 8 with interleaved groups (sigma 7 empty), the direct stage
+#: (896), 384, and bands whose filterbank column is all zero (44.1 kHz at
+#: 512; at 256 bands 0-2, 5 and 8 are, and are sigma 1's: groups with no
+#: bin)
+BAND_CASES = [
+    ("cap-4096", 2, 9000, 4096, 80, 64, 8000, (400.0,), 12, None),
+    ("wide-44k", 2, 40000, 4096, 80, 32, 44100, (400.0,), 12, None),
+    ("k8-scattered", 3, 4000, 1024, 80, 64, 8000,
+     tuple(float(v) for v in np.linspace(100.0, 128.0, 8)), 24,
+     tuple((i * 5) % 7 for i in range(64))),
+    ("direct-896", 2, 3000, 896, 80, 64, 8000, (112.0,), 24, None),
+    ("nfft-384", 4, 2000, 384, 32, 40, 8000, (40.0,), 24, None),
+    ("empty-44k-256", 3, 1500, 256, 32, 64, 44100, (24.0, 30.0), 12,
+     tuple(int(m in (0, 1, 2, 5, 8)) for m in range(64))),
+    ("empty-44k-512", 2, 3000, 512, 32, 64, 44100, (64.0,), 16, None),
+]
+
+
+@pytest.mark.parametrize("case", BAND_CASES, ids=lambda c: c[0])
+def test_band_stage_edges(cuda, case):
+    """K1 where its band groups are at their edges, against the plain
+    version on log-mel (1e-4); each case's plan has the edge it names."""
+    label, b, t, n_fft, hop, n_mels, sr, lams, j, bm = case
+    plan = specband.band_plan(n_fft, n_mels, sr, 0.0, float(sr // 2), bm)
+    spans = plan.groups[:, 2] - (plan.groups[:, 1] & ~3)
+    empty = plan.bands[:, 1] == plan.bands[:, 0]
+    assert {"cap-4096": plan.cap - 8 < spans.max() <= plan.cap
+            and plan.cap > specband.BAND_CHUNK,
+            "wide-44k": spans.max() > 3 * specband.BAND_CHUNK,
+            "k8-scattered": set(plan.groups[:, 0]) == set(range(7)),
+            "direct-896": fft_plan.plan(n_fft) is None,
+            "nfft-384": fft_plan.plan(n_fft) is not None,
+            "empty-44k-256": (plan.groups[:, 1] == plan.groups[:, 2]).any(),
+            }.get(label, empty.any())
+    x = _signal((b, t)).to(cuda)
+    ws = torch.stack([ops.gaussian_window(torch.tensor(lam, device=cuda),
+                                          n_fft) for lam in lams])
+    kw = dict(n_fft=n_fft, hop_length=hop, n_mels=n_mels, sample_rate=sr,
+              j_taps=j)
+    if bm is None:
+        got = specband.specband_mel_power(x, ws[0], log_epilogue=True, **kw)
+        want = specband.specband_mel_power_plain(x, ws[0], log_epilogue=True,
+                                                 **kw)
+    else:
+        got, want = (torch.log(fn(x, ws, bm, **kw) + 1e-10) for fn in (
+            specband.specband_mel_power_multi,
+            specband.specband_mel_power_multi_plain))
+    torch.cuda.synchronize()
+    assert got.shape == want.shape == (b, n_mels, ops.num_frames(t, hop))
+    assert torch.isfinite(got).all()
+    err = float((got - want).abs().max())
+    assert err <= GATE, err
+    if empty.any():
+        floor = float(np.log(np.float32(1e-10)))
+        assert ((got[:, torch.from_numpy(empty).to(cuda)] - floor).abs()
+                <= 1e-6).all()
+
+
+def _launches_by_kernel(fn):
+    """``{kernel name: launches}`` of one call of ``fn`` after a warm-up,
+    from ``torch.profiler``."""
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    out = {}
+    for ev in prof.key_averages():
+        if (getattr(ev, "device_time_total", 0) or 0) > 0:
+            name = ev.key.replace("(anonymous namespace)::", "")
+            name = name.removeprefix("void ").split("(")[0].split("<")[0]
+            out[name] = out.get(name, 0) + ev.count
+    return out
+
+
+@pytest.mark.parametrize("n_fft,lam,j,k_sig", [
+    (1024, 128.0, 24, 1), (4096, 400.0, 12, 1), (896, 112.0, 24, 1),
+    (1024, 128.0, 24, 4)])
+def test_k1_is_two_launches_and_xext_is_the_spectra_stage(cuda, n_fft, lam,
+                                                          j, k_sig):
+    """A K1 call is two launches, the spectra stage and the band stage
+    (no kernel finds ranges on the card: the band plan is the host's),
+    and the ``xext`` it leaves for K2 is bit for bit what the spectra
+    stage launched alone writes: the band stage does not touch it."""
+    x = _signal((2, 9000)).to(cuda)
+    w = ops.gaussian_window(torch.tensor(lam, device=cuda), n_fft)
+    rho = specband.window_taps_sym(w, n_fft, j)
+    bm = None
+    if k_sig > 1:
+        bm = tuple(int(v) for v in ops.default_band_map(64, k_sig))
+        rho = rho.repeat(k_sig, 1)
+    g = specband._Geom(n_fft, 80, 64, 8000, 0.0, 4000.0, j, bm is None, bm)
+    radices = fft_plan.plan(n_fft)
+    stage = "ext_fft_kernel" if radices else "ext_dft_kernel"
+    assert _launches_by_kernel(lambda: specband._fwd(x, rho, g)) == {
+        stage: 1, "group_mel_kernel": 1}
+    _, xext = specband._fwd(x, rho, g)
+    out, alone = specband.launch_fwd(x, rho, g, radices, band_stage=False)
+    torch.cuda.synchronize()
+    assert out is None and torch.equal(xext, alone)
+
+
 # --- K6, the fused route's dw kernel ----------------------------------
 
 @pytest.mark.parametrize("case", FUSED_CASES,

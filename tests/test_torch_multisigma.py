@@ -16,9 +16,10 @@ The same numpy-seeded inputs go through both packages.  Gates:
   ``jax.grad`` through the JAX package's XLA multi-sigma path.
 
 The CUDA kernels run only on a card (tests/test_torch_gpu.py); here the
-multi-sigma launchers' per-sigma bin ranges are emulated in PyTorch and
-checked against the plain versions, for a contiguous and a scattered
-band map.
+multi-sigma launchers' band groups and bin ranges are emulated in PyTorch
+and checked against the plain versions, for a contiguous and a scattered
+band map, and K1's band plan (``band_plan``) is checked at every n_fft the
+kernel takes, for the band maps the routes build.
 """
 
 import flax.linen as nn
@@ -44,7 +45,8 @@ from dmel_tpu_torch.models import panns as tpanns
 from dmel_tpu_torch.ops import specband as tsb
 from dmel_tpu_torch.ops.spectrogram import bucketed_window_length
 from dmel_tpu_torch.training import train as ttrain
-from tests.test_torch_specband import emulate_k2
+from tests.test_torch_specband import (check_band_plan,
+                                      emulate_band_stage, emulate_k2)
 from tests.test_torch_training import (_NoDropout, _grad_capture,
                                        _norm_err)
 
@@ -200,39 +202,18 @@ def test_scattered_band_map_matches_jax_ref(rng):
     assert float(np.max(np.abs(_log(got) - _log(ref)))) <= GATE
 
 
-# --- the launchers' per-sigma bin ranges, emulated ----------------------
-
-def _sigma_ranges(fb, band_map, k_sig):
-    """``sigma_range_kernel``: each sigma's [lo, hi) over the nonzero
-    filterbank entries of its bands, [0, 0) when it has none."""
-    nz = fb != 0
-    out = []
-    for s in range(k_sig):
-        rows = torch.nonzero(nz[:, torch.tensor(band_map) == s].any(1))
-        out.append((int(rows.min()), int(rows.max()) + 1) if rows.numel()
-                   else (0, 0))
-    return out
-
+# --- the launchers' band groups and bin ranges, emulated ----------------
 
 def _emulate_k1(xext, rho, fb, band_map, kp):
-    """``band_mel_kernel`` at k_sig = K: one sigma at a time, the power
-    over its range only (NaN elsewhere, so a read outside it shows), and
-    the mel of its bands summed over that range."""
-    k_sig, n_taps = rho.shape
-    n_bins, n_mels = fb.shape
-    two_j = n_taps - 1
-    out = torch.full((xext.shape[0], n_mels), float("nan"))
-    for s, (lo, hi) in enumerate(_sigma_ranges(fb, band_map, k_sig)):
-        p = torch.full((xext.shape[0], n_bins), float("nan"))
-        k = torch.arange(lo, hi)
-        sr = sum(rho[s, d] * xext[:, k + two_j - d] for d in range(n_taps))
-        si = sum(rho[s, d] * xext[:, kp + k + two_j - d]
-                 for d in range(n_taps))
-        p[:, lo:hi] = sr * sr + si * si
-        for m in range(n_mels):
-            if band_map[m] == s:
-                out[:, m] = p[:, lo:hi] @ fb[lo:hi, m]
-    return out
+    """``group_mel_kernel`` at k_sig = K (``emulate_band_stage``): the
+    geometry's band groups, each with its one sigma's taps over its own
+    bins, each band's sum over its own nonzero bins; NaN where no group
+    wrote."""
+    assert xext.shape[1] == 2 * kp
+    n_fft = 2 * (fb.shape[0] - 1)
+    plan = tsb.band_plan(n_fft, fb.shape[1], SR, 0.0, float(SR // 2),
+                         band_map)
+    return emulate_band_stage(xext, rho, fb, plan)
 
 
 def _emulate_k2(xext, rho, fb, dmel, band_map, kp):
@@ -247,8 +228,9 @@ def _emulate_k2(xext, rho, fb, dmel, band_map, kp):
 @pytest.mark.parametrize("band_map", [None, SCATTERED_32],
                          ids=["contiguous", "scattered"])
 def test_multi_launchers_match_plain(rng, band_map):
-    """K1's and K2's multi-sigma launchers, emulated with their bin
-    ranges, against ``_fwd_plain`` and ``specband_drho_plain``."""
+    """K1's and K2's multi-sigma launchers, emulated with their band
+    groups and bin ranges, against ``_fwd_plain`` and
+    ``specband_drho_plain``."""
     case = CASE_256
     n_fft, hop, n_mels, lams, j, t, b = case
     k_sig = 4 if band_map is not None else len(lams)
@@ -269,6 +251,28 @@ def test_multi_launchers_match_plain(rng, band_map):
     want = tsb.specband_drho_plain(xext, rho, fb, dmel, None, bm)
     assert want.shape == (k_sig, 2 * j + 1)
     assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+#: (n_mels, band map) of the plan checks: one sigma, the routes'
+#: contiguous groups at k_sig 2, 4 and 8, and interleaved groups
+PLAN_MAPS = ([(64, None)]
+             + [(64, tuple(int(v) for v in tops.default_band_map(64, k)))
+                for k in (2, 4, 8)]
+             + [(32, SCATTERED_32)])
+
+
+@pytest.mark.parametrize("n_fft", [256, 384, 896, 1024, 2048, 4096])
+@pytest.mark.parametrize("n_mels,band_map", PLAN_MAPS,
+                         ids=["one", "k2", "k4", "k8", "scattered"])
+def test_band_plan(n_fft, n_mels, band_map):
+    """K1's band plan at every n_fft the kernel takes (the FFT and the
+    direct stage's), for each band map (``check_band_plan``)."""
+    fb = tsb.melscale_fbanks_np(n_fft // 2 + 1, 0.0, float(SR // 2), n_mels,
+                                SR)
+    plan = tsb.band_plan(n_fft, n_mels, SR, 0.0, float(SR // 2), band_map)
+    check_band_plan(plan, fb, band_map)
+    assert plan is tsb.band_plan(n_fft, n_mels, SR, 0.0, float(SR // 2),
+                                 band_map)
 
 
 def test_k2_multi_plain_matches_autograd(rng):

@@ -123,12 +123,98 @@ def test_taps_band_and_bases_match_jax(n_fft, j):
         np.testing.assert_array_equal(a, b)
 
 
+def _tap_instance(n_taps):
+    """The tap count of the band-stage kernel instance that serves
+    ``n_taps`` taps (``band_tap_instance``)."""
+    return next(nt for nt in (25, 33, 49, 127) if n_taps <= nt)
+
+
+def emulate_band_stage(xext, rho, fb, plan, log=False):
+    """K1's band stage (``group_mel_kernel``) group by group, as the
+    kernel runs it: each group's sigma's taps ``i = 0 .. 2J`` over its bins
+    in chunks of ``BAND_CHUNK`` bins from its first bin moved back to where
+    its first tap's column is a multiple of 4 (an empty group: one chunk of
+    one bin), the power, and each band's sum over its own nonzero bins
+    within the chunk, carried from chunk to chunk.  ``xext`` (rows, 2 kp),
+    ``rho`` (2J + 1,) or (K, 2J + 1), ``fb`` (n_bins, n_mels), ``plan`` a
+    :func:`band_plan`; (rows, n_mels), NaN where no group wrote, so a band
+    left out shows."""
+    kp = xext.shape[1] // 2
+    rho2 = rho[None] if rho.dim() == 1 else rho
+    n_taps = rho2.shape[1]
+    pad = (_tap_instance(n_taps) - n_taps) // 2
+    out = torch.full((xext.shape[0], fb.shape[1]), float("nan"))
+    for sigma, lo, hi, m0, m1 in plan.groups.tolist():
+        acc = torch.zeros((xext.shape[0], m1 - m0))
+        for c_lo in range(lo - (lo - pad) % 4, max(hi, lo + 1),
+                          tsb.BAND_CHUNK):
+            c_hi = min(max(hi, lo + 1), c_lo + tsb.BAND_CHUNK)
+            # the chunk's X' columns and their halo, inside one plane (a
+            # column below 0 is staged as 0)
+            assert c_hi + n_taps - 1 <= kp
+            k = torch.arange(c_lo, c_hi)
+            plane = torch.nn.functional.pad(xext, (pad + 3, 0))
+            sr = sum(rho2[sigma, i] * plane[:, pad + 3 + k + n_taps - 1 - i]
+                     for i in range(n_taps))
+            si = sum(rho2[sigma, i]
+                     * plane[:, pad + 3 + kp + k + n_taps - 1 - i]
+                     for i in range(n_taps))
+            p = sr * sr + si * si
+            for m in range(m0, m1):
+                k0 = max(int(plan.bands[m, 0]), c_lo)
+                k1 = min(int(plan.bands[m, 1]), c_hi)
+                if k1 > k0:
+                    acc[:, m - m0] += p[:, k0 - c_lo:k1 - c_lo] @ fb[k0:k1, m]
+        out[:, m0:m1] = acc
+    return torch.log(out + 1e-10) if log else out
+
+
+def check_band_plan(plan, fb, band_map=None):
+    """``plan`` is a band plan of filterbank ``fb`` under ``band_map``:
+    every band in exactly one group, in order; one sigma a group; every
+    nonzero ``fb[k, m]`` inside its band's range and its group's; the cap
+    one chunk where no band spans more than half a chunk, else two; a
+    group spans at most the cap from its first bin rounded down to a
+    multiple of 4 unless it holds one nonempty band; two neighbouring
+    groups of one sigma could not be one; an all-zero column has the
+    empty range."""
+    n_mels = fb.shape[1]
+    cap = plan.cap
+    widest = int((plan.bands[:, 1] - plan.bands[:, 0]).max())
+    assert cap == (tsb.BAND_CHUNK if 2 * widest <= tsb.BAND_CHUNK
+                   else 2 * tsb.BAND_CHUNK)
+    sigma = (0,) * n_mels if band_map is None else band_map
+    groups, bands = plan.groups, plan.bands
+    assert groups.dtype == bands.dtype == np.int32
+    assert bands.shape == (n_mels, 2) and groups.shape[1] == 5
+    assert groups[0, 3] == 0 and groups[-1, 4] == n_mels
+    assert (groups[1:, 3] == groups[:-1, 4]).all()
+    assert (groups[:, 4] > groups[:, 3]).all()
+    assert plan.max_bands == int((groups[:, 4] - groups[:, 3]).max())
+    for m in range(n_mels):
+        nz = np.flatnonzero(fb[:, m])
+        want = (nz[0], nz[-1] + 1) if nz.size else (0, 0)
+        assert tuple(bands[m]) == want
+    for gi, (s, lo, hi, m0, m1) in enumerate(groups.tolist()):
+        assert all(sigma[m] == s for m in range(m0, m1))
+        full = [m for m in range(m0, m1) if bands[m, 1] > bands[m, 0]]
+        if full:
+            assert lo == min(bands[m, 0] for m in full)
+            assert hi == max(bands[m, 1] for m in full)
+        else:
+            assert lo == hi == 0
+        assert hi - (lo & ~3) <= cap or len(full) == 1
+        if gi and full and groups[gi - 1, 0] == s:
+            plo, phi = groups[gi - 1, 1:3]
+            assert plo < phi and max(phi, hi) - (min(plo, lo) & ~3) > cap
+
+
 def _emulate_launcher(x, window, n_fft, hop, n_mels, j, log):
     """The CUDA launcher's data layout, step by step in PyTorch: X' rows
     (b * n_frames + t) from the unpadded signal with the centre padding
     masked, cos plane in columns [0, kp), sin plane in [kp, 2 kp); the
-    band sum S[k] = sum_i rho[i] X'[k + 2J - i]; output (B, n_mels,
-    n_frames)."""
+    band stage group by group over the geometry's band plan
+    (:func:`emulate_band_stage`); output (B, n_mels, n_frames)."""
     b, t = x.shape
     nfr = tops.num_frames(t, hop)
     n_bins, k_ext, _, _ = tsb._geom(n_fft, j)
@@ -143,14 +229,8 @@ def _emulate_launcher(x, window, n_fft, hop, n_mels, j, log):
                          torch.zeros(()))
     xext = frames @ basis
     rho = tsb.window_taps_sym(window, n_fft, j)
-    n_taps = 2 * j + 1
-    s_re = sum(rho[i] * xext[:, 2 * j - i:2 * j - i + n_bins]
-               for i in range(n_taps))
-    s_im = sum(rho[i] * xext[:, kp + 2 * j - i:kp + 2 * j - i + n_bins]
-               for i in range(n_taps))
-    mel = (s_re * s_re + s_im * s_im) @ fb
-    if log:
-        mel = torch.log(mel + 1e-10)
+    plan = tsb.band_plan(n_fft, n_mels, SR, 0.0, float(SR // 2))
+    mel = emulate_band_stage(xext, rho, fb, plan, log)
     return mel.reshape(b, nfr, n_mels).transpose(1, 2)
 
 
@@ -168,6 +248,67 @@ def test_launcher_layout_matches_plain(rng, n_fft, hop, n_mels, j, t, log):
         assert float((got - want).abs().max()) <= GATE
     else:
         assert float(((got - want).abs() / want).max()) <= GATE
+
+
+def test_band_plan_chunk_is_the_kernels():
+    """The plan's chunk is the number of bins the band stage convolves at
+    a time, so a group within one chunk is one pass of the kernel."""
+    src = (_cuda.SRC_DIR / "specband_fwd.cu").read_text()
+    assert re.search(r"constexpr int CHUNK = (\d+);", src).group(1) == str(
+        tsb.BAND_CHUNK)
+
+
+@pytest.mark.parametrize("own_sigma", [False, True], ids=["one", "own"])
+@pytest.mark.parametrize("n_fft", [256, 384, 512])
+def test_band_plan_empty_columns(rng, n_fft, own_sigma):
+    """At 44.1 kHz and 64 mels the lowest bands of a short FFT have no
+    nonzero bin: they get the empty range and join a group of their sigma
+    or, as sigma 1 of their own, make groups with no bin; the band stage
+    gives them log(1e-10) as the plain version does."""
+    sr, n_mels, j, hop = 44100, 64, 12, 32
+    fb = tsb.melscale_fbanks_np(n_fft // 2 + 1, 0.0, float(sr // 2), n_mels,
+                                sr)
+    empty = ~(fb != 0).any(0)
+    assert empty.any()
+    bm = tuple(int(e) for e in empty) if own_sigma else None
+    plan = tsb.band_plan(n_fft, n_mels, sr, 0.0, float(sr // 2), bm)
+    check_band_plan(plan, fb, bm)
+    assert (plan.groups[:, 1] == plan.groups[:, 2]).any() == own_sigma
+    g = tsb._Geom(n_fft, hop, n_mels, sr, 0.0, float(sr // 2), j, True, bm)
+    x = torch.from_numpy(rng.standard_normal((2, 1500)).astype(np.float32))
+    w = tops.gaussian_window(n_fft / 8.0, n_fft)
+    rho = tsb.window_taps_sym(torch.stack([w, w ** 2]) if own_sigma else w,
+                              n_fft, j)
+    want, xext = tsb._fwd_plain(x, rho, g)
+    got = emulate_band_stage(xext, rho, torch.from_numpy(fb.copy()), plan,
+                             True).reshape(2, -1, n_mels).transpose(1, 2)
+    assert float((got - want).abs().max()) <= GATE
+    assert (got[:, torch.from_numpy(empty)] == float(np.log(
+        np.float32(1e-10)))).all()
+
+
+@pytest.mark.parametrize("sr,n_mels", [(8000, 64), (44100, 32)])
+def test_band_stage_wide_bands(rng, sr, n_mels):
+    """At 4096 the top bands span more than half a chunk (136 bins at 8
+    kHz and 64 mels, 402 at 44.1 kHz and 32): groups span up to two
+    chunks, a wider band is a group of its own, and the kernel walks them
+    in chunks, each band's sum carried between them; the emulated stage
+    against ``band_mel_plain``."""
+    n_fft, j = 4096, 12
+    plan = tsb.band_plan(n_fft, n_mels, sr, 0.0, float(sr // 2))
+    fb = tsb.melscale_fbanks_np(n_fft // 2 + 1, 0.0, float(sr // 2), n_mels,
+                                sr)
+    check_band_plan(plan, fb)
+    assert plan.cap == 2 * tsb.BAND_CHUNK
+    assert (plan.groups[:, 2] - plan.groups[:, 1] > tsb.BAND_CHUNK).any()
+    g = tsb._Geom(n_fft, 80, n_mels, sr, 0.0, float(sr // 2), j, True)
+    x = torch.from_numpy(rng.standard_normal((1, 2400)).astype(np.float32))
+    rho = tsb.window_taps_sym(tops.gaussian_window(400.0, n_fft), n_fft, j)
+    _, xext = tsb._fwd_plain(x, rho, g)
+    want = tsb.band_mel_plain(xext, rho, g, 1)
+    got = emulate_band_stage(xext, rho, torch.from_numpy(fb.copy()), plan,
+                             True).reshape(1, -1, n_mels).transpose(1, 2)
+    assert float((got - want).abs().max()) <= GATE
 
 
 def test_wrapper_takes_plain_version_on_cpu(rng):
