@@ -256,7 +256,22 @@ Phases, each announced by a flushed line when it starts and ends:
    ms, first and steady, of each rank and of the one process, beside
    the card's name and power limit: the ranks shared one card, so they
    say nothing of scaling.
-24. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
+24. literal geometries (after "packed kernels"): the published
+   experiments' ``window_length = len(x)``, n_fft = win = T, at
+   audio_mnist's B 64 x 8000 and esc50's B 32 x 40000, hop 80, 64 mels,
+   lambda 46.67 and 400: ``mel_spectrogram(impl="auto",
+   log_output=True)`` forward and ``backward()`` into lambda take the
+   exact route (cuFFT) with no K1-K6 launch; two rows' log-mel (1e-4
+   max-abs) and their dlambda (1e-3 relative) against the CPU oracle of
+   ``tests/reference_impl.py``; ms (CUDA events, 3 blocks of 5 calls)
+   with the profiler's card time (``device_ms``), and
+   ``torch.cuda.max_memory_allocated`` beside the same for the
+   bucketed window and route ``fit`` takes at that batch and lambda
+   (``bucketed_window_length``, ``dispatch_hint_for``).
+25. figures: ``eval.figures.data_example_spectrograms`` on the card
+   against the CPU (1e-4 of the largest entry), no kernel launch; no
+   figure is drawn (matplotlib is not needed on the card's machine).
+26. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
    ran; its times, plain times, bounds and yardsticks at every measured
    shape, ``shapes``; launches also from the sweeps, the pretrained
    trial, the resume run and the packs; the packed entries with their
@@ -3514,6 +3529,117 @@ def pack_specband_path(seed: int, dev: torch.device) -> dict:
     return res
 
 
+#: the reference's literal geometries (n_fft = win = T: the published
+#: experiments' ``window_length = len(x)``) at the published batches and
+#: the grids' lambda 46.67 and 400 (dmel_tpu/experiments/configs.py:69,
+#: 106): (space, batch, T, lambda)
+LITERAL_CASES = (("audio_mnist", AM_BATCH, AM_T, 46.67),
+                 ("audio_mnist", AM_BATCH, AM_T, 400.0),
+                 ("esc50", BATCH, T, 46.67),
+                 ("esc50", BATCH, T, 400.0))
+#: dlambda relative gate at the literal geometries (tests/
+#: test_reference_geometries.py's)
+LITERAL_GRAD_GATE = 1e-3
+#: rows held against the CPU oracle
+LITERAL_ROWS = 2
+
+
+def _fwd_dlambd(x, lam: float, window_length: int, hint):
+    """``mel_spectrogram(impl="auto", log_output=True)`` of ``x`` at
+    ``window_length`` and ``backward()`` of its sum into lambda:
+    ``(log-mel, dlambda)``."""
+    lam_t = torch.tensor(lam, device=x.device, requires_grad=True)
+    feat = mel_spectrogram(x, lam_t, n_mels=N_MELS, sample_rate=SR,
+                           hop_length=HOP, optimized=True,
+                           window_length=window_length, impl="auto",
+                           lambd_hint=hint, log_output=True,
+                           device=x.device)
+    feat.sum().backward()
+    return feat.detach(), lam_t.grad
+
+
+def _timed_peak(fn) -> dict:
+    """``fn``'s :func:`timing` (3 blocks of 5 calls after 2), the card's
+    peak allocated bytes over those calls, and the card's time a call
+    from the profiler (:func:`device_ms`, 5 calls)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    torch.cuda.reset_peak_memory_stats()
+    t = timing(fn, iters=5, warmup=2, reps=3)
+    peak = torch.cuda.max_memory_allocated()
+    return dict(ms=t["ms"], range=t["range"], enqueue_ms=t["enqueue_ms"],
+                device_ms=device_ms(fn, calls=5), peak_bytes=peak)
+
+
+def literal_geometry_case(seed: int, dev: torch.device, space: str,
+                          batch: int, t: int, lam: float) -> dict:
+    """Forward + dlambda at n_fft = win = ``t`` (the exact route:
+    cuFFT), with no K1-K6 launch; its first rows' log-mel (1e-4 max-abs)
+    and those rows' dlambda (1e-3 relative) against the CPU oracle of
+    ``tests/reference_impl.py``; ms and peak memory beside the bucketed
+    window and route ``fit`` takes at the same batch and lambda."""
+    from tests.reference_impl import torch_logmel_oracle
+    x_np = np.random.default_rng(seed).standard_normal(
+        (batch, t)).astype(np.float32)
+    x = torch.from_numpy(x_np).to(dev)
+    route = auto_route(signal_length=t, hop_length=HOP, n_mels=N_MELS,
+                       optimized=True, window_length=t, lambd_hint=lam)[0]
+    check(route == "exact", f"{space} n_fft {t}: route {route}")
+    (feat, _), launches = counted(lambda: _fwd_dlambd(x, lam, t, lam))
+    (_, grad), launches_rows = counted(
+        lambda: _fwd_dlambd(x[:LITERAL_ROWS], lam, t, lam))
+    check(not any(launches.values()) and not any(launches_rows.values()),
+          f"a kernel launched at n_fft {t}: {launches}")
+    rows = x_np[:LITERAL_ROWS]
+    ref, ref_grad = torch_logmel_oracle(rows, lam, t, HOP, N_MELS, SR)
+    check(feat.shape == (batch, N_MELS, t // HOP + 1)
+          and bool(torch.isfinite(feat).all()), f"features {feat.shape}")
+    err = float((feat[:LITERAL_ROWS].cpu() - torch.from_numpy(ref)).abs()
+                .max())
+    gerr = abs(float(grad) - ref_grad) / abs(ref_grad)
+    check(err <= GATE, f"{space} n_fft {t} lambda {lam}: log-mel {err}")
+    check(gerr <= LITERAL_GRAD_GATE,
+          f"{space} n_fft {t} lambda {lam}: dlambda {gerr}")
+    del feat, grad
+    literal = _timed_peak(lambda: _fwd_dlambd(x, lam, t, lam))
+    b_route, wl, hint, j = _route_of(dict(CONFIG, n_points=t), lam)
+    bucketed = _timed_peak(lambda: _fwd_dlambd(x, lam, wl, hint))
+    res = dict(space=space, batch=batch, t=t, lambd=lam, n_fft=t,
+               route=route, logmel_max_abs_err=err, dlambd_rel_err=gerr,
+               rows_vs_oracle=LITERAL_ROWS, ms=literal["ms"],
+               ms_range=literal["range"], enqueue_ms=literal["enqueue_ms"],
+               device_ms=literal["device_ms"],
+               peak_bytes=literal["peak_bytes"],
+               bucketed=dict(window_length=wl, route=b_route, hint=hint,
+                             j_taps=j, ms=bucketed["ms"],
+                             ms_range=bucketed["range"],
+                             enqueue_ms=bucketed["enqueue_ms"],
+                             device_ms=bucketed["device_ms"],
+                             peak_bytes=bucketed["peak_bytes"]),
+               ms_ratio_literal_to_bucketed=literal["ms"] / bucketed["ms"])
+    say("literal geometry " + json.dumps(res))
+    return res
+
+
+def figures_path(dev: torch.device) -> dict:
+    """The data example's spectrograms (``eval.figures``: three
+    Gauss-pulse classes x lambda scales 1, 0.2, 5, faithful mode at T
+    128, hop 1) on the card against the same call on the CPU, within
+    1e-4 of the largest entry, with no kernel launch.  No figure is
+    drawn: matplotlib is not needed here."""
+    from dmel_tpu_torch.eval.figures import data_example_spectrograms
+    got, launches = counted(lambda: data_example_spectrograms(device=dev))
+    want = data_example_spectrograms(device="cpu")
+    check(not any(launches.values()), f"kernels launched: {launches}")
+    check(got.shape == want.shape == (3, 3, 129, 129)
+          and bool(np.isfinite(got).all()), f"shape {got.shape}")
+    err = float(np.max(np.abs(got - want)) / np.max(np.abs(want)))
+    check(err <= GATE, f"data example spectrograms: {err} of the largest")
+    res = dict(shape=list(got.shape), err_of_max=err)
+    say("figures " + json.dumps(res))
+    return res
+
+
 def _kernel_entry(name, source, replaces, launches_by_path, err, err_of,
                   gate, case, prefix="", **fields):
     """One entry of the ``kernels`` line: ``max_abs_err`` is the gated
@@ -3640,6 +3766,12 @@ def main():
         # the "pack specband" path's own pack: two trials at 110 and 120
         pack1_path = packed_specband_case(seed, dev, k=2,
                                           lams=(110.0, 120.0))
+
+    with phase("literal geometries"):
+        for case in LITERAL_CASES:
+            literal_geometry_case(seed, dev, *case)
+    with phase("figures"):
+        figures_path(dev)
 
     paths = {}
     with phase("model path"):

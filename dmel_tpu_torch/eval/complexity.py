@@ -3,9 +3,9 @@ fixed-window baselines (a numpy copy of ``cost_ratio`` from
 ``dmel_tpu/eval/complexity.py``).
 
 The ratio ``C_DMEL / C_baseline`` as a function of ``D``, with the cost
-split between the FFT (weight ``c1``) and the network (``1 - c1``).
-The JAX package's ``produce_complexity_plot`` needs matplotlib and is
-not ported yet.
+split between the FFT (weight ``c1``) and the network (``1 - c1``), and
+its two-panel plot (:func:`produce_complexity_plot`, which imports
+matplotlib when called).
 """
 
 from __future__ import annotations
@@ -40,3 +40,40 @@ def cost_ratio(d_values, c1: float, init_mi: float, *, fs: int = 8000,
                      + b * c2 * n_mels * n / c)
         out[i] = cost_ours / cost_base
     return out
+
+
+def produce_complexity_plot(out_path: str = "time_complexity.png") -> str:
+    """Two-panel plot of :func:`cost_ratio` over D = 1..59 (cost
+    dominated by the network, then by the FFT) for initial window
+    lengths of 20 and 300 ms, with the ratio 1 dashed; saved to
+    ``out_path``."""
+    import matplotlib
+    matplotlib.use("Agg")
+    import matplotlib.pyplot as plt
+
+    ds = np.arange(1, 60)
+    init_mis = [0.02, 0.3]
+    labels = [r"$l_{\lambda_{init}} = 20$ ms",
+              r"$l_{\lambda_{init}} = 300$ ms"]
+    c1s = [0.0001, 0.9999]
+    titles = ["Cost dominated by NN", "Cost dominated by FFT"]
+
+    fig, ax = plt.subplots(1, 2, figsize=(8, 3))
+    for init_mi, label in zip(init_mis, labels):
+        for j, c1 in enumerate(c1s):
+            ax[j].plot(ds, cost_ratio(ds, c1, init_mi), label=label)
+            ax[j].set_title(titles[j])
+            ax[j].set_xlabel("D")
+            ax[j].set_ylim([0, 2.0])
+    for a in ax:
+        a.axhline(1, color="purple", linestyle="dashed", label="reference")
+        a.legend()
+    ax[0].set_ylabel(r"$C_{DMEL} / C_{baseline}$")
+    fig.tight_layout()
+    fig.savefig(out_path, bbox_inches="tight")
+    plt.close(fig)
+    return out_path
+
+
+if __name__ == "__main__":
+    produce_complexity_plot()

@@ -5,7 +5,9 @@ kernels (K3 forward, K4 the window's gradient) and the fused forward
 shapes and at AudioMNIST's batch of 64 one-second clips, train steps
 through them, the GPU rules of the entry points, and ``fit``'s
 precision flags, reproducibility (CNN6 and the audio_mnist space's mel
-probe), prefetching feed and one-rank NCCL mesh.
+probe), prefetching feed and one-rank NCCL mesh; the reference's literal
+geometries (n_fft = win = 8000 and 40000) through cuFFT against the CPU
+oracle, and the figures' data example against the CPU.
 
 This file imports no JAX, so it also runs where JAX is not installed:
 
@@ -1534,3 +1536,66 @@ def test_fit_trials_launches_k5_once_a_step(cuda):
     assert all(len(h["records"]) == 1 for h in hists)
     lam = state["pack"].params["spectrogram_layer.lambd"].detach().cpu()
     assert float(lam[2]) == 400.0 and float(lam[0]) != 13.33
+
+
+#: the reference's literal geometries (n_fft = win = T, hop 80, 64 mels):
+#: audio_mnist's T 8000 and esc50's T 40000 at the grids' lambda 46.67
+#: and 400, two rows each
+LITERAL_CASES = [(8000, 46.67), (8000, 400.0), (40000, 46.67),
+                 (40000, 400.0)]
+#: dlambda relative gate at the literal geometries, as
+#: tests/test_reference_geometries.py's
+LITERAL_GRAD_GATE = 1e-3
+
+
+def _kernel_launches():
+    """Every K1-K6 wrapper's launch count, single and packed."""
+    return [specband.specband_mel_power.launches,
+            specband.specband_mel_power_multi.launches,
+            specband.specband_drho.launches,
+            specband.specband_drho.multi_launches,
+            framed.framed_mel_power.launches, framed.framed_dwindow.launches,
+            fused.dmel_power.launches, fused.fused_dwindow.launches,
+            specband.fwd_packed.launches,
+            specband.specband_drho_packed.launches,
+            framed.framed_fwd_packed.launches,
+            framed.framed_dwindow_packed.launches,
+            fused.fused_fwd_packed.launches,
+            fused.fused_dwindow_packed.launches]
+
+
+@pytest.mark.parametrize("t,lam", LITERAL_CASES,
+                         ids=lambda v: str(v))
+def test_literal_geometry_cufft_matches_cpu_oracle(cuda, t, lam):
+    """n_fft = win = T through ``impl="auto"`` on the card: the exact
+    route (cuFFT), no kernel launch, log-mel (1e-4) and dlambda (1e-3)
+    against the torch oracle on the CPU."""
+    from tests.reference_impl import torch_logmel_oracle
+    x_np = np.random.default_rng(0).standard_normal((2, t)).astype(
+        np.float32)
+    before = _kernel_launches()
+    lam_t = torch.tensor(lam, device=cuda, requires_grad=True)
+    feat = ops.mel_spectrogram(
+        torch.from_numpy(x_np).to(cuda), lam_t, n_mels=64,
+        sample_rate=8000, hop_length=80, optimized=True, window_length=t,
+        impl="auto", lambd_hint=lam, log_output=True)
+    feat.sum().backward()
+    torch.cuda.synchronize()
+    assert _kernel_launches() == before
+    ref, ref_grad = torch_logmel_oracle(x_np, lam, t, 80, 64, 8000)
+    assert feat.shape == ref.shape == (2, 64, t // 80 + 1)
+    err = float((feat.detach().cpu() - torch.from_numpy(ref)).abs().max())
+    assert err <= GATE, err
+    g = float(lam_t.grad)
+    assert abs(g - ref_grad) <= LITERAL_GRAD_GATE * abs(ref_grad), (
+        g, ref_grad)
+
+
+def test_data_example_spectrograms_on_card(cuda):
+    """The figures' data half on the card against the CPU."""
+    from dmel_tpu_torch.eval.figures import data_example_spectrograms
+    got = data_example_spectrograms(device=cuda)
+    want = data_example_spectrograms(device="cpu")
+    assert got.shape == want.shape == (3, 3, 129, 129)
+    assert float(np.max(np.abs(got - want))) <= GATE * float(
+        np.max(np.abs(want)))
