@@ -67,11 +67,15 @@ Phases, each announced by a flushed line when it starts and ends:
    is slower to issue it than the card to run it.
 6. K5 against its plain version: the fused route at lambda 300 (2048)
    and 600 (4096), B=32, and faithful mode at T=1500 (n_fft 3000, the
-   window centred in it; radices 4, 3, 5, 5, 5).  The same forward
-   gates, the Re|Im residual within 1e-5 of the plain version's largest
-   entry and bit-identical on repeat; dlambda through K5 and the torch
-   adjoint against autograd of the plain chain and of the exact route
-   (1e-2).  ``stage``, ``direct_ms`` and the splits as for K1.
+   window centred in it; radices 4, 3, 5, 5, 5) and on Bluestein's stage
+   at T 700, 1021 and 2039 (B 32, lambda T / 5; m_pad 2048, 2048, 4096)
+   and B 512 x 2039, where the card does real work (``BLUESTEIN_SHAPES``).
+   The same forward gates, the Re|Im residual within 1e-5 of the plain
+   version's largest entry and bit-identical on repeat; dlambda through
+   K5 and the torch adjoint against autograd of the plain chain and of
+   the exact route (1e-2).  ``stage``, ``direct_ms`` and the splits as
+   for K1; on Bluestein's stage (checked to be the stage there) also a
+   pack of two trials, K5 and K6 bit for bit two single launches.
 7. K1/K2 multi-sigma: K1 and K2 at k_sig = 4 (the default contiguous
    band map, the hint of the mean lambda, as ``fit`` builds it) at the
    bench workload (B=128, 1024, lambda 100/110/120/128, J 24), at B=32
@@ -84,11 +88,12 @@ Phases, each announced by a flushed line when it starts and ends:
    time): the exact route's forward and its backward into lambda.
    ``stage``, ``direct_ms``, the splits and the ``xext`` gates as for K1.
 8. K6 against its plain version (the torch adjoint) on K5's residual at
-   lambda 300 (2048), 600 (4096) and faithful mode (T=1500, n_fft 3000;
-   T=700, n_fft 1400): dw within 1e-3 of its largest entry, bit-identical
-   on repeat; the exact route's backward as the yardstick (and its
-   profiler card time).  K6 takes the inverse-FFT stage at 2048, 4096
-   and 3000 and the direct adjoint at 1400 (``stage``); the direct
+   lambda 300 (2048), 600 (4096) and faithful mode (T=1500, n_fft 3000,
+   and phase 6's Bluestein shapes): dw within 1e-3 of its largest entry,
+   bit-identical on repeat; the exact route's backward as the yardstick
+   (and its profiler card time).  K6 takes the inverse-FFT stage at
+   2048, 4096 and 3000 and Bluestein's at 1400, 2042 and 4078
+   (``stage``, checked), with the pack of two as in phase 6; the direct
    adjoint through the same entry is gated and timed at every shape
    (``direct_ms``, ``split``, ``split_direct``).
 9. model paths: MelPANNsNet (DMEL + CNN6, esc50_synth geometry) built
@@ -99,7 +104,11 @@ Phases, each announced by a flushed line when it starts and ends:
    launch once per batch (none on the exact route), the scores must be
    finite probabilities, and the features and scores must match the
    route's plain function followed by the same log and CNN6 head within
-   1e-4.
+   1e-4.  Then the faithful path: ``mel_spectrogram(optimized=False,
+   impl="auto", log_output=True)`` forward and ``backward()`` into
+   lambda with ``fused.USE_FUSED_BWD`` at B 512 x 2039: K5 and K6 once
+   each on Bluestein's stage (``K5bl``, ``K6bl``), log-mel within 1e-4
+   and dlambda within 1e-2 of the exact route, ms beside it.
 10. train paths: ``fit`` on ``get_dataset_by_config`` for esc50_synth at
    full CNN6 width, Adam (lr_model 1e-4, lr_tf 1.0), batch 32, 5 s
    clips, 2 epochs of 480 clips (11 train steps and 2 valid batches an
@@ -272,8 +281,10 @@ Phases, each announced by a flushed line when it starts and ends:
    against the CPU (1e-4 of the largest entry), no kernel launch; no
    figure is drawn (matplotlib is not needed on the card's machine).
 26. a ``{"kernels": [...]}`` line (each entry with the ``stage`` it
-   ran; its times, plain times, bounds and yardsticks at every measured
-   shape, ``shapes``; launches also from the sweeps, the pretrained
+   ran; ``fused_fwd_bluestein`` and ``fused_bwd_bluestein`` are K5's and
+   K6's Bluestein stage, at B 512 x 2039, with the direct stage's time at
+   each of its shapes; its times, plain times, bounds and yardsticks at
+   every measured shape, ``shapes``; launches also from the sweeps, the pretrained
    trial, the resume run and the packs; the packed entries with their
    single launches' time), then the final ``{"ok": true, "device":
    {...}}`` line.
@@ -345,6 +356,8 @@ COUNTERS = {"K1": (specband.specband_mel_power, "launches"),
             "K4fft": (framed.framed_dwindow, "fft_launches"),
             "K5fft": (fused.dmel_power, "fft_launches"),
             "K6fft": (fused.fused_dwindow, "fft_launches"),
+            "K5bl": (fused.dmel_power, "bluestein_launches"),
+            "K6bl": (fused.fused_dwindow, "bluestein_launches"),
             "K1p": (specband.fwd_packed, "launches"),
             "K2p": (specband.specband_drho_packed, "launches"),
             "K1mp": (specband.fwd_packed, "multi_launches"),
@@ -360,6 +373,10 @@ SR, HOP, N_MELS, T = 8000, 80, 64, 40000
 N_BATCHES, BATCH = 3, 32
 #: AudioMNIST's clips and batch (the audio_mnist space)
 AM_T, AM_BATCH = 8000, 64
+#: faithful mode's Bluestein shapes (win T, n_fft 2 T, lambda T / 5): B
+#: 32 at T 700, 1021 and 2039 (m_pad 2048, 2048, 4096), and B 512 x 2039,
+#: where the card does real work (26 frames a row, a 218 MB residual)
+BLUESTEIN_SHAPES = ((BATCH, 700), (BATCH, 1021), (BATCH, 2039), (512, 2039))
 #: one H100 SXM: fp32 outside the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
@@ -521,6 +538,42 @@ def device_ms(fn, calls: int = 10) -> float | str:
 def rel_err(got: torch.Tensor, want: torch.Tensor) -> float:
     """max |got - want| over max |want|."""
     return float((got - want).abs().max() / want.abs().max())
+
+
+def fused_stage_fields(n_fft: int) -> dict:
+    """K5's and K6's stage at ``n_fft`` (``fft_plan.fused_stage``): its
+    name, the radices it runs and, on Bluestein's, ``m_pad``."""
+    stage = fft_plan.fused_stage(n_fft)
+    if isinstance(stage, fft_plan.Bluestein):
+        return dict(stage="bluestein", radices=stage.radices,
+                    m_pad=stage.m_pad)
+    return dict(stage=fft_plan.fused_stage_name(n_fft), radices=stage)
+
+
+def pack_of_two(seed: int, xm: torch.Tensor, w: torch.Tensor, lambd: float,
+                win: int, g: framed.Geom) -> dict:
+    """K5 and K6 on a pack of two trials (``xm``'s rows, then them
+    reversed; the window at ``lambd`` and at 1.5 ``lambd``), one launch
+    each, against two single launches on each trial's rows: whether the
+    forward (mel and Re|Im) and dw are bit for bit the singles'."""
+    b = xm.shape[0]
+    x2 = torch.cat([xm, xm.flip(0)])
+    w2 = torch.stack([w, fused.pad_window(gaussian_window(
+        torch.tensor(1.5 * lambd, device=xm.device), win), g.n_fft)])
+    out, reim = fused.fused_fwd_packed(x2, w2, g)
+    dmel = torch.from_numpy(np.random.default_rng(seed + 2).standard_normal(
+        tuple(out.shape)).astype(np.float32)).to(xm.device)
+    dw = fused.fused_dwindow_packed(x2, reim, dmel, g, 2)
+    fwd_bits = dw_bits = True
+    for i in range(2):
+        rows = slice(i * b, (i + 1) * b)
+        o1, r1 = fused.fused_fwd(x2[rows].contiguous(), w2[i].contiguous(), g)
+        fwd_bits &= bool(torch.equal(out[rows], o1)
+                         and torch.equal(reim.chunk(2)[i], r1))
+        dw_bits &= bool(torch.equal(dw[i], fused.fused_dwindow(
+            x2[rows].contiguous(), r1, dmel[rows].contiguous(), g)))
+    return dict(pack2_fwd_bit_identical=fwd_bits,
+                pack2_dw_bit_identical=dw_bits)
 
 
 def k1_flops(batch: int, n_fft: int, j_taps: int, fb_nnz: int,
@@ -1354,9 +1407,14 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
 
     fb_nnz = int((fb != 0).sum())
     bound_ms, bound_by, least_gflop = framed_bound(batch, t, nfft, fb_nnz)
+    stage = (fused_stage_fields(nfft) if route == "fused" else
+             dict(stage=fft_plan.stage_name(nfft),
+                  radices=fft_plan.plan(nfft)))
+    if stage["stage"] == "bluestein":
+        with torch.no_grad():
+            stage.update(pack_of_two(seed, xm, w, lambd, win, g))
     res = dict(route=route, batch=batch, t=t, win_length=win, n_fft=nfft,
-               lambd=lambd, stage=fft_plan.stage_name(nfft),
-               radices=fft_plan.plan(nfft),
+               lambd=lambd, **stage,
                logmel_max_abs_err=err, logmel_err_vs_exact_stft=err_exact,
                logmel_err_direct_stage=err_direct, reim_err_of_max=reim_err,
                reim_repeat_bit_identical=reim_repeat, direct_ms=direct_ms,
@@ -1393,6 +1451,13 @@ def frontend_case(seed: int, route: str, batch: int, lambd: float,
     check(dlam_rel_exact <= GRAD_GATE,
           f"dlambda vs exact route {dlam_rel_exact:.3e}")
     check(res["dlambd_repeat_bit_identical"], "dlambda differs on repeat")
+    if not optimized and route == "fused" and fft_plan.plan(nfft) is None:
+        check(res["stage"] == "bluestein", f"K5 took {res['stage']}")
+    if res["stage"] == "bluestein":
+        check(res["pack2_fwd_bit_identical"],
+              "a pack of two K5 trials differs from the single launches")
+        check(res["pack2_dw_bit_identical"],
+              "a pack of two K6 trials differs from the single launches")
     if route == "framed":
         check(dw_rel <= DW_GATE, f"K4 vs plain {dw_rel:.3e} of max")
         check(dw_rel_direct <= DW_GATE,
@@ -1462,9 +1527,13 @@ def k6_case(seed: int, batch: int, lambd: float, dev: torch.device,
     del exact_out
     fb_nnz = int((framed._fb(g, dev) != 0).sum())
     bound_ms, bound_by, least_gflop = k4_bound(batch, t, nfft, fb_nnz)
+    stage = fused_stage_fields(nfft)
+    if stage["stage"] == "bluestein":
+        with torch.no_grad():
+            stage.update(pack_of_two(seed, xm, w, lambd, win, g))
     res = dict(batch=batch, t=t, win_length=win, n_fft=nfft, lambd=lambd,
-               stage=fft_plan.stage_name(nfft), radices=fft_plan.plan(nfft),
-               dw_err_of_max=dw_rel, dw_err_of_max_direct_stage=dw_rel_direct,
+               **stage, dw_err_of_max=dw_rel,
+               dw_err_of_max_direct_stage=dw_rel_direct,
                dw_repeat_bit_identical=bool(torch.equal(d_k, d_k2)),
                **kernel_t, direct_ms=direct_ms, split=split,
                split_direct=split_direct, plain_ms=plain_ms, **library_bwd,
@@ -1477,6 +1546,62 @@ def k6_case(seed: int, batch: int, lambd: float, dev: torch.device,
     check(dw_rel_direct <= DW_GATE,
           f"K6 direct stage vs plain {dw_rel_direct:.3e} of max")
     check(res["dw_repeat_bit_identical"], "K6 differs on repeat")
+    if not optimized and fft_plan.plan(nfft) is None:
+        check(res["stage"] == "bluestein", f"K6 took {res['stage']}")
+    if res["stage"] == "bluestein":
+        check(res["pack2_fwd_bit_identical"] and res["pack2_dw_bit_identical"],
+              "a pack of two trials differs from the single launches")
+    return res
+
+
+def faithful_path(seed: int, dev: torch.device, batch: int = 512,
+                  t: int = 2039) -> dict:
+    """Faithful mode (``optimized=False``: the window ``t`` samples,
+    n_fft 2 t) through the public ``mel_spectrogram(impl="auto",
+    log_output=True)``, forward and ``backward()`` into lambda with
+    ``fused.USE_FUSED_BWD`` set, at B 512 x 2039 (n_fft 4078, Bluestein's
+    stage at m_pad 4096): the auto route takes fused, K5 and K6 launch
+    once each, both on Bluestein's stage; the log-mel within 1e-4 of the
+    exact route (cuFFT) and dlambda within 1e-2 of its; the call's ms
+    beside the exact route's."""
+    lam0 = t / 5.0
+    route, _ = auto_route(signal_length=t, hop_length=HOP, n_mels=N_MELS,
+                          optimized=False, window_length=None,
+                          lambd_hint=lam0)
+    check(route == "fused", f"faithful T {t} took {route}")
+    x = torch.from_numpy(np.random.default_rng(seed).standard_normal(
+        (batch, t)).astype(np.float32)).to(dev)
+    kw = dict(n_mels=N_MELS, sample_rate=SR, hop_length=HOP,
+              optimized=False, log_output=True, lambd_hint=lam0, device=dev)
+
+    def run(impl):
+        lam = torch.tensor(lam0, device=dev, requires_grad=True)
+        out = mel_spectrogram(x, lam, impl=impl, **kw)
+        out.sum().backward()
+        return out.detach(), lam.grad
+
+    prev = fused.USE_FUSED_BWD
+    fused.USE_FUSED_BWD = True
+    try:
+        (out_k, g_k), launches = counted(lambda: run("auto"))
+        out_x, g_x = run("exact")
+        torch.cuda.synchronize()
+        ms = time_ms(lambda: run("auto"))
+        exact_ms = time_ms(lambda: run("exact"))
+    finally:
+        fused.USE_FUSED_BWD = prev
+    err = float((out_k - out_x).abs().max())
+    dlam_rel = float((g_k - g_x).abs() / g_x.abs())
+    res = dict(batch=batch, t=t, n_fft=2 * t, lambd=lam0, route=route,
+               **fused_stage_fields(2 * t), launches=launches,
+               logmel_err_vs_exact=err, dlambd=float(g_k),
+               dlambd_rel_err_vs_exact=dlam_rel, ms=ms, exact_ms=exact_ms)
+    say("faithful " + json.dumps(res))
+    want = {"K5": 1, "K5bl": 1, "K6": 1, "K6bl": 1}
+    check({k: v for k, v in launches.items() if v} == want,
+          f"faithful path launched {launches}")
+    check(err <= GATE, f"faithful log-mel vs exact {err:.3e}")
+    check(dlam_rel <= GRAD_GATE, f"faithful dlambda vs exact {dlam_rel:.3e}")
     return res
 
 
@@ -3726,6 +3851,8 @@ def main():
                   frontend_case(seed, "fused", BATCH, 600.0, dev, 4096),
                   frontend_case(seed, "fused", BATCH, 300.0, dev, None,
                                 t=1500)]
+        cases5 += [frontend_case(seed, "fused", b, t / 5.0, dev, None, t=t)
+                   for b, t in BLUESTEIN_SHAPES]
 
     with phase("K1/K2 multi vs plain"):
         cases_m = [multi_case(seed, 128, 1024, (100.0, 110.0, 120.0, 128.0),
@@ -3756,8 +3883,9 @@ def main():
     with phase("K6 vs plain"):
         cases6 = [k6_case(seed, BATCH, 300.0, dev, 2048),
                   k6_case(seed, BATCH, 600.0, dev, 4096),
-                  k6_case(seed, BATCH, 300.0, dev, None, t=1500),
-                  k6_case(seed, BATCH, 140.0, dev, None, t=700)]
+                  k6_case(seed, BATCH, 300.0, dev, None, t=1500)]
+        cases6 += [k6_case(seed, b, t / 5.0, dev, None, t=t)
+                   for b, t in BLUESTEIN_SHAPES]
 
     with phase("packed kernels"):
         pack_one = pack_of_one_case(seed, dev)
@@ -3783,6 +3911,8 @@ def main():
     with phase("model path, multi-sigma exact"):
         paths["inference_multi_exact"] = model_path(seed, dev, 46.7,
                                                     n_sigma=4)
+    with phase("faithful path"):
+        paths["faithful"] = faithful_path(seed, dev)
 
     with phase("train path"):
         paths["train"] = train_path(seed, dev, 128.0, repeat=True)
@@ -3962,6 +4092,48 @@ def main():
             **fft_fields("K6", main6, cases6),
             dw_err_of_max_direct_stage=max(
                 c["dw_err_of_max_direct_stage"] for c in cases6)),
+    ]
+
+    def bluestein_fields(key, case, all_cases):
+        """A Bluestein-stage entry's fields: the stage at the main shape,
+        the direct stage's time and both splits there, its launches on
+        the Bluestein counter, whether every measured pack of two was
+        bit for bit its single launches."""
+        return dict(stage=case["stage"], m_pad=case["m_pad"],
+                    radices=case["radices"], direct_ms=case["direct_ms"],
+                    split=case["split"], split_direct=case["split_direct"],
+                    bluestein_launches=sum(by_path(key).values()),
+                    pack2_bit_identical=all(
+                        c["pack2_fwd_bit_identical"]
+                        and c["pack2_dw_bit_identical"] for c in all_cases))
+
+    # Bluestein's stage of K5 and K6: B 512 x 2039 is the main shape
+    bl5 = [c for c in cases5 if c["stage"] == "bluestein"]
+    bl6 = [c for c in cases6 if c["stage"] == "bluestein"]
+    main5b, main6b = bl5[-1], bl6[-1]
+    kernels += [
+        _kernel_entry(
+            "fused_fwd_bluestein", "framed_fwd.cu",
+            "dmel_tpu/ops/pallas/fused_dmel.py:68", by_path("K5bl"),
+            max(c["logmel_max_abs_err"] for c in bl5), "log-mel", GATE,
+            main5b, **_library(main5b, "library_ms"),
+            **bluestein_fields("K5bl", main5b, bl5),
+            shapes=shapes(bl5, "", "library_ms"),
+            direct_ms_by_shape={f"B{c['batch']}-T{c['t']}": c["direct_ms"]
+                                for c in bl5},
+            reim_err_of_max=max(c["reim_err_of_max"] for c in bl5),
+            dlambd_rel_err=max(c["dlambd_rel_err"] for c in bl5)),
+        _kernel_entry(
+            "fused_bwd_bluestein", "framed_bwd.cu",
+            "dmel_tpu/ops/pallas/fused_dmel.py:152", by_path("K6bl"),
+            max(c["dw_err_of_max"] for c in bl6), "dw / max |dw|", DW_GATE,
+            main6b, **_library(main6b, "library_bwd_ms"),
+            **bluestein_fields("K6bl", main6b, bl6),
+            shapes=shapes(bl6, "", "library_bwd_ms"),
+            direct_ms_by_shape={f"B{c['batch']}-T{c['t']}": c["direct_ms"]
+                                for c in bl6},
+            dw_err_of_max_direct_stage=max(
+                c["dw_err_of_max_direct_stage"] for c in bl6)),
     ]
 
     def path_pack(case, prefix):

@@ -1,6 +1,7 @@
 // A real FFT of each frame of a block, in shared memory, in fp32, and its
-// adjoint; included by framed_fwd.cu (K3 and K5), specband_fwd.cu (K1) and
-// framed_bwd.cu (K6) inside their anonymous namespaces.
+// adjoint, at any even frame length up to 4096; included by framed_fwd.cu
+// (K3 and K5), specband_fwd.cu (K1) and framed_bwd.cu (K4 and K6) inside
+// their anonymous namespaces.
 //
 // A real frame x of even length N is read in pairs as M = N/2 complex
 // values z[n] = x[2n] + i x[2n+1]: the float view of the complex buffer is
@@ -36,21 +37,38 @@
 // is computed in float.  Each output is one fixed sequence of operations,
 // so repeats are bit-identical.
 //
-// The plan (the radices in stage order) is decided on the host
-// (dmel_tpu_torch/ops/fft_plan.py), checked by fft_plan_from() and passed
-// by value.  dmel_tpu_torch/ops/fft_plan.py:rfft_mirror and
-// irfft_adjoint_mirror are this arithmetic step by step in PyTorch, held
-// to numpy's rfft and irfft by the CPU tests.
+// Where M has a prime factor above 5 (faithful mode's N = 2 T, e.g. 1400
+// = 2^3 5^2 7), K5 and K6 take Bluestein's chirp-z instead
+// (bluestein_frames): with the chirp c[n] = exp(-i pi n^2 / M) = W_N^(n^2),
+//
+//   Z[k] = c[k] sum_n (z[n] c[n]) conj c[k - n],
+//
+// a circular convolution of length P, the smallest power of two >= 2 M -
+// 1 (at most 4096): P-point FFT of z c zero-padded, times the FFT of the
+// conjugate chirp (built on the host in float64, divided by P and rounded
+// once), the inverse FFT (the forward stages on conjugated data, as
+// above), times c[k].  Each chirp is entry n^2 mod N of the N-entry table;
+// the P-point stages read their own 2P-entry table.  Against numpy's
+// float64 rfft the arithmetic errs by 1.0-2.2e-7 of the largest bin at M
+// = 7 to 2039 (the direct DFT 0.9-4.9e-7; tests/test_torch_fft.py).
+//
+// The stage (the radices in stage order, and Bluestein's P and tables) is
+// decided on the host (dmel_tpu_torch/ops/fft_plan.py), checked by
+// fft_stage_from() and passed by value.
+// dmel_tpu_torch/ops/fft_plan.py:rfft_mirror and irfft_adjoint_mirror are
+// this arithmetic step by step in PyTorch, held to numpy's rfft and irfft
+// by the CPU tests.
 //
 // On the card the stages are bound by issue and latency, not by bytes or
 // flops: each stage is a pass through shared memory and a barrier, with a
 // few butterflies a thread in between, so the time follows how many blocks
-// an SM keeps resident.  The design keeps a block small (256 threads, 48
-// registers, 32 KB of shared memory: 5 blocks an SM) and every index
-// update free of integer division in the inner loops.  Keeping pairs of
-// radix-4 stages in registers, a shared-memory twiddle table and more
-// frames a block each measured slower on the H100 (PERF.md, Findings):
-// they cost registers or shared memory, and so resident blocks.
+// an SM keeps resident.  The design keeps a block small (256 threads, at
+// most 64 registers, 32 KB of shared memory: 4-5 blocks an SM; Bluestein's
+// at P = 4096 takes 64 KB, 3 blocks an SM) and every index update free of
+// integer division in the inner loops.  Keeping pairs of radix-4 stages in
+// registers, a shared-memory twiddle table and more frames a block each
+// measured slower on the H100 (PERF.md, Findings): they cost registers or
+// shared memory, and so resident blocks.
 
 constexpr int FFT_THREADS = 256;
 constexpr int FFT_MAX_STAGES = 12;
@@ -64,6 +82,20 @@ struct FftPlan {
   int n_stages;
   int radix[FFT_MAX_STAGES];
 };
+
+// K5's and K6's spectra stage (fft_plan.py:fused_stage): the plan of the
+// complex FFT of length n_fft / 2 (m_pad = 0), or Bluestein's (m_pad > 0):
+// the plan of the m_pad-point FFT, its (2, 2 m_pad) twiddle table and
+// bhat, FFT(b) / m_pad of the conjugate chirp (m_pad (re, im) pairs).
+struct FftStage {
+  FftPlan plan;
+  int m_pad;
+  const float* table;
+  const float2* bhat;
+};
+
+// most points of Bluestein's padded FFT: 2 (n_fft / 2) - 1 <= 4095
+constexpr int BLUESTEIN_MAX_POINTS = 4096;
 
 // The plan from the host's radices; false where it is not a plan of the
 // complex FFT of length n_fft / 2.
@@ -86,12 +118,50 @@ inline bool fft_plan_from(const int* radices, int n_stages, int n_fft,
   return m == n_fft / 2;
 }
 
+// The stage from the host's arguments: m_pad = 0 takes the radices as a
+// plan of the complex FFT of length n_fft / 2 (no tables); m_pad > 0 as
+// Bluestein's, where m_pad must be the smallest power of two >= n_fft - 1,
+// at most BLUESTEIN_MAX_POINTS, the radices a plan of the m_pad-point FFT
+// and both tables given.  False otherwise.
+inline bool fft_stage_from(const int* radices, int n_stages, int n_fft,
+                           int m_pad, const float* table, const float* bhat,
+                           FftStage* stage) {
+  stage->m_pad = m_pad;
+  stage->table = table;
+  stage->bhat = reinterpret_cast<const float2*>(bhat);
+  if (m_pad == 0) {
+    return table == nullptr && bhat == nullptr &&
+           fft_plan_from(radices, n_stages, n_fft, &stage->plan);
+  }
+  if (table == nullptr || bhat == nullptr || n_fft < 2 || n_fft % 2 != 0 ||
+      m_pad < 1 || m_pad > BLUESTEIN_MAX_POINTS || (m_pad & (m_pad - 1)) ||
+      m_pad < n_fft - 1 || m_pad >= 2 * (n_fft - 1)) {
+    return false;
+  }
+  return fft_plan_from(radices, n_stages, 2 * m_pad, &stage->plan);
+}
+
 inline int fft_frames_per_block(int n_fft) {
   return n_fft >= FFT_BLOCK_POINTS ? 1 : FFT_BLOCK_POINTS / n_fft;
 }
 
 inline size_t fft_smem_bytes(int n_fft) {
   return sizeof(float2) * (size_t)fft_frames_per_block(n_fft) * n_fft;
+}
+
+// Frames a block and shared bytes a block of a stage: the plan's as above;
+// Bluestein's two buffers of m_pad points a frame, max(1, FFT_BLOCK_POINTS
+// / (2 m_pad)) frames (32 KB a block, 64 KB at m_pad = 4096)
+inline int fft_stage_frames(int n_fft, const FftStage& stage) {
+  if (stage.m_pad == 0) return fft_frames_per_block(n_fft);
+  return 2 * stage.m_pad >= FFT_BLOCK_POINTS
+             ? 1 : FFT_BLOCK_POINTS / (2 * stage.m_pad);
+}
+
+inline size_t fft_stage_smem(int n_fft, const FftStage& stage) {
+  if (stage.m_pad == 0) return fft_smem_bytes(n_fft);
+  return 2 * sizeof(float2) * (size_t)fft_stage_frames(n_fft, stage) *
+         stage.m_pad;
 }
 
 __device__ __forceinline__ float2 fft_tw(const float* __restrict__ tab,
@@ -208,6 +278,61 @@ __device__ __forceinline__ float2* fft_frames(
   return a;
 }
 
+// The chirp c[n] = exp(-i pi n^2 / m) = W_N^(n^2) (N = n_fft = 2 m, n < m):
+// table entry n^2 mod N, an exact integer (n^2 < 2^22).
+__device__ __forceinline__ float2 chirp(const float* __restrict__ tab,
+                                        int n_fft, int n) {
+  return fft_tw(tab, n_fft, n * n % n_fft);
+}
+
+// Calls fn(f, k) for every (frame f < fr, column k < ncol) pair of this
+// thread: the block's threads cover the fr x ncol pairs with k fastest.
+template <class Fn>
+__device__ __forceinline__ void for_frame_columns(int fr, int ncol, Fn fn) {
+  int f = threadIdx.x / ncol;
+  int k = threadIdx.x - f * ncol;
+  const int df = FFT_THREADS / ncol;
+  const int dk = FFT_THREADS - df * ncol;
+  for (; f < fr; f += df, k += dk) {
+    if (k >= ncol) {
+      k -= ncol;
+      ++f;
+      if (f >= fr) break;
+    }
+    fn(f, k);
+  }
+}
+
+// The complex DFT of length m = n_fft / 2 of each of the fr frames in `a`
+// by Bluestein's chirp-z, for an m with no plan: `a` holds a[n] = z[n]
+// c[n] for n < m and zeros up to M = stage.m_pad (frame f at a + f M), `b`
+// is as large.  A = FFT_M(a) (the Stockham stages at the 2M-entry table),
+// conj(A bhat) in place, the same stages again to Q, and DFT[k] = c[k]
+// conj Q[k] for k < m, written to the buffer Q left free at frame stride
+// m, as fft_frames leaves its output.  Returns that buffer; the other one
+// is free.  tab is the n_fft-entry table.  Starts and ends with every
+// thread past a barrier.
+__device__ __forceinline__ float2* bluestein_frames(
+    float2* a, float2* b, int fr, int n_fft, const FftStage& stage,
+    const float* __restrict__ tab) {
+  const int mp = stage.m_pad;
+  float2* p = fft_frames(a, b, fr, 2 * mp, stage.plan, stage.table);
+  for (int i = threadIdx.x; i < fr * mp; i += FFT_THREADS) {
+    const float2 v = cmul(p[i], __ldg(stage.bhat + (i & (mp - 1))));
+    p[i] = make_float2(v.x, -v.y);
+  }
+  float2* o = p == a ? b : a;
+  const float2* q = fft_frames(p, o, fr, 2 * mp, stage.plan, stage.table);
+  o = q == p ? o : p;             // the buffer the stages left free
+  const int m = n_fft / 2;
+  for_frame_columns(fr, m, [&](int f, int k) {
+    const float2 v = q[f * mp + k];
+    o[f * m + k] = cmul(make_float2(v.x, -v.y), chirp(tab, n_fft, k));
+  });
+  __syncthreads();
+  return o;
+}
+
 // Bin k (0 <= k <= n/2) of the real frame whose complex FFT of length
 // m = n / 2 is z.
 __device__ __forceinline__ float2 rfft_bin(const float2* z, int n, int k,
@@ -279,20 +404,34 @@ __device__ __forceinline__ void fft_load_frames(
   }
 }
 
-// Calls fn(f, k) for every (frame f < fr, column k < ncol) pair of this
-// thread: the block's threads cover the fr x ncol pairs with k fastest.
-template <class Fn>
-__device__ __forceinline__ void for_frame_columns(int fr, int ncol, Fn fn) {
-  int f = threadIdx.x / ncol;
-  int k = threadIdx.x - f * ncol;
-  const int df = FFT_THREADS / ncol;
-  const int dk = FFT_THREADS - df * ncol;
-  for (; f < fr; f += df, k += dk) {
-    if (k >= ncol) {
-      k -= ncol;
-      ++f;
-      if (f >= fr) break;
+// Bluestein's input (K5): the fr frames of rows row0 .. as fft_load_frames
+// loads them, times w, read in pairs z[n] = x[2n] + i x[2n+1] and times
+// the chirp c[n] (tab the n-entry table), into `a` at frame stride m_pad,
+// zeros from n / 2 up.
+__device__ __forceinline__ void bluestein_load_frames(
+    float2* a, const float* __restrict__ x, const float* __restrict__ w,
+    const float* __restrict__ tab, int row0, int fr, int rows, int sig_len,
+    int nfr, int hop, int n, int m_pad) {
+  const int m = n / 2;
+  int f_src = -1;
+  const float* src = x;
+  int start = 0;
+  for_frame_columns(fr, m_pad, [&](int f, int k) {
+    const int r = row0 + f;
+    float2 v = make_float2(0.f, 0.f);
+    if (k < m && r < rows) {
+      if (f != f_src) {
+        const int b = r / nfr;
+        src = x + (size_t)b * sig_len;
+        start = (r - b * nfr) * hop - m;
+        f_src = f;
+      }
+      const int p = start + 2 * k;
+      if (p >= 0 && p < sig_len) v.x = __ldg(src + p) * __ldg(w + 2 * k);
+      if (p + 1 >= 0 && p + 1 < sig_len)
+        v.y = __ldg(src + p + 1) * __ldg(w + 2 * k + 1);
+      v = cmul(v, chirp(tab, n, k));
     }
-    fn(f, k);
-  }
+    a[f * m_pad + k] = v;
+  });
 }

@@ -25,16 +25,26 @@
 // padding).  This is the gradient in the window; lambda's follows by
 // autograd through gaussian_window, as in XLA there.
 //
-// Two stages compute dfw, chosen on the host from n_fft alone
-// (dmel_tpu_torch/ops/fft_plan.py) and passed as the radices of the FFT's
-// plan: both entries take the FFT stage wherever n_fft has a plan
+// Three stages compute dfw, chosen on the host from n_fft alone
+// (dmel_tpu_torch/ops/fft_plan.py) and passed as framed_fwd.cu's entries
+// take them: both entries take the FFT stage wherever n_fft has a plan
 // (framed_bwd, K4: every framed n_fft but 896 = 2^7 7; fused_bwd, K6:
-// 2048, 4096, faithful 3000) and the direct stage elsewhere (896, and
-// faithful 1400 = 2^3 5^2 7).  At the framed n_fft of 128 to 1024 a block
-// holds 32 to 4 frames (4096 samples), and K3 leaves the same Re|Im
-// layout (kp_of(n_fft) columns a plane) that K5 leaves for K6.
+// 2048, 4096, faithful 3000); fused_bwd takes Bluestein's stage at every
+// other even n_fft (faithful 1400 = 2^3 5^2 7 and the rest of faithful
+// mode's 2 T), and framed_bwd the direct stage at 896.  At the framed
+// n_fft of 128 to 1024 a block holds 32 to 4 frames (4096 samples), and
+// K3 leaves the same Re|Im layout (kp_of(n_fft) columns a plane) that K5
+// leaves for K6.
 //
-// The FFT stage: one launch of adjoint_fft_dw_kernel, then dw_sum_kernel.
+// Bluestein's stage is adjoint_fft_dw_kernel<true>: the pre-pass times
+// frame_fft.cuh's chirp, zero-padded to P points, then bluestein_frames
+// (two P-point FFTs), whose output lands at the planned stage's frame
+// stride, so the dw sums below are the same code.  max(1, 2048 / P)
+// frames a group; at P = 4096 a block takes 64 KB of shared memory, 3 an
+// SM, and the grid is DW_BLOCKS_WIDE = 3 x 132 blocks.
+//
+// The FFT stage: one launch of adjoint_fft_dw_kernel<false>, then
+// dw_sum_kernel.
 // dfw is the inverse real FFT of each frame's dRe|dIm (frame_fft.cuh: the
 // real pre-pass, then the Stockham stages on conjugated data), ~2.5 N
 // log2 N flops a frame where the direct adjoint takes 4 kp N, so what
@@ -59,9 +69,9 @@
 // sums in shared memory instead (48 KB a block, 56 bytes of spills) was
 // no faster on the H100 (PERF.md, Findings).
 //
-// The direct stage, three launches, for n_fft without a plan (and, with
-// no plan passed, at any n_fft: chip_smoke.py times it as direct_ms); the
-// design keeps dfw on chip, as the TPU kernels did:
+// The direct stage, three launches, for K4 at 896 (and, with no stage
+// passed, at any n_fft: chip_smoke.py times it as direct_ms); the design
+// keeps dfw on chip, as the TPU kernels did:
 //
 // 1. dreim_kernel: one block owns FR frame rows, stages their cotangent in
 //    shared memory, forms dP over each bin's contiguous range of nonzero
@@ -88,7 +98,7 @@
 // split (128-lane tiling).
 //
 // C interface: framed_bwd() and fused_bwd() check their geometry and the
-// plan, launch the stage's kernels on the given stream and return
+// stage, launch the stage's kernels on the given stream and return
 // cudaGetLastError(); they do not synchronise.
 
 #include <cuda_runtime.h>
@@ -108,8 +118,12 @@ constexpr int SUM_THREADS = 256;
 
 #include "frame_fft.cuh"
 
-// The FFT stage's fixed grid: 4 blocks on each of the H100's 132 SMs.
+// The FFT stage's fixed grid: 4 blocks on each of the H100's 132 SMs;
+// 3 on each where a block takes more than 48 KB of shared memory
+// (Bluestein's at m_pad 4096: 64 KB, 3 blocks an SM)
 constexpr int DW_BLOCKS = 528;
+constexpr int DW_BLOCKS_WIDE = 396;
+constexpr size_t DW_WIDE_SMEM = 48 * 1024;
 // dw sums a thread keeps: a block's frames hold at most FFT_BLOCK_POINTS
 // samples
 constexpr int DW_SLOTS = FFT_BLOCK_POINTS / FFT_THREADS;
@@ -348,7 +362,9 @@ __device__ __forceinline__ float bin_dp(const float* __restrict__ g,
 }
 
 // The FFT stage: fr frames a group, groups blockIdx.x + i gridDim.x in
-// order; a partial dw of n_fft floats a block.
+// order; a partial dw of n_fft floats a block.  The inverse FFT is the
+// plan's, or Bluestein's where BLUESTEIN.
+template <bool BLUESTEIN>
 __global__ void __launch_bounds__(FFT_THREADS, 4)
 adjoint_fft_dw_kernel(const float* __restrict__ x,
                       const float* __restrict__ reim,
@@ -359,9 +375,11 @@ adjoint_fft_dw_kernel(const float* __restrict__ x,
                       const float* __restrict__ dmel,
                       float* __restrict__ partials, int rows, int sig_len,
                       int nfr, int hop, int n_fft, int kp, int n_mels, int fr,
-                      FftPlan plan) {
-  extern __shared__ __align__(16) float2 fft_buf[];   // 2 x fr x n_fft/2
+                      FftStage stage) {
+  // 2 x fr x span: n_fft / 2 points a frame, or Bluestein's m_pad
+  extern __shared__ __align__(16) float2 fft_buf[];
   const int m = n_fft / 2;
+  const int span = BLUESTEIN ? stage.m_pad : m;
   const int n_bins = m + 1;
   // trial blockIdx.y of a pack: its signal rows, residual, cotangent and
   // partials (rows is one trial's)
@@ -371,7 +389,7 @@ adjoint_fft_dw_kernel(const float* __restrict__ x,
   dmel += trial * (size_t)rows * n_mels;
   partials += trial * (size_t)n_fft * gridDim.x;
   float2* a = fft_buf;
-  float2* y = fft_buf + fr * m;
+  float2* y = fft_buf + fr * span;
   const int n_groups = (rows + fr - 1) / fr;
   // This thread's samples: flat index s FFT_THREADS + threadIdx.x of the
   // group's fr x n_fft samples, walked as (frame f, sample mm) pairs.  As
@@ -414,12 +432,24 @@ adjoint_fft_dw_kernel(const float* __restrict__ x,
       y[f * m + k] = v;
     });
     __syncthreads();
-    for_frame_columns(fr, m, [&](int f, int k) {
-      a[f * m + k] = irfft_prepass(y + f * m, n_fft, k, table);
-    });
-    const float* z =
-        reinterpret_cast<const float*>(fft_frames(a, y, fr, n_fft, plan,
-                                                  table));
+    const float* z;
+    if constexpr (BLUESTEIN) {
+      // the pre-pass times the chirp, zero-padded to span points
+      for_frame_columns(fr, span, [&](int f, int k) {
+        a[f * span + k] =
+            k < m ? cmul(irfft_prepass(y + f * m, n_fft, k, table),
+                         chirp(table, n_fft, k))
+                  : make_float2(0.f, 0.f);
+      });
+      z = reinterpret_cast<const float*>(
+          bluestein_frames(a, y, fr, n_fft, stage, table));
+    } else {
+      for_frame_columns(fr, m, [&](int f, int k) {
+        a[f * m + k] = irfft_prepass(y + f * m, n_fft, k, table);
+      });
+      z = reinterpret_cast<const float*>(
+          fft_frames(a, y, fr, n_fft, stage.plan, table));
+    }
     // dw sums: frame sample times dfw, dfw the conjugated output read as
     // floats at the flat index
     int f = f0;
@@ -473,23 +503,26 @@ adjoint_fft_dw_kernel(const float* __restrict__ x,
   }
 }
 
-// Columns of the partials buffer: blocks of adjoint_fft_dw_kernel (FFT
-// stage) or row blocks of adjoint_dw_kernel (direct stage).
-int partial_blocks(int rows, int n_fft, bool fft) {
-  if (!fft) return (rows + BM - 1) / BM;
-  const int fr = fft_frames_per_block(n_fft);
+// Columns of the partials buffer: blocks of adjoint_fft_dw_kernel (an FFT
+// stage) or row blocks of adjoint_dw_kernel (stage == nullptr: the direct
+// stage).
+int partial_blocks(int rows, int n_fft, const FftStage* stage) {
+  if (stage == nullptr) return (rows + BM - 1) / BM;
+  const int fr = fft_stage_frames(n_fft, *stage);
   const int groups = (rows + fr - 1) / fr;
-  return groups < DW_BLOCKS ? groups : DW_BLOCKS;
+  const int cap = fft_stage_smem(n_fft, *stage) > DW_WIDE_SMEM
+                      ? DW_BLOCKS_WIDE : DW_BLOCKS;
+  return groups < cap ? groups : cap;
 }
 
 // The stage's launches on the given stream, then dw_sum_kernel; returns
-// cudaGetLastError().  plan == nullptr takes the direct stage.
+// cudaGetLastError().  stage == nullptr takes the direct stage.
 int launch_bwd(const float* x, const float* reim, const float* table,
                const float* fb, const float* fb_t, const int* bin_lo,
                const int* bin_hi, const float* dmel, float* dreim,
                float* partials, float* dw, int batch, int trials,
                int sig_len, int nfr, int hop, int n_fft, int kp, int n_bins,
-               int n_mels, const FftPlan* plan, void* stream) {
+               int n_mels, const FftStage* stage, void* stream) {
   const int rows = batch * nfr;
   if (batch <= 0 || trials <= 0 || trials > 65535 || nfr <= 0 ||
       rows / nfr != batch || hop <= 0 ||
@@ -498,17 +531,19 @@ int launch_bwd(const float* x, const float* reim, const float* table,
     return static_cast<int>(cudaErrorInvalidValue);
   }
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const int n_blocks = partial_blocks(rows, n_fft, plan != nullptr);
+  const int n_blocks = partial_blocks(rows, n_fft, stage);
   cudaError_t err;
-  if (plan != nullptr) {
-    const size_t smem = fft_smem_bytes(n_fft);
-    err = cudaFuncSetAttribute(adjoint_fft_dw_kernel,
+  if (stage != nullptr) {
+    const size_t smem = fft_stage_smem(n_fft, *stage);
+    auto kernel = stage->m_pad ? adjoint_fft_dw_kernel<true>
+                               : adjoint_fft_dw_kernel<false>;
+    err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
                                static_cast<int>(smem));
     if (err != cudaSuccess) return static_cast<int>(err);
-    adjoint_fft_dw_kernel<<<dim3(n_blocks, trials), FFT_THREADS, smem, s>>>(
+    kernel<<<dim3(n_blocks, trials), FFT_THREADS, smem, s>>>(
         x, reim, table, fb_t, bin_lo, bin_hi, dmel, partials, rows, sig_len,
-        nfr, hop, n_fft, kp, n_mels, fft_frames_per_block(n_fft), *plan);
+        nfr, hop, n_fft, kp, n_mels, fft_stage_frames(n_fft, *stage), *stage);
   } else {
     const size_t smem = sizeof(float) * (size_t)FR * n_mels;
     err = cudaFuncSetAttribute(dreim_kernel,
@@ -536,16 +571,19 @@ int launch_bwd(const float* x, const float* reim, const float* table,
   return static_cast<int>(cudaGetLastError());
 }
 
-// The plan from the host's radices, or the direct stage (n_stages < 0);
-// false where the radices are not a plan of n_fft.
-bool stage_of(const int* radices, int n_stages, int n_fft, FftPlan* plan,
-              const FftPlan** chosen) {
-  if (n_stages < 0) {
+// The stage from the host's arguments (fft_stage_from), or the direct
+// stage (n_stages < 0 with m_pad = 0); false where they are not a stage of
+// n_fft.
+bool stage_of(const int* radices, int n_stages, int n_fft, int m_pad,
+              const float* bl_table, const float* bl_hat, FftStage* stage,
+              const FftStage** chosen) {
+  if (n_stages < 0 && m_pad == 0) {
     *chosen = nullptr;
     return true;
   }
-  *chosen = plan;
-  return fft_plan_from(radices, n_stages, n_fft, plan);
+  *chosen = stage;
+  return fft_stage_from(radices, n_stages, n_fft, m_pad, bl_table, bl_hat,
+                        stage);
 }
 
 }  // namespace
@@ -557,10 +595,14 @@ const char* framed_bwd_error_string(int code) {
 }
 
 // Columns of the partials scratch the caller allocates, (trials, n_fft,
-// columns), for rows = batch * nfr frame rows of one trial on the FFT stage
-// (fft != 0) or the direct stage.
-int framed_bwd_partial_blocks(int rows, int n_fft, int fft) {
-  return partial_blocks(rows, n_fft, fft != 0);
+// columns), for rows = batch * nfr frame rows of one trial on the stage
+// (n_stages, m_pad) of the entries below: the direct stage where n_stages
+// < 0 and m_pad = 0.
+int framed_bwd_partial_blocks(int rows, int n_fft, int n_stages, int m_pad) {
+  if (n_stages < 0 && m_pad == 0) return partial_blocks(rows, n_fft, nullptr);
+  FftStage stage{};
+  stage.m_pad = m_pad;
+  return partial_blocks(rows, n_fft, &stage);
 }
 
 // A pack of `trials` trials, each of `batch` signal rows (rows = batch *
@@ -569,27 +611,31 @@ int framed_bwd_partial_blocks(int rows, int n_fft, int fft) {
 // (n_bins, n_mels) dense and fb_t, its transpose (n_mels, n_bins); bin_lo /
 // bin_hi (n_bins) int32, each bin's nonzero mel range; dmel (trials*batch,
 // n_mels, nfr); dreim scratch (trials*rows, 2*kp), read only by the direct
-// stage (null on the FFT stage); partials scratch (trials, n_fft,
-// framed_bwd_partial_blocks(rows, n_fft, stage)); dw (trials, n_fft), one
-// gradient a trial.  Each trial's partials are its own blocks', summed in
-// the order of a launch with trials = 1 on its rows, so trial k's dw is
-// bit for bit that launch's.  All fp32 unless stated, contiguous, on the
-// current device.
-// radices (n_stages ints, host memory) is the FFT stage's plan, or null
-// with n_stages = -1 for the direct stage; a plan that is not one of the
-// complex FFT of length n_fft / 2 is refused.
+// stage (null on an FFT stage); partials scratch (trials, n_fft,
+// framed_bwd_partial_blocks(rows, n_fft, n_stages, m_pad)); dw (trials,
+// n_fft), one gradient a trial.  Each trial's partials are its own
+// blocks', summed in the order of a launch with trials = 1 on its rows, so
+// trial k's dw is bit for bit that launch's.  All fp32 unless stated,
+// contiguous, on the current device.
+// The stage (radices, n_stages, m_pad, bl_table, bl_hat) is as
+// framed_fwd.cu's entries take it: the plan of the complex FFT of length
+// n_fft / 2, Bluestein's (fused_bwd only), or the direct stage (radices
+// null, n_stages = -1, m_pad = 0); anything else is refused.
 
-// K4: n_fft a multiple of 128, at most 1024 (the framed route's geometry).
+// K4: n_fft a multiple of 128, at most 1024 (the framed route's geometry);
+// no Bluestein stage.
 int framed_bwd(const float* x, const float* reim, const float* table,
                const float* fb, const float* fb_t, const int* bin_lo,
                const int* bin_hi, const float* dmel, float* dreim,
                float* partials, float* dw, int batch, int trials,
                int sig_len, int nfr, int hop, int n_fft, int kp, int n_bins,
-               int n_mels, const int* radices, int n_stages, void* stream) {
-  FftPlan plan;
-  const FftPlan* chosen;
-  if (n_fft < 128 || n_fft % 128 != 0 || n_fft > 1024 ||
-      !stage_of(radices, n_stages, n_fft, &plan, &chosen))
+               int n_mels, const int* radices, int n_stages, int m_pad,
+               const float* bl_table, const float* bl_hat, void* stream) {
+  FftStage stage;
+  const FftStage* chosen;
+  if (n_fft < 128 || n_fft % 128 != 0 || n_fft > 1024 || m_pad != 0 ||
+      !stage_of(radices, n_stages, n_fft, m_pad, bl_table, bl_hat, &stage,
+                &chosen))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_bwd(x, reim, table, fb, fb_t, bin_lo, bin_hi, dmel, dreim,
                     partials, dw, batch, trials, sig_len, nfr, hop, n_fft, kp,
@@ -597,17 +643,21 @@ int framed_bwd(const float* x, const float* reim, const float* table,
 }
 
 // K6: any even n_fft from 2 to 4096 (the fused route's geometry), the
-// window centred in it by the caller.
+// window centred in it by the caller: the plan's inverse FFT where n_fft
+// / 2 has no prime factor above 5, else Bluestein's (faithful mode's n_fft
+// = 2 T at most T).
 int fused_bwd(const float* x, const float* reim, const float* table,
               const float* fb, const float* fb_t, const int* bin_lo,
               const int* bin_hi, const float* dmel, float* dreim,
               float* partials, float* dw, int batch, int trials, int sig_len,
               int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
-              const int* radices, int n_stages, void* stream) {
-  FftPlan plan;
-  const FftPlan* chosen;
+              const int* radices, int n_stages, int m_pad,
+              const float* bl_table, const float* bl_hat, void* stream) {
+  FftStage stage;
+  const FftStage* chosen;
   if (n_fft < 2 || n_fft % 2 != 0 || n_fft > 4096 ||
-      !stage_of(radices, n_stages, n_fft, &plan, &chosen))
+      !stage_of(radices, n_stages, n_fft, m_pad, bl_table, bl_hat, &stage,
+                &chosen))
     return static_cast<int>(cudaErrorInvalidValue);
   return launch_bwd(x, reim, table, fb, fb_t, bin_lo, bin_hi, dmel, dreim,
                     partials, dw, batch, trials, sig_len, nfr, hop, n_fft, kp,

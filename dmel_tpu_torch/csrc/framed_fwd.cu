@@ -28,14 +28,14 @@
 // table built in float64 and rounded once to fp32, at an exact integer
 // phase: a float angle 2 pi m k / N loses several bits at N = 4096.
 //
-// Both entries take one of two spectra stages, chosen on the host from
-// n_fft alone (dmel_tpu_torch/ops/fft_plan.py) and passed as the radices
-// of its plan:
+// Both entries take one of three spectra stages, chosen on the host from
+// n_fft alone (dmel_tpu_torch/ops/fft_plan.py) and passed as the stage's
+// radices (and, for Bluestein's, its padded length and two tables):
 //
-// - the FFT stage, one launch of fused_fft_kernel, for every even n_fft
-//   up to 4096 whose half has no prime factor above 5: every bucket the
-//   fused route takes and faithful 3000 (K5), every n_fft of the framed
-//   route but 896 = 2^7 7 (K3: 128 to 1024).  A block owns
+// - the FFT stage, one launch of fused_fft_kernel<false>, for every even
+//   n_fft up to 4096 whose half has no prime factor above 5: every bucket
+//   the fused route takes and faithful 3000 (K5), every n_fft of the
+//   framed route but 896 = 2^7 7 (K3: 128 to 1024).  A block owns
 //   max(1, 4096 / n_fft) frames.  It loads them windowed straight from x,
 //   masking the centre padding, runs the shared-memory FFT of
 //   frame_fft.cuh, writes Re|Im with the zero pad columns, stages the
@@ -48,13 +48,23 @@
 //   coalesced, and reads nothing back: the power goes from shared memory
 //   to the mel output in the same block, where the direct stage reads the
 //   residual again.
-// - the direct stage, two launches, for any other even n_fft (K5 at
-//   faithful 1400 = 2^3 5^2 7, K3 at 896), and wherever the caller passes
-//   no plan: frame_dft_kernel then power_mel_kernel.
+// - Bluestein's stage, one launch of fused_fft_kernel<true> (K5 only), at
+//   every other even n_fft up to 4096: faithful mode's n_fft = 2 T (1400,
+//   and 1494 of the 1536 T in (512, 2048]).  The same kernel, but each
+//   frame's M = n_fft / 2 points go through frame_fft.cuh's chirp-z
+//   (bluestein_frames): two power-of-two FFTs of P >= 2 M - 1 points (P =
+//   2048 at faithful T 513-1024, 4096 above), max(1, 2048 / P) frames a
+//   block,
+//   64 KB of shared memory at P = 4096.  Its result lands at the planned
+//   stage's frame stride, so the post-pass, the residual and the mel are
+//   the same code.
+// - the direct stage, two launches, wherever the caller passes no stage
+//   (K3 at 896; chip_smoke.py times it at every shape as direct_ms):
+//   frame_dft_kernel then power_mel_kernel.
 //
-// fused_fft_kernel takes 256 threads, 48 registers (no spills) and 32 KB
-// of shared memory a block at every n_fft (frame_fft.cuh; chip_smoke.py's
-// build phase prints ptxas's counts): 5 blocks an SM.  The direct stage:
+// fused_fft_kernel takes 256 threads, at most 64 registers (no spills)
+// and 32 KB of shared memory a block (frame_fft.cuh; chip_smoke.py's build
+// phase prints ptxas's counts).  The direct stage:
 //
 // 1. frame_dft_kernel: Re|Im as one fp32 GEMM, windowed frames (rows,
 //    n_fft) times the bases (n_fft, 2 kp), cos plane in columns [0, kp),
@@ -283,8 +293,10 @@ power_mel_kernel(const float* __restrict__ reim, const float* __restrict__ fb,
 }
 
 // K5's FFT stage: fr frames a block, windowed, through the shared-memory
-// FFT; Re|Im with its zero pad columns to the residual, the power to the
-// FFT's free buffer, then the mel projection.
+// FFT (the plan's, or Bluestein's where BLUESTEIN); Re|Im with its zero
+// pad columns to the residual, the power to the buffer the FFT left free,
+// then the mel projection.
+template <bool BLUESTEIN>
 __global__ void __launch_bounds__(FFT_THREADS)
 fused_fft_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ table,
@@ -292,9 +304,11 @@ fused_fft_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const int* __restrict__ mel_hi, float* __restrict__ reim,
                  float* __restrict__ out, int rows, int sig_len, int nfr,
                  int hop, int n_fft, int kp, int n_bins, int n_mels, int fr,
-                 FftPlan plan) {
-  extern __shared__ __align__(16) float2 fft_buf[];   // 2 x fr x n_fft/2
+                 FftStage stage) {
+  // 2 x fr x span: n_fft / 2 points a frame, or Bluestein's m_pad
+  extern __shared__ __align__(16) float2 fft_buf[];
   const int m = n_fft / 2;
+  const int span = BLUESTEIN ? stage.m_pad : m;
   const int row0 = blockIdx.x * fr;
   // trial blockIdx.y of a pack: its signal rows, window and outputs (rows
   // is one trial's)
@@ -304,9 +318,16 @@ fused_fft_kernel(const float* __restrict__ x, const float* __restrict__ w,
   reim += trial * (size_t)rows * 2 * kp;
   out += trial * (size_t)rows * n_mels;
   float2* a = fft_buf;
-  float2* b = fft_buf + fr * m;
-  fft_load_frames(a, x, w, row0, fr, rows, sig_len, nfr, hop, n_fft);
-  const float2* z = fft_frames(a, b, fr, n_fft, plan, table);
+  float2* b = fft_buf + fr * span;
+  const float2* z;
+  if constexpr (BLUESTEIN) {
+    bluestein_load_frames(a, x, w, table, row0, fr, rows, sig_len, nfr, hop,
+                          n_fft, span);
+    z = bluestein_frames(a, b, fr, n_fft, stage, table);
+  } else {
+    fft_load_frames(a, x, w, row0, fr, rows, sig_len, nfr, hop, n_fft);
+    z = fft_frames(a, b, fr, n_fft, stage.plan, table);
+  }
   // fr x n_bins power in the buffer the FFT left free (fr n_fft floats)
   float* p = reinterpret_cast<float*>(z == a ? b : a);
   for_frame_columns(fr, kp, [&](int f, int k) {
@@ -355,18 +376,18 @@ int launch_fft(const float* x, const float* w, const float* table,
                const float* fb, const int* mel_lo, const int* mel_hi,
                float* reim, float* out, int batch, int trials, int sig_len,
                int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
-               const FftPlan& plan, cudaStream_t s) {
+               const FftStage& stage, cudaStream_t s) {
   const int rows = batch * nfr;
-  const int fr = fft_frames_per_block(n_fft);
-  const size_t smem = fft_smem_bytes(n_fft);
+  const int fr = fft_stage_frames(n_fft, stage);
+  const size_t smem = fft_stage_smem(n_fft, stage);
+  auto kernel = stage.m_pad ? fused_fft_kernel<true> : fused_fft_kernel<false>;
   cudaError_t err = cudaFuncSetAttribute(
-      fused_fft_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return static_cast<int>(err);
-  fused_fft_kernel<<<dim3((rows + fr - 1) / fr, trials), FFT_THREADS, smem,
-                     s>>>(
+  kernel<<<dim3((rows + fr - 1) / fr, trials), FFT_THREADS, smem, s>>>(
       x, w, table, fb, mel_lo, mel_hi, reim, out, rows, sig_len, nfr, hop,
-      n_fft, kp, n_bins, n_mels, fr, plan);
+      n_fft, kp, n_bins, n_mels, fr, stage);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -378,28 +399,31 @@ bool bad_geometry(int batch, int trials, int nfr, int hop, int n_fft, int kp,
          kp < n_bins || (2 * kp) % BN != 0 || n_mels <= 0;
 }
 
-// Either stage, from the host's radices (n_stages < 0: the direct
-// stage); a plan that is not one of n_fft is refused.
+// Any stage, from the host's arguments (fft_stage_from; n_stages < 0 with
+// m_pad = 0: the direct stage); a stage that is not one of n_fft is
+// refused.
 int launch_stage(const float* x, const float* w, const float* table,
                  const float* fb, const int* mel_lo, const int* mel_hi,
                  float* reim, float* out, int batch, int trials, int sig_len,
                  int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
-                 const int* radices, int n_stages, cudaStream_t s) {
+                 const int* radices, int n_stages, int m_pad,
+                 const float* bl_table, const float* bl_hat, cudaStream_t s) {
   if (bad_geometry(batch, trials, nfr, hop, n_fft, kp, n_bins, n_mels)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  if (n_stages < 0) {
+  if (n_stages < 0 && m_pad == 0) {
     return launch_direct(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
                          trials, sig_len, nfr, hop, n_fft, kp, n_bins, n_mels,
                          s);
   }
-  FftPlan plan;
-  if (!fft_plan_from(radices, n_stages, n_fft, &plan)) {
+  FftStage stage;
+  if (!fft_stage_from(radices, n_stages, n_fft, m_pad, bl_table, bl_hat,
+                      &stage)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_fft(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
-                    trials, sig_len, nfr, hop, n_fft, kp, n_bins, n_mels, plan,
-                    s);
+                    trials, sig_len, nfr, hop, n_fft, kp, n_bins, n_mels,
+                    stage, s);
 }
 
 }  // namespace
@@ -419,22 +443,30 @@ const char* framed_fwd_error_string(int code) {
 // bit for bit those of a launch with trials = 1 on its rows and window.
 // All fp32 unless stated, contiguous, on the current device.
 
-// radices (n_stages ints, host memory) is the FFT stage's plan, or null
-// with n_stages = -1 for the direct stage; a plan that is not one of the
-// complex FFT of length n_fft / 2 is refused.
+// The spectra stage is (radices, n_stages, m_pad, bl_table, bl_hat), as
+// ops/framed.py:_stage_args passes it: radices (n_stages ints, host
+// memory) the plan of the complex FFT of length n_fft / 2 with m_pad = 0
+// and both tables null; or, with m_pad > 0, Bluestein's (fused_fwd only):
+// the plan of the m_pad-point FFT, bl_table its (2, 2 m_pad) cos / -sin
+// table and bl_hat (m_pad, 2) FFT(b) / m_pad of the conjugate chirp
+// (fft_plan.py:bluestein_kernel_np), on the device; or the direct stage,
+// radices null, n_stages = -1, m_pad = 0.  Anything else is refused.
 
-// K3: n_fft a multiple of 128, at most 1024 (the framed route's geometry).
+// K3: n_fft a multiple of 128, at most 1024 (the framed route's geometry);
+// no Bluestein stage.
 int framed_fwd(const float* x, const float* w, const float* table,
                const float* fb, const int* mel_lo, const int* mel_hi,
                float* reim, float* out, int batch, int trials, int sig_len,
                int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
-               const int* radices, int n_stages, void* stream) {
-  if (n_fft % 128 != 0 || n_fft > 1024) {
+               const int* radices, int n_stages, int m_pad,
+               const float* bl_table, const float* bl_hat, void* stream) {
+  if (n_fft % 128 != 0 || n_fft > 1024 || m_pad != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
   return launch_stage(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
                       trials, sig_len, nfr, hop, n_fft, kp, n_bins, n_mels,
-                      radices, n_stages, static_cast<cudaStream_t>(stream));
+                      radices, n_stages, m_pad, bl_table, bl_hat,
+                      static_cast<cudaStream_t>(stream));
 }
 
 // K5: any even n_fft up to 4096; w is the window centred in n_fft.
@@ -442,11 +474,13 @@ int fused_fwd(const float* x, const float* w, const float* table,
               const float* fb, const int* mel_lo, const int* mel_hi,
               float* reim, float* out, int batch, int trials, int sig_len,
               int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
-              const int* radices, int n_stages, void* stream) {
+              const int* radices, int n_stages, int m_pad,
+              const float* bl_table, const float* bl_hat, void* stream) {
   if (n_fft > 4096) return static_cast<int>(cudaErrorInvalidValue);
   return launch_stage(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
                       trials, sig_len, nfr, hop, n_fft, kp, n_bins, n_mels,
-                      radices, n_stages, static_cast<cudaStream_t>(stream));
+                      radices, n_stages, m_pad, bl_table, bl_hat,
+                      static_cast<cudaStream_t>(stream));
 }
 
 }  // extern "C"

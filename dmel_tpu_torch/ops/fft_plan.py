@@ -2,25 +2,29 @@
 and K5 (``csrc/framed_fwd.cu``) and K6 (``csrc/framed_bwd.cu``), decided
 on the host.
 
-Each takes the real DFT of each frame (K6 its adjoint) either with an
-FFT in shared memory (``csrc/frame_fft.cuh``) or with the direct-DFT
-GEMM the port began with.  :func:`plan` picks one from the geometry
-alone, before the launch, and the wrapper passes it to the kernel: the
-radices of the complex FFT of length ``n_fft / 2`` in stage order, or
-``None`` for the direct stage.  The FFT takes every even ``n_fft`` up to
-4096 whose half has no prime factor above 5 (every power of two, and
-e.g. 384 or 3000); the rest (e.g. 896 = 2^7 7, faithful mode's 1400 =
-2^3 5^2 7) keeps the direct stage.
+Each takes the real DFT of each frame (K6 its adjoint) with an FFT in
+shared memory (``csrc/frame_fft.cuh``) or with the direct-DFT GEMM the
+port began with, and the wrapper passes the stage to the kernel.
+:func:`plan` gives the radices of the complex FFT of length ``n_fft / 2``
+in stage order, or ``None``: every even ``n_fft`` up to 4096 whose half
+has no prime factor above 5 (every power of two, and e.g. 384 or 3000)
+has a plan.  K1, K3 and K4 read :func:`plan` and take the direct stage
+where it has none (896 = 2^7 7).  K5 and K6 read :func:`fused_stage`:
+the plan where there is one, else a :class:`Bluestein` stage (faithful
+mode's 1400 = 2^3 5^2 7, and every other even ``n_fft`` up to 4096), the
+chirp-z transform through a power-of-two FFT of ``m_pad`` points.
 
 Beside the plan live the pieces of the FFT stage that the CPU tests
 check, since the CUDA code cannot run there:
 
 - :func:`rfft_mirror`, the forward kernels' arithmetic step by step in
-  PyTorch (Stockham stages, then the real-FFT post-pass), at the same
-  float32 table entries and integer phases;
+  PyTorch (Stockham stages, or Bluestein's, then the real-FFT
+  post-pass), at the same float32 table entries and integer phases;
 - :func:`irfft_adjoint_mirror`, K6's: the adjoint of the real DFT as an
   inverse real FFT (the inverse post-pass, then the same stages on
   conjugated data);
+- :func:`bluestein_kernel_np`, Bluestein's convolution kernel in the
+  frequency domain, the table K5 and K6 read;
 - :func:`ext_bin_map`, K1's map from its extended bins ``-J .. n_bins -
   1 + J`` to FFT bins, with the sign of each plane.
 """
@@ -28,9 +32,11 @@ check, since the CUDA code cannot run there:
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import numpy as np
 import torch
+import torch.nn.functional as F
 
 #: largest n_fft the FFT stage takes (both kernels' cap)
 MAX_N_FFT = 4096
@@ -69,8 +75,74 @@ def plan(n_fft: int) -> tuple[int, ...] | None:
 
 
 def stage_name(n_fft: int) -> str:
-    """``"fft"`` or ``"direct"``: the stage the kernels run at ``n_fft``."""
+    """``"fft"`` or ``"direct"``: the stage K1, K3 and K4 run at
+    ``n_fft``."""
     return "direct" if plan(n_fft) is None else "fft"
+
+
+class Bluestein(NamedTuple):
+    """K5's and K6's spectra stage at an n_fft that :func:`plan` has no
+    plan for: the complex DFT of length ``m = n_fft / 2`` as a circular
+    convolution of length ``m_pad``, the smallest power of two ``>= 2 m -
+    1``, through the Stockham stages of ``radices`` (radix 4, then at most one
+    radix 2, as :func:`plan` orders them)."""
+    m_pad: int
+    radices: tuple[int, ...]
+
+
+def _pow2_radices(m: int) -> tuple[int, ...]:
+    """:func:`plan`'s radices for a power of two ``m`` (4s, then at most
+    one 2), without its cap on n_fft: ``m`` may be 4096."""
+    fours, two = divmod(m.bit_length() - 1, 2)
+    return (4,) * fours + (2,) * two
+
+
+@functools.lru_cache(maxsize=64)
+def fused_stage(n_fft: int) -> tuple[int, ...] | Bluestein | None:
+    """The spectra stage of K5 and K6 at ``n_fft``: :func:`plan`'s
+    radices where it has them, else a :class:`Bluestein` stage, at every
+    even ``n_fft`` in ``[2, 4096]``; ``None`` outside them."""
+    radices = plan(n_fft)
+    if radices is not None or n_fft < 2 or n_fft % 2 or n_fft > MAX_N_FFT:
+        return radices
+    m_pad = 1 << (n_fft - 2).bit_length()
+    return Bluestein(m_pad, _pow2_radices(m_pad))
+
+
+def fused_stage_name(n_fft: int) -> str:
+    """``"fft"``, ``"bluestein"`` or ``"direct"``: the stage K5 and K6
+    run at ``n_fft`` (:func:`fused_stage`)."""
+    stage = fused_stage(n_fft)
+    if stage is None:
+        return "direct"
+    return "bluestein" if isinstance(stage, Bluestein) else "fft"
+
+
+def chirp_index(n_fft: int) -> np.ndarray:
+    """``(n_fft / 2,)`` int64: ``n^2 mod n_fft``, the table entry of the
+    chirp ``c[n] = exp(-i pi n^2 / m) = W_N^(n^2)``."""
+    n = np.arange(n_fft // 2, dtype=np.int64)
+    return n * n % n_fft
+
+
+@functools.lru_cache(maxsize=16)
+def bluestein_kernel_np(n_fft: int, m_pad: int) -> np.ndarray:
+    """``(m_pad, 2)`` float32, (re, im) pairs: ``FFT(b) / m_pad`` of the
+    conjugate chirp ``b[n] = conj c[n]`` for ``|n| < m``, wrapped mod
+    ``m_pad`` (at least ``2 m - 1``) and zero elsewhere, built in float64
+    from the same integer phases and rounded once (``1 / m_pad`` is a
+    power of two, so the inverse FFT's scale costs no rounding)."""
+    m = n_fft // 2
+    if m_pad < 2 * m - 1:
+        raise ValueError(f"m_pad {m_pad} < 2 m - 1 = {2 * m - 1}")
+    conj_c = np.exp(2j * np.pi * chirp_index(n_fft) / n_fft)
+    b = np.zeros(m_pad, np.complex128)
+    b[:m] = conj_c
+    b[m_pad - m + 1:] = conj_c[1:][::-1]
+    bhat = np.fft.fft(b) / m_pad
+    out = np.stack([bhat.real, bhat.imag], -1).astype(np.float32)
+    out.flags.writeable = False
+    return out
 
 
 def _cmul(ar, ai, wr, wi):
@@ -145,22 +217,55 @@ def _stockham(zr, zi, radices: tuple[int, ...], tc, ts):
     return zr, zi
 
 
-def rfft_mirror(frames: torch.Tensor, radices: tuple[int, ...],
-                table: torch.Tensor):
+def _bluestein(zr, zi, stage: Bluestein, tc, ts):
+    """The complex DFT of length ``m`` (``zr``, ``zi``: rows, m) as the
+    kernels' Bluestein stage computes it (``frame_fft.cuh:bluestein``),
+    ``tc``, ``ts`` the table of ``n = 2 m``: ``a = z c`` zero-padded to
+    ``M = stage.m_pad``, its FFT by the Stockham stages at the table of
+    ``2 M``, times ``FFT(b) / M`` (:func:`bluestein_kernel_np`) and
+    conjugated, the same stages again, and bin ``k < m`` is ``c[k]``
+    times the conjugate of that output."""
+    m = zr.shape[1]
+    n_fft = 2 * m
+    idx = torch.from_numpy(chirp_index(n_fft))
+    cr, ci = tc[idx], ts[idx]
+    ar, ai = (F.pad(v, (0, stage.m_pad - m)) for v in _cmul(zr, zi, cr, ci))
+    tc2, ts2 = torch.tensor(table_np(2 * stage.m_pad))
+    ar, ai = _stockham(ar, ai, stage.radices, tc2, ts2)
+    bh = torch.tensor(bluestein_kernel_np(n_fft, stage.m_pad))
+    pr, pi = _cmul(ar, ai, bh[:, 0], bh[:, 1])
+    qr, qi = _stockham(pr, -pi, stage.radices, tc2, ts2)
+    return _cmul(qr[:, :m], -qi[:, :m], cr, ci)
+
+
+def _complex_dft(zr, zi, stage, tc, ts):
+    """The complex DFT of length ``m`` through ``stage``: a plan's
+    radices (:func:`_stockham`), or a :class:`Bluestein` stage; ``None``
+    takes :func:`fused_stage`'s."""
+    if stage is None:
+        stage = fused_stage(2 * zr.shape[1])
+    if isinstance(stage, Bluestein):
+        return _bluestein(zr, zi, stage, tc, ts)
+    return _stockham(zr, zi, stage, tc, ts)
+
+
+def rfft_mirror(frames: torch.Tensor, radices, table: torch.Tensor):
     """``(re, im)``, each ``(rows, n_fft / 2 + 1)``: the real DFT of the
     float32 ``frames`` (rows, n_fft) as the FFT stage computes it, with
     ``table`` the ``(2, n_fft)`` cos / -sin table (:func:`table_np`).
 
     The frame's samples, read in pairs, are ``m = n_fft / 2`` complex
     values ``z[n] = x[2n] + i x[2n+1]``, transformed by the Stockham
-    stages (:func:`_stockham`).  The post-pass gives bin ``k <= m``:
+    stages of the plan ``radices`` (:func:`_stockham`), or by Bluestein's
+    stage where ``radices`` is a :class:`Bluestein` or ``None``
+    (:func:`fused_stage`'s).  The post-pass gives bin ``k <= m``:
     ``X[k] = E + W^k O`` with ``E = (Z[k] + conj Z[m-k]) / 2``, ``O =
     (Z[k] - conj Z[m-k]) / 2i`` and ``Z[m] = Z[0]``."""
     rows, n = frames.shape
     m = n // 2
     tc, ts = table[0], table[1]
     z = frames.reshape(rows, m, 2)
-    zr, zi = _stockham(z[..., 0], z[..., 1], radices, tc, ts)
+    zr, zi = _complex_dft(z[..., 0], z[..., 1], radices, tc, ts)
     k = torch.arange(m + 1)
     kk = torch.where(k == m, 0, k)
     km = torch.where(k == 0, 0, m - k)
@@ -170,8 +275,7 @@ def rfft_mirror(frames: torch.Tensor, radices: tuple[int, ...],
     return er + (wr * orr - wi * oi), ei + (wr * oi + wi * orr)
 
 
-def irfft_adjoint_mirror(dreim, radices: tuple[int, ...],
-                         n_fft: int) -> torch.Tensor:
+def irfft_adjoint_mirror(dreim, radices, n_fft: int) -> torch.Tensor:
     """``dfw`` (rows, n_fft): the adjoint of the real DFT applied to
     ``dreim = (dre, dim)``, each float32 ``(rows, n_fft / 2 + 1)``, as
     K6's FFT stage computes it::
@@ -187,11 +291,13 @@ def irfft_adjoint_mirror(dreim, radices: tuple[int, ...],
 
         Z[k] = A + i W^-k B,  A = Y[k] + conj Y[m-k],  B = Y[k] - conj Y[m-k]
 
-    then the complex inverse DFT of length ``m`` as the forward Stockham
-    stages on ``conj Z`` (``conj FFT(conj Z)`` is the FFT with conjugate
-    twiddles, to the bit); ``dfw[2n] + i dfw[2n+1]`` is its ``n``-th
-    output.  Every twiddle is an entry of the float32 table
-    (:func:`table_np`) at an integer phase."""
+    then the complex inverse DFT of length ``m`` as the forward stages on
+    ``conj Z`` (``conj FFT(conj Z)`` is the FFT with conjugate twiddles,
+    to the bit): the plan ``radices``' Stockham stages, or Bluestein's
+    where ``radices`` is a :class:`Bluestein` or ``None``;
+    ``dfw[2n] + i dfw[2n+1]`` is its ``n``-th output.  Every twiddle is
+    an entry of the float32 table (:func:`table_np`) at an integer
+    phase."""
     dre, dim = dreim
     m = n_fft // 2
     tc, ts = torch.tensor(table_np(n_fft))
@@ -208,7 +314,7 @@ def irfft_adjoint_mirror(dreim, radices: tuple[int, ...],
     wr, wi = tc[k], ts[k]                   # W^k; W^-k = (wr, -wi)
     zr = ar - (wr * bi - wi * br)
     zi = ai + (wr * br + wi * bi)
-    outr, outi = _stockham(zr, -zi, radices, tc, ts)
+    outr, outi = _complex_dft(zr, -zi, radices, tc, ts)
     return torch.stack([outr, -outi], -1).reshape(dre.shape[0], n_fft)
 
 

@@ -144,6 +144,29 @@ def _kernel_consts(g: Geom, device: torch.device) -> _Consts:
 
 
 @functools.lru_cache(maxsize=8)
+def _bluestein_consts(n_fft: int, m_pad: int, device: torch.device):
+    """Bluestein's tables on ``device`` (:class:`fft_plan.Bluestein`):
+    the ``(2, 2 m_pad)`` cos / -sin table of the m_pad-point FFT and
+    ``FFT(b) / m_pad``, ``(m_pad, 2)``."""
+    return (torch.tensor(_table_np(2 * m_pad), device=device),
+            torch.tensor(fft_plan.bluestein_kernel_np(n_fft, m_pad),
+                         device=device))
+
+
+def _stage_args(stage, n_fft: int, device: torch.device):
+    """A spectra stage's five C arguments (``csrc/framed_fwd.cu``'s
+    convention): the radices as a ctypes int array and their count
+    (``(None, -1)`` for the direct DFT), then ``m_pad`` and Bluestein's two
+    tables' device pointers (0 and two nulls for a plan or the direct
+    stage)."""
+    if isinstance(stage, fft_plan.Bluestein):
+        table, bhat = _bluestein_consts(n_fft, stage.m_pad, device)
+        return (*_cuda.plan_args(stage.radices), stage.m_pad,
+                table.data_ptr(), bhat.data_ptr())
+    return (*_cuda.plan_args(stage), 0, None, None)
+
+
+@functools.lru_cache(maxsize=8)
 def _bases(n_fft: int, device: torch.device):
     c, s = _bases_np(n_fft)
     return torch.tensor(c, device=device), torch.tensor(s, device=device)
@@ -217,6 +240,11 @@ def fwd_plain(x2: torch.Tensor, window: torch.Tensor, g: Geom):
     return mel.transpose(1, 2).contiguous(), reim
 
 
+#: the C types of :func:`_stage_args`
+_STAGE_ARGTYPES = [ctypes.c_void_p, ctypes.c_int, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_void_p]
+
+
 def _fwd_lib() -> ctypes.CDLL:
     """The forward library with its C signatures declared: pointers and
     the stream as ``c_void_p`` (ctypes would pass a bare Python int as a
@@ -224,7 +252,7 @@ def _fwd_lib() -> ctypes.CDLL:
     lib = _cuda.load("framed_fwd").cdll
     for entry in (lib.framed_fwd, lib.fused_fwd):
         entry.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
-                          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+                          + _STAGE_ARGTYPES + [ctypes.c_void_p])
         entry.restype = ctypes.c_int
     lib.framed_fwd_error_string.argtypes = [ctypes.c_int]
     lib.framed_fwd_error_string.restype = ctypes.c_char_p
@@ -237,9 +265,9 @@ def _bwd_lib() -> ctypes.CDLL:
     lib = _cuda.load("framed_bwd").cdll
     for entry in (lib.framed_bwd, lib.fused_bwd):
         entry.argtypes = ([ctypes.c_void_p] * 11 + [ctypes.c_int] * 9
-                          + [ctypes.c_void_p, ctypes.c_int, ctypes.c_void_p])
+                          + _STAGE_ARGTYPES + [ctypes.c_void_p])
         entry.restype = ctypes.c_int
-    lib.framed_bwd_partial_blocks.argtypes = [ctypes.c_int] * 3
+    lib.framed_bwd_partial_blocks.argtypes = [ctypes.c_int] * 4
     lib.framed_bwd_partial_blocks.restype = ctypes.c_int
     lib.framed_bwd_error_string.argtypes = [ctypes.c_int]
     lib.framed_bwd_error_string.restype = ctypes.c_char_p
@@ -273,17 +301,18 @@ def _pack_rows(name: str, x2: torch.Tensor, windows: torch.Tensor,
 
 
 def launch_fwd(entry: str, x2: torch.Tensor, window: torch.Tensor,
-               g: Geom, radices: tuple[int, ...] | None = None):
+               g: Geom, stage=None):
     """Launch the forward kernel's entry point ``entry`` (``"framed_fwd"``
     for K3, ``"fused_fwd"`` for K5) on the current stream, without
     synchronising: ``(out, reim)`` as :func:`fwd_plain` gives them.
     ``window`` ``(K, n_fft)`` launches a pack of K trials in one grid
     (:func:`_pack_rows`): trial k's rows and outputs are those of a launch
-    on its rows alone.  ``radices`` is the spectra stage, the FFT of that
-    plan (:func:`fft_plan.plan`) or ``None`` for the direct DFT.  Checks
-    device, dtype, shape and contiguity; a failed build or launch (a plan
-    that is not one of n_fft included) raises.  The caller counts the
-    launch."""
+    on its rows alone.  ``stage`` is the spectra stage: the FFT of a
+    plan's radices (:func:`fft_plan.plan`), a :class:`fft_plan.Bluestein`
+    stage (``"fused_fwd"`` only, :func:`fft_plan.fused_stage`) or ``None``
+    for the direct DFT.  Checks device, dtype, shape and contiguity; a
+    failed build or launch (a stage that is not one of n_fft included)
+    raises.  The caller counts the launch."""
     _check_operands(entry, x2.device, x2, window)
     trials, b = _pack_rows(entry, x2, window, g.n_fft)
     t = x2.shape[1]
@@ -301,7 +330,7 @@ def launch_fwd(entry: str, x2: torch.Tensor, window: torch.Tensor,
                 reim.data_ptr(), out.data_ptr(), b, trials, t, nfr,
                 g.hop_length, g.n_fft, kp, n_bins, g.n_mels)
         rc = getattr(lib, entry)(
-            *args, *_cuda.plan_args(radices),
+            *args, *_stage_args(stage, g.n_fft, x2.device),
             torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: "
@@ -347,8 +376,7 @@ def framed_dwindow_plain(x2: torch.Tensor, reim: torch.Tensor,
 
 
 def launch_bwd(entry: str, x2: torch.Tensor, reim: torch.Tensor,
-               dmel: torch.Tensor, g: Geom,
-               radices: tuple[int, ...] | None = None,
+               dmel: torch.Tensor, g: Geom, stage=None,
                trials: int = 1) -> torch.Tensor:
     """Launch the backward kernels' entry point ``entry`` (``"framed_bwd"``
     for K4, ``"fused_bwd"`` for K6) on the current stream, without
@@ -356,11 +384,12 @@ def launch_bwd(entry: str, x2: torch.Tensor, reim: torch.Tensor,
     :func:`framed_dwindow_plain` defines it; with ``trials`` K > 1 the
     rows of ``x2`` are a pack of K trials (as :func:`launch_fwd`'s) and
     the result is ``(K, n_fft)``, trial k's bit for bit a launch's on its
-    rows alone.  ``radices`` is the stage that computes dfw: the inverse
-    FFT of that plan (:func:`fft_plan.plan`) or ``None`` for the direct
-    adjoint DFT.  Checks device, dtype, shape and contiguity; a failed
-    build or launch (a plan that is not one of n_fft included) raises.
-    The caller counts the launch."""
+    rows alone.  ``stage`` is the stage that computes dfw, as
+    :func:`launch_fwd`'s: the inverse FFT of a plan's radices, a
+    :class:`fft_plan.Bluestein` stage (``"fused_bwd"`` only) or ``None``
+    for the direct adjoint DFT.  Checks device, dtype, shape and
+    contiguity; a failed build or launch (a stage that is not one of n_fft
+    included) raises.  The caller counts the launch."""
     _check_operands(entry, x2.device, x2, reim, dmel)
     bk, t = x2.shape
     if trials < 1 or bk % trials:
@@ -377,10 +406,11 @@ def launch_bwd(entry: str, x2: torch.Tensor, reim: torch.Tensor,
     with torch.cuda.device(x2.device):
         c = _kernel_consts(g, x2.device)
         lib = _bwd_lib()
+        stage_args = _stage_args(stage, g.n_fft, x2.device)
         n_blocks = lib.framed_bwd_partial_blocks(rows, g.n_fft,
-                                                 int(radices is not None))
+                                                 *stage_args[1:3])
         # dRe|dIm scratch: the direct stage's only
-        dreim = torch.empty_like(reim) if radices is None else None
+        dreim = torch.empty_like(reim) if stage is None else None
         partials = torch.empty((trials, g.n_fft, n_blocks),
                                dtype=torch.float32, device=x2.device)
         dw = torch.empty((trials, g.n_fft) if trials > 1 else (g.n_fft,),
@@ -391,8 +421,7 @@ def launch_bwd(entry: str, x2: torch.Tensor, reim: torch.Tensor,
             c.bin_hi.data_ptr(), dmel.data_ptr(),
             None if dreim is None else dreim.data_ptr(),
             partials.data_ptr(), dw.data_ptr(), b, trials, t, nfr,
-            g.hop_length, g.n_fft, kp, n_bins, g.n_mels,
-            *_cuda.plan_args(radices),
+            g.hop_length, g.n_fft, kp, n_bins, g.n_mels, *stage_args,
             torch.cuda.current_stream(x2.device).cuda_stream)
     if rc != 0:
         raise RuntimeError(f"{entry} launch failed: "

@@ -8,8 +8,12 @@ point of the framed forward kernel (``csrc/framed_fwd.cu``,
 no frames tensor is built, and takes an n_fft that is not a lane multiple
 (faithful mode's ``2 T``) and a window centred in n_fft
 (:func:`pad_window`).  Its spectra stage is an FFT per frame in shared
-memory wherever :func:`fft_plan.plan` has a plan for n_fft (every power
-of two), else the direct DFT.
+memory at every even n_fft (:func:`fft_plan.fused_stage`): the
+Stockham stages of :func:`fft_plan.plan` where n_fft / 2 has no prime
+factor above 5 (every power of two, faithful 3000), else Bluestein's
+chirp-z through a power-of-two FFT (faithful mode's other 2 T, e.g.
+1400); the direct DFT stays reachable through the C entry
+(:func:`framed.launch_fwd` with no stage).
 
 The backward into the window is, by default, not a kernel, in the JAX
 package either (``USE_FUSED_BWD = False``): it is the adjoint chain
@@ -19,8 +23,8 @@ part of XLA's GEMMs.  With :data:`USE_FUSED_BWD` set it is K6
 (:func:`fused_dwindow`), the counterpart of the JAX package's fused dw
 kernel: the second entry point of the framed backward kernel
 (``csrc/framed_bwd.cu``, ``fused_bwd``), whose plain version is that same
-torch adjoint: an inverse real FFT per frame wherever n_fft has a plan,
-else the direct adjoint DFT.
+torch adjoint: an inverse real FFT per frame through the same stage as
+K5's.
 """
 
 from __future__ import annotations
@@ -87,21 +91,29 @@ def dmel_power_plain(x: torch.Tensor, lambd, *, win_length: int,
     return mel.reshape(lead + mel.shape[-2:])
 
 
+def _count(counter, stage):
+    """One launch on ``counter``: ``launches``, and ``fft_launches`` on a
+    plan's FFT or ``bluestein_launches`` on Bluestein's."""
+    counter.launches += 1
+    if isinstance(stage, fft_plan.Bluestein):
+        counter.bluestein_launches += 1
+    elif stage is not None:
+        counter.fft_launches += 1
+
+
 def fused_fwd(x2: torch.Tensor, window: torch.Tensor, g: framed.Geom):
     """K5's wrapper: ``(out, reim)`` as :func:`framed.fwd_plain` gives
     them, ``window`` already centred in n_fft.  CPU tensors take
     :func:`framed.fwd_plain`; CUDA tensors launch ``csrc/framed_fwd.cu``
     (entry ``fused_fwd``) with the spectra stage
-    :func:`fft_plan.plan` picks for n_fft, and add one to
-    ``dmel_power.launches`` and, on the FFT stage, to
-    ``dmel_power.fft_launches``."""
+    :func:`fft_plan.fused_stage` picks for n_fft, and add one to
+    ``dmel_power.launches`` and to ``dmel_power.fft_launches`` (a plan's
+    FFT) or ``dmel_power.bluestein_launches``."""
     if x2.device.type == "cpu":
         return framed.fwd_plain(x2, window, g)
-    radices = fft_plan.plan(g.n_fft)
-    res = framed.launch_fwd("fused_fwd", x2, window, g, radices)
-    dmel_power.launches += 1
-    if radices is not None:
-        dmel_power.fft_launches += 1
+    stage = fft_plan.fused_stage(g.n_fft)
+    res = framed.launch_fwd("fused_fwd", x2, window, g, stage)
+    _count(dmel_power, stage)
     return res
 
 
@@ -111,21 +123,20 @@ def fused_dwindow(x2: torch.Tensor, reim: torch.Tensor, dmel: torch.Tensor,
     as :func:`framed.framed_dwindow_plain` defines it.  CPU tensors take
     that plain version; CUDA tensors launch ``csrc/framed_bwd.cu`` (entry
     ``fused_bwd``, any even n_fft up to 4096) with the stage
-    :func:`fft_plan.plan` picks for n_fft, and add one to
-    ``fused_dwindow.launches`` and, on the FFT stage, to
-    ``fused_dwindow.fft_launches``."""
+    :func:`fft_plan.fused_stage` picks for n_fft, and add one to
+    ``fused_dwindow.launches`` and to ``fused_dwindow.fft_launches`` (a
+    plan's inverse FFT) or ``fused_dwindow.bluestein_launches``."""
     if x2.device.type == "cpu":
         return framed.framed_dwindow_plain(x2, reim, dmel, g)
-    radices = fft_plan.plan(g.n_fft)
-    dw = framed.launch_bwd("fused_bwd", x2, reim, dmel, g, radices)
-    fused_dwindow.launches += 1
-    if radices is not None:
-        fused_dwindow.fft_launches += 1
+    stage = fft_plan.fused_stage(g.n_fft)
+    dw = framed.launch_bwd("fused_bwd", x2, reim, dmel, g, stage)
+    _count(fused_dwindow, stage)
     return dw
 
 
 fused_dwindow.launches = 0
 fused_dwindow.fft_launches = 0
+fused_dwindow.bluestein_launches = 0
 
 
 def fused_fwd_packed(x2: torch.Tensor, windows: torch.Tensor,
@@ -140,7 +151,7 @@ def fused_fwd_packed(x2: torch.Tensor, windows: torch.Tensor,
     if x2.device.type == "cpu":
         return framed._looped_fwd(framed.fwd_plain, x2, windows, g)
     res = framed.launch_fwd("fused_fwd", x2, windows, g,
-                            fft_plan.plan(g.n_fft))
+                            fft_plan.fused_stage(g.n_fft))
     fused_fwd_packed.launches += 1
     return res
 
@@ -161,7 +172,7 @@ def fused_dwindow_packed(x2: torch.Tensor, reim: torch.Tensor,
         return framed._looped_dwindow(framed.framed_dwindow_plain, x2, reim,
                                       dmel, g, trials)
     dw = framed.launch_bwd("fused_bwd", x2, reim, dmel, g,
-                           fft_plan.plan(g.n_fft), trials)
+                           fft_plan.fused_stage(g.n_fft), trials)
     fused_dwindow_packed.launches += 1
     return dw.reshape(trials, g.n_fft)
 
@@ -181,7 +192,8 @@ def dmel_power(x: torch.Tensor, lambd, *, win_length: int, n_fft: int,
 
     Differentiable in ``lambd`` (through the window) and ``x``.  CUDA
     tensors launch K5 (adding one to ``dmel_power.launches``, and to
-    ``dmel_power.fft_launches`` where n_fft takes the FFT stage) on the
+    ``dmel_power.fft_launches`` where n_fft takes a plan's FFT or to
+    ``dmel_power.bluestein_launches`` where it takes Bluestein's) on the
     current stream, without synchronising, and float32 only
     (``TypeError`` otherwise); CPU tensors run the same autograd function
     over the plain forward.  The window's gradient comes from K6 when
@@ -217,3 +229,4 @@ def dmel_power(x: torch.Tensor, lambd, *, win_length: int, n_fft: int,
 
 dmel_power.launches = 0
 dmel_power.fft_launches = 0
+dmel_power.bluestein_launches = 0

@@ -28,7 +28,15 @@ held against independent references:
   in interpret mode (1e-3 of the largest entry, ``chip_smoke.py``'s
   ``DW_GATE``: float32 sums over every frame in another order);
 - the FFT stage's accuracy against a float64 reference, beside the
-  direct DFT's, on a band-limited clip.
+  direct DFT's, on a band-limited clip;
+- K5's and K6's Bluestein stage (``fft_plan.fused_stage``) at the even
+  n_fft with no plan: a stage the C check takes at every even n_fft in
+  [2, 4096], its mirrors against numpy's float64 rfft and irfft (1e-5 of
+  the largest entry), and K5 and K6 emulated through them at faithful T
+  521 and 700 (n_fft 1042 and 1400) against dmel_tpu's fused kernel and
+  fused dw kernel in interpret mode (log-mel 1e-4, Re|Im 1e-5 of the
+  largest entry, dlambda 1e-2, dw 1e-3), a pack of two trials bit for
+  bit two single runs.
 """
 
 import re
@@ -69,6 +77,10 @@ def _rel(got, want):
 #: every n_fft that takes the FFT stage
 PLANNED = [n for n in range(2, fft_plan.MAX_N_FFT + 1, 2)
            if fft_plan.plan(n) is not None]
+#: n_fft / 2 of Bluestein's stage in the tests: the smallest m with a
+#: prime factor above 5, faithful T 521 and 700, and two primes of m_pad
+#: 2048 and 4096 (chip_smoke.py's faithful 1021 and 2039)
+BLUESTEIN_M = [7, 521, 700, 1021, 2039]
 
 
 # --- the plan ------------------------------------------------------------
@@ -117,6 +129,68 @@ def test_planned_nffts_are_plans_the_kernel_accepts():
     assert [n for n in k3 if n not in PLANNED] == [896]
 
 
+def _header_int(src: str, name: str) -> int:
+    """A ``constexpr int`` of a CUDA source."""
+    return int(re.search(rf"constexpr int {name} = (\d+);", src)[1])
+
+
+def _stage_accepted(stage, n_fft: int, header: str) -> bool:
+    """``frame_fft.cuh:fft_stage_from`` (with ``fft_plan_from``) on the
+    arguments ``framed._stage_args`` passes for ``stage``, its limits read
+    from the header."""
+    max_stages = _header_int(header, "FFT_MAX_STAGES")
+
+    def plan_ok(radices, n):
+        prod = 1
+        for r in radices:
+            if r not in (2, 3, 4, 5):
+                return False
+            prod *= r
+            if prod > n // 2:
+                return False
+        return len(radices) <= max_stages and prod == n // 2
+
+    if not isinstance(stage, fft_plan.Bluestein):
+        return plan_ok(stage, n_fft)
+    mp = stage.m_pad
+    return (1 <= mp <= _header_int(header, "BLUESTEIN_MAX_POINTS")
+            and mp & (mp - 1) == 0 and n_fft - 1 <= mp < 2 * (n_fft - 1)
+            and plan_ok(stage.radices, 2 * mp))
+
+
+def test_fused_stage_covers_every_even_nfft():
+    """K5's and K6's stage (``fused_stage``) at every even n_fft in [2,
+    4096] is one the C check takes: ``plan()``'s radices where it has
+    them (unchanged, so K1, K3 and K4 take the stage they took), else
+    Bluestein's at the smallest power of two ``>= n_fft - 1``; ``None``
+    outside them.  Faithful mode's 513-2048 samples take Bluestein's at
+    1494 lengths and a plan at 42."""
+    header = (_cuda.SRC_DIR / "frame_fft.cuh").read_text()
+    names = {}
+    for n in range(2, fft_plan.MAX_N_FFT + 1, 2):
+        stage = fft_plan.fused_stage(n)
+        assert stage is not None and _stage_accepted(stage, n, header), n
+        if fft_plan.plan(n) is not None:
+            assert stage == fft_plan.plan(n)
+        else:
+            assert isinstance(stage, fft_plan.Bluestein)
+            assert stage.m_pad == 1 << (n - 2).bit_length() <= 4096
+        names[n] = fft_plan.fused_stage_name(n)
+        assert fft_plan.stage_name(n) == ("direct" if names[n] == "bluestein"
+                                          else "fft")
+    faithful = [names[2 * t] for t in range(513, 2049)]
+    assert faithful.count("bluestein") == 1494
+    assert faithful.count("fft") == 42
+    for n in (0, 1023, 4098, 8192):
+        assert fft_plan.fused_stage(n) is None
+        assert fft_plan.fused_stage_name(n) == "direct"
+    # the checks refuse what is not Bluestein's stage of n_fft
+    for bad in (fft_plan.Bluestein(4096, (4,) * 6),
+                fft_plan.Bluestein(1024, (4, 4, 4, 4, 2)),
+                fft_plan.Bluestein(2048, (4, 4, 4, 4, 4))):
+        assert not _stage_accepted(bad, 1400, header)
+
+
 # --- the arithmetic --------------------------------------------------------
 
 def _mirror_bins(frames, n_fft):
@@ -135,13 +209,38 @@ def test_mirror_matches_numpy_rfft(n_fft):
     assert np.abs(im.numpy() - want.imag).max() <= RESIDUAL_GATE * scale
 
 
-@pytest.mark.parametrize("n_fft", PLANNED)
+@pytest.mark.parametrize("m", BLUESTEIN_M)
+def test_bluestein_mirror_matches_numpy_rfft(m):
+    """Bluestein's stage at n_fft 2 m (its mirror: the chirp, the
+    m_pad-point Stockham stages, ``FFT(b) / m_pad``, the same stages
+    again, the chirp) against numpy's float64 rfft within 1e-5 of the
+    largest magnitude, printed beside the direct DFT's error (the plain
+    version's float32 bases)."""
+    n_fft = 2 * m
+    assert fft_plan.fused_stage_name(n_fft) == "bluestein"
+    x = _signal(n_fft, (3, n_fft))
+    re_, im = _mirror_bins(torch.from_numpy(x), n_fft)
+    want = np.fft.rfft(x.astype(np.float64))
+    scale = np.abs(want).max()
+    assert re_.dtype == torch.float32 and re_.shape == want.shape
+    err = max(np.abs(re_.numpy() - want.real).max(),
+              np.abs(im.numpy() - want.imag).max()) / scale
+    c, s = framed._bases_np.__wrapped__(n_fft)
+    err_direct = max(np.abs(x @ c - want.real).max(),
+                     np.abs(x @ s - want.imag).max()) / scale
+    print(f"n_fft {n_fft} (m_pad {fft_plan.fused_stage(n_fft).m_pad}): "
+          f"Bluestein {err:.3e}, direct DFT {err_direct:.3e} of max |X|")
+    assert err <= RESIDUAL_GATE
+
+
+@pytest.mark.parametrize("n_fft", PLANNED + [2 * m for m in BLUESTEIN_M])
 def test_adjoint_mirror_matches_numpy_irfft_and_direct_adjoint(n_fft):
     """K6's inverse FFT against ``N irfft(Y)`` (``Y = (dRe + i dIm) / 2``
     inside, ``dRe`` itself at DC and Nyquist) in float64 and against the
     plain direct adjoint ``dre C^T + dim S^T`` of
     ``framed.framed_dwindow_plain``, at every planned n_fft (odd n_fft /
-    2 included, where no bin pairs with itself)."""
+    2 included, where no bin pairs with itself) and on Bluestein's stage
+    (no plan: the mirror takes ``fused_stage``'s)."""
     rng = np.random.default_rng(n_fft)
     n_bins = n_fft // 2 + 1
     dre, dim = rng.standard_normal((2, 3, n_bins)).astype(np.float32)
@@ -276,9 +375,11 @@ def test_emulated_k1_fft_stage_matches_plain(case):
 
 @pytest.mark.parametrize("n_fft,win,hop,t", [
     (128, 128, 20, 1000), (1024, 1024, 80, 4000), (3000, 1500, 80, 1500),
-    (4096, 4096, 400, 6000), (512, 512, 80, 3000)])
+    (4096, 4096, 400, 6000), (512, 512, 80, 3000), (1400, 700, 80, 700),
+    (4078, 2039, 80, 2039), (14, 14, 4, 300)])
 def test_emulated_k5_fft_stage_matches_plain(n_fft, win, hop, t):
-    """K5's FFT stage, which K3 launches too (512, 1024)."""
+    """K5's FFT stage, which K3 launches too (512, 1024), and Bluestein's
+    (1400, 4078 at m_pad 4096, 14 at m_pad 16)."""
     x = torch.from_numpy(_signal(4, (2, t)))
     w = fused.pad_window(tops.gaussian_window(win / 8, win), n_fft)
     g = _k5_geom(n_fft, hop, 64)
@@ -302,20 +403,38 @@ def test_emulated_k1_matches_jax_ref(n_fft, hop, n_mels, lam, j, t):
 
 
 @pytest.mark.parametrize("t,win,n_fft,hop,n_mels", [
-    (1000, 128, 128, 20, 16), (1500, 512, 512, 80, 64)])
+    (1000, 128, 128, 20, 16), (1500, 512, 512, 80, 64),
+    (521, 521, 1042, 80, 64), (700, 700, 1400, 80, 64)])
 def test_emulated_k5_matches_jax_kernel(t, win, n_fft, hop, n_mels):
+    """The emulated K5 (Bluestein's stage at faithful T 521 and 700)
+    against dmel_tpu's fused kernel in interpret mode: log-mel within
+    1e-5 (both take the DFT in float32), Re|Im within 1e-5 of the plain
+    version's largest entry, and dlambda of the summed log-mel, through
+    the mirror's arithmetic and through the JAX kernel's vjp, within
+    1e-2 (bench.py's gate)."""
     x = _signal(6, (2, t))
     lam = win / 8.0
     kw = dict(win_length=win, n_fft=n_fft, hop_length=hop, n_mels=n_mels,
               sample_rate=SR)
-    want = np.asarray(jfu.dmel_power(jnp.asarray(x), lam, interpret=True,
-                                     **kw))
-    w = fused.pad_window(tops.gaussian_window(lam, win), n_fft)
-    got, _ = emulate_k5_fft(torch.from_numpy(x), w,
-                            _k5_geom(n_fft, hop, n_mels))
+
+    def jax_logmel(lj):
+        return jnp.log(jfu.dmel_power(jnp.asarray(x), lj, interpret=True,
+                                      **kw) + 1e-10)
+
+    want, jvjp = jax.vjp(jax_logmel, jnp.float32(lam))
+    want = np.asarray(want)
+    lam_t = torch.tensor(lam, requires_grad=True)
+    w = fused.pad_window(tops.gaussian_window(lam_t, win), n_fft)
+    g = _k5_geom(n_fft, hop, n_mels)
+    got, reim = emulate_k5_fft(torch.from_numpy(x), w, g)
+    got = torch.log(got + 1e-10)
     assert got.shape == want.shape
-    assert np.abs(np.log(got.numpy() + 1e-10)
-                  - np.log(want + 1e-10)).max() <= RESIDUAL_GATE
+    assert np.abs(got.detach().numpy() - want).max() <= RESIDUAL_GATE
+    _, reim_p = framed.fwd_plain(torch.from_numpy(x), w.detach(), g)
+    assert _rel(reim.detach(), reim_p) <= RESIDUAL_GATE
+    got.sum().backward()
+    dlam = float(jvjp(jnp.ones_like(jnp.asarray(want)))[0])
+    assert abs(float(lam_t.grad) - dlam) <= 1e-2 * abs(dlam)
 
 
 @pytest.mark.parametrize("n_fft,hop,n_mels,t,lam", [
@@ -345,8 +464,16 @@ def emulate_k6_fft(x2, reim, dmel, g):
     ``max(1, FFT_BLOCK_POINTS / n_fft)`` rows, group ``i`` to block ``i
     mod blocks`` (``blocks = min(DW_BLOCKS, groups)``), a block's groups
     in order, then its frames, then the blocks' partials."""
+    return _block_order_dw(
+        _frames_from_signal(x2, g.n_fft, g.hop_length, g.n_fft)
+        * _emulated_dfw(x2, reim, dmel, g), g.n_fft)
+
+
+def _emulated_dfw(x2, reim, dmel, g):
+    """K6's dfw ``(rows, n_fft)`` as its stage computes it: dP over each
+    bin's nonzero mel bands, the half spectrum, the inverse mirror."""
     n, nfr = g.n_fft, num_frames(x2.shape[1], g.hop_length)
-    n_bins, kp, rows = n // 2 + 1, framed.kp_of(n), x2.shape[0] * nfr
+    n_bins, kp, rows = n // 2 + 1, framed.kp_of(n), reim.shape[0]
     c = framed._kernel_consts(g, x2.device)
     r = torch.arange(rows)
     g2 = dmel[r // nfr, :, r % nfr]                    # (rows, n_mels)
@@ -354,13 +481,33 @@ def emulate_k6_fft(x2, reim, dmel, g):
     for k, (lo, hi) in enumerate(zip(c.bin_lo.tolist(), c.bin_hi.tolist())):
         dp[:, k] = (g2[:, lo:hi] * c.fb[k, lo:hi]).sum(1)
     dre, dim = 2.0 * reim[:, :n_bins] * dp, 2.0 * reim[:, kp:kp + n_bins] * dp
-    dfw = fft_plan.irfft_adjoint_mirror((dre, dim), fft_plan.plan(n), n)
-    prod = _frames_from_signal(x2, n, g.hop_length, n) * dfw
+    return fft_plan.irfft_adjoint_mirror((dre, dim), fft_plan.fused_stage(n),
+                                         n)
+
+
+def _block_order_dw(prod, n):
+    """dw from the frame products ``prod`` (rows, n) summed in K6's block
+    order: frame groups of the stage's frames a block (``frame_fft.cuh:
+    fft_stage_frames``), group ``i`` to block ``i mod blocks`` (``blocks =
+    min(DW_BLOCKS, groups)``, ``DW_BLOCKS_WIDE`` where a block takes more
+    than ``DW_WIDE_SMEM``), a block's groups in order, then its frames,
+    then the blocks' partials."""
+    rows = prod.shape[0]
     header = (_cuda.SRC_DIR / "frame_fft.cuh").read_text()
-    points = int(re.search(r"FFT_BLOCK_POINTS = (\d+);", header)[1])
-    fr = max(1, points // n)
+    points = _header_int(header, "FFT_BLOCK_POINTS")
+    stage = fft_plan.fused_stage(n)
+    if isinstance(stage, fft_plan.Bluestein):
+        fr = max(1, points // (2 * stage.m_pad))
+        smem = 16 * fr * stage.m_pad
+    else:
+        fr = max(1, points // n)
+        smem = 8 * fr * n
+    src = (_cuda.SRC_DIR / "framed_bwd.cu").read_text()
+    wide = smem > int(re.search(r"DW_WIDE_SMEM = (\d+) \* 1024;", src)[1]) \
+        * 1024
     groups = -(-rows // fr)
-    blocks = min(_constants("framed_bwd")["DW_BLOCKS"], groups)
+    blocks = min(_constants("framed_bwd")[
+        "DW_BLOCKS_WIDE" if wide else "DW_BLOCKS"], groups)
     walks = -(-groups // blocks)
     prod = torch.nn.functional.pad(prod, (0, 0, 0, walks * blocks * fr - rows))
     partials = prod.reshape(walks, blocks, fr, n).sum(0).sum(1)
@@ -372,6 +519,11 @@ def emulate_k6_fft(x2, reim, dmel, g):
 K6_CASES = [(1024, 1024, 80, 64, 3000, 2), (2048, 2048, 160, 64, 4000, 2),
             (3000, 1500, 80, 64, 1500, 2), (512, 512, 40, 32, 2000, 3),
             (4096, 4096, 40, 64, 11000, 2)]
+#: Bluestein's stage: faithful T 521 and 700 (m_pad 2048), faithful 2039
+#: at hop 1 (m_pad 4096: more groups than DW_BLOCKS_WIDE), and 14 (m_pad
+#: 16, 128 frames a group)
+K6_BLUESTEIN = [(1042, 521, 80, 64, 521, 2), (1400, 700, 80, 64, 700, 2),
+                (4078, 2039, 1, 64, 2039, 1), (14, 14, 4, 4, 300, 2)]
 
 
 def _k6_operands(n_fft, win, hop, n_mels, t, b, seed=9):
@@ -384,7 +536,8 @@ def _k6_operands(n_fft, win, hop, n_mels, t, b, seed=9):
     return x, w, g, reim, dmel
 
 
-@pytest.mark.parametrize("case", K6_CASES, ids=lambda c: f"nfft{c[0]}")
+@pytest.mark.parametrize("case", K6_CASES + K6_BLUESTEIN,
+                         ids=lambda c: f"nfft{c[0]}")
 def test_emulated_k6_fft_stage_matches_plain(case):
     x, _, g, reim, dmel = _k6_operands(*case)
     got = emulate_k6_fft(x, reim, dmel, g)
@@ -392,7 +545,8 @@ def test_emulated_k6_fft_stage_matches_plain(case):
     assert _rel(got, want) <= DW_GATE
 
 
-@pytest.mark.parametrize("case", K6_CASES[:3], ids=lambda c: f"nfft{c[0]}")
+@pytest.mark.parametrize("case", K6_CASES[:3] + K6_BLUESTEIN[:2],
+                         ids=lambda c: f"nfft{c[0]}")
 def test_emulated_k6_matches_jax_fused_bwd(case, monkeypatch):
     """The window's gradient from emulated K5 and K6 against dmel_tpu's
     fused forward and its fused dw kernel (``USE_FUSED_BWD``), both in
@@ -406,6 +560,40 @@ def test_emulated_k6_matches_jax_fused_bwd(case, monkeypatch):
         jnp.float32), jnp.asarray(w.numpy()))
     want = np.asarray(vjp(jnp.asarray(dmel.transpose(1, 2).numpy()))[0])
     assert np.abs(got.numpy() - want).max() <= DW_GATE * np.abs(want).max()
+
+
+@pytest.mark.parametrize("n_fft,win,t", [(1400, 700, 700), (3000, 1500, 1500),
+                                         (14, 14, 300)])
+def test_emulated_packed_k5_k6_match_single_runs(n_fft, win, t):
+    """K5 and K6 on a pack of two trials emulated as one launch runs it:
+    the mirror over both trials' frame rows at once, each windowed by its
+    trial's window, then each trial's dw in the kernel's block order.
+    Trial k's Re|Im, mel and dw are bit for bit a single run's on its
+    rows (Bluestein's stage at 1400 and 14, a plan's at 3000)."""
+    b, hop = 2, 80 if n_fft > 14 else 4
+    x = torch.from_numpy(_signal(11, (2 * b, t)))
+    ws = torch.stack([fused.pad_window(tops.gaussian_window(lam, win), n_fft)
+                      for lam in (win / 8.0, win / 5.0)])
+    g = _k5_geom(n_fft, hop, 64 if n_fft > 14 else 4)
+    nfr = num_frames(t, hop)
+    frames = (frame_signal(x, n_fft, hop).reshape(2, b * nfr, n_fft)
+              * ws[:, None, :]).reshape(-1, n_fft)
+    re_, im = _mirror_bins(frames, n_fft)
+    reim = _pack_reim(re_, im, n_fft)
+    mel = (re_ * re_ + im * im) @ framed._fb(g, x.device)
+    dmel = torch.from_numpy(np.random.default_rng(12).standard_normal(
+        (2 * b, g.n_mels, nfr)).astype(np.float32))
+    dfw = _emulated_dfw(x, reim, dmel, g)
+    prod = _frames_from_signal(x, n_fft, hop, n_fft) * dfw
+    for k in range(2):
+        rows, sig = slice(k * b * nfr, (k + 1) * b * nfr), slice(k * b,
+                                                                  (k + 1) * b)
+        out1, reim1 = emulate_k5_fft(x[sig], ws[k], g)
+        assert torch.equal(reim[rows], reim1)
+        assert torch.equal(mel[rows].reshape(b, nfr, -1).transpose(1, 2),
+                           out1)
+        assert torch.equal(_block_order_dw(prod[rows], n_fft),
+                           emulate_k6_fft(x[sig], reim1, dmel[sig], g))
 
 
 @pytest.mark.parametrize("n_fft", range(128, framed.FRAMED_MAX_NFFT + 1, 128))

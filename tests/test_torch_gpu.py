@@ -78,6 +78,16 @@ def _fft_planned(n_fft):
     return int(fft_plan.plan(n_fft) is not None)
 
 
+def _bluestein(n_fft):
+    """1 where K5 and K6 take Bluestein's stage at ``n_fft``, else 0."""
+    return int(fft_plan.fused_stage_name(n_fft) == "bluestein")
+
+
+def _counts(counter):
+    return (counter.launches, counter.fft_launches,
+            counter.bluestein_launches)
+
+
 @pytest.mark.parametrize("case", CASES, ids=lambda c: f"nfft{c[2]}-b{c[0]}")
 @pytest.mark.parametrize("log", [False, True])
 def test_kernel_matches_plain(cuda, case, log):
@@ -345,12 +355,19 @@ FRAMED_CASES = [
     (64, 8000, 1024, 80, 64, 150.0),
 ]
 # (batch, T, win_length, n_fft, hop, n_mels, lambd): the fused buckets,
-# and faithful mode's short window in an n_fft that is not a lane multiple
+# and faithful mode's short window in an n_fft that is not a lane multiple:
+# 3000 planned, the rest Bluestein's (m_pad 2048 at 1042-2042, 4096 at
+# 4078; 14 and 26, m_pad 16 and 32, 128 and 64 frames a block)
 FUSED_CASES = [
     (2, 4000, 2048, 2048, 80, 64, 300.0),
     (2, 9000, 4096, 4096, 80, 64, 600.0),
     (3, 1500, 1500, 3000, 80, 64, 300.0),
     (2, 700, 700, 1400, 40, 32, 50.0),
+    (3, 521, 521, 1042, 40, 64, 60.0),
+    (2, 1021, 1021, 2042, 80, 64, 150.0),
+    (2, 2039, 2039, 4078, 80, 64, 300.0),
+    (3, 1000, 14, 14, 4, 4, 1.5),
+    (2, 1000, 26, 26, 8, 4, 3.0),
 ]
 
 
@@ -394,7 +411,7 @@ def test_k5_matches_plain(cuda, case):
     kw = dict(win_length=win, n_fft=n_fft, hop_length=hop, n_mels=n_mels,
               sample_rate=8000)
     lam_t = torch.tensor(lam, device=cuda)
-    before = (fused.dmel_power.launches, fused.dmel_power.fft_launches)
+    before = _counts(fused.dmel_power)
     got = fused.dmel_power(x, lam_t, **kw)
     want = fused.dmel_power_plain(x, lam_t, **kw)
     exact = ops.mel_spectrogram(
@@ -402,10 +419,11 @@ def test_k5_matches_plain(cuda, case):
         optimized=win == n_fft, window_length=n_fft, subtract_mean=False,
         impl="exact")
     torch.cuda.synchronize()
-    # the FFT stage at 2048, 4096 and 3000 (radices 4, 3, 5); the direct
-    # DFT at 1400 = 2^3 5^2 7
-    assert (fused.dmel_power.launches, fused.dmel_power.fft_launches) == (
-        before[0] + 1, before[1] + _fft_planned(n_fft))
+    # the FFT stage at 2048, 4096 and 3000 (radices 4, 3, 5); Bluestein's
+    # at 1400 = 2^3 5^2 7 and the other faithful n_fft
+    assert _counts(fused.dmel_power) == (
+        before[0] + 1, before[1] + _fft_planned(n_fft),
+        before[2] + _bluestein(n_fft))
     assert got.shape == want.shape == (b, n_mels, ops.num_frames(t, hop))
     lg = torch.log(got + 1e-10)
     assert float((lg - torch.log(want + 1e-10)).abs().max()) <= GATE
@@ -485,6 +503,102 @@ def test_direct_stage_at_planned_nfft_and_bad_plans(cuda):
         for entry in ("fused_bwd", "framed_bwd"):
             with pytest.raises(RuntimeError, match=f"{entry} launch failed"):
                 framed.launch_bwd(entry, x, reim_f, dmel, g5, bad)
+
+
+#: (batch, T): faithful mode (win T, n_fft 2 T) on Bluestein's stage, as
+#: chip_smoke.py's "K5 vs plain" and "K6 vs plain" phases run it
+BLUESTEIN_CASES = [(32, 700), (32, 1021), (32, 2039)]
+
+
+@pytest.mark.parametrize("b,t", BLUESTEIN_CASES, ids=lambda v: str(v))
+def test_bluestein_stage_at_faithful_shapes(cuda, b, t):
+    """K5 and K6 on Bluestein's stage at faithful n_fft 2 T: one launch
+    each on the Bluestein counters; Re|Im within 1e-5 of the plain
+    version's largest entry, log-mel 1e-4, dw 1e-3 of the largest, each
+    bit-identical on repeat; the direct stage through the same entries
+    within the same gates; a pack of two trials bit for bit two single
+    launches."""
+    n_fft = 2 * t
+    assert fft_plan.fused_stage_name(n_fft) == "bluestein"
+    x = _signal((b, t), seed=t).to(cuda)
+    lam = torch.tensor(t / 5.0, device=cuda)
+    w = fused.pad_window(ops.gaussian_window(lam, t), n_fft)
+    g = framed.Geom(n_fft, 80, 64, 8000, 0.0, 4000.0)
+    fwd, bwd = _counts(fused.dmel_power), _counts(fused.fused_dwindow)
+    (out, reim), (out2, reim2) = fused.fused_fwd(x, w, g), fused.fused_fwd(
+        x, w, g)
+    dmel = _signal(tuple(out.shape), seed=1).to(cuda)
+    dw, dw2 = (fused.fused_dwindow(x, reim, dmel, g),
+               fused.fused_dwindow(x, reim, dmel, g))
+    assert _counts(fused.dmel_power) == (fwd[0] + 2, fwd[1], fwd[2] + 2)
+    assert _counts(fused.fused_dwindow) == (bwd[0] + 2, bwd[1], bwd[2] + 2)
+    want, reim_p = framed.fwd_plain(x, w, g)
+    dw_p = framed.framed_dwindow_plain(x, reim, dmel, g)
+    out_d, reim_d = framed.launch_fwd("fused_fwd", x, w, g, None)
+    dw_d = framed.launch_bwd("fused_bwd", x, reim, dmel, g, None)
+    torch.cuda.synchronize()
+    assert torch.equal(out, out2) and torch.equal(reim, reim2)
+    assert torch.equal(dw, dw2)
+    for o, r in ((out, reim), (out_d, reim_d)):
+        assert _rel(r, reim_p) <= 1e-5
+        assert float((torch.log(o + 1e-10) - torch.log(want + 1e-10)).abs()
+                     .max()) <= GATE
+    n_bins, kp = n_fft // 2 + 1, framed.kp_of(n_fft)
+    assert not reim[:, n_bins:kp].any() and not reim[:, kp + n_bins:].any()
+    for d in (dw, dw_d):
+        assert _rel(d, dw_p) <= DW_GATE
+    # two trials: the second with its own window
+    x2 = torch.cat([x, x.flip(0)])
+    w2 = torch.stack([w, fused.pad_window(ops.gaussian_window(lam * 1.5, t),
+                                          n_fft)])
+    out_k, reim_k = fused.fused_fwd_packed(x2, w2, g)
+    dmel_k = torch.cat([dmel, dmel.flip(0)])
+    dw_k = fused.fused_dwindow_packed(x2, reim_k, dmel_k, g, 2)
+    for i in range(2):
+        rows = slice(i * b, (i + 1) * b)
+        o1, r1 = fused.fused_fwd(x2[rows].contiguous(), w2[i].contiguous(), g)
+        assert torch.equal(out_k[rows], o1)
+        assert torch.equal(reim_k.chunk(2)[i], r1)
+        d1 = fused.fused_dwindow(x2[rows].contiguous(), r1,
+                                 dmel_k[rows].contiguous(), g)
+        assert torch.equal(dw_k[i], d1)
+
+
+def test_bluestein_stage_at_planned_nfft_and_bad_stages(cuda):
+    """Bluestein's stage launched through the C entries at n_fft 1024
+    (m_pad 1024), where the wrappers take the plan's FFT, computes the
+    same function; a Bluestein stage whose m_pad is not the smallest power
+    of two >= n_fft - 1, whose radices are not a plan of m_pad, or that
+    goes to K3's or K4's entry is refused, never replaced."""
+    x = _signal((2, 6000)).to(cuda)
+    w = ops.gaussian_window(torch.tensor(128.0, device=cuda), 1024)
+    g = framed.Geom(1024, 80, 64, 8000, 0.0, 4000.0)
+    bl = fft_plan.Bluestein(1024, (4, 4, 4, 4, 4))
+    out_b, reim_b = framed.launch_fwd("fused_fwd", x, w, g, bl)
+    out_f, reim_f = fused.fused_fwd(x, w, g)
+    dmel = _signal(tuple(out_f.shape), seed=3).to(cuda)
+    dw_b = framed.launch_bwd("fused_bwd", x, reim_f, dmel, g, bl)
+    dw_f = fused.fused_dwindow(x, reim_f, dmel, g)
+    torch.cuda.synchronize()
+    assert _rel(reim_b, reim_f) <= 1e-5
+    assert float((torch.log(out_b + 1e-10) - torch.log(out_f + 1e-10))
+                 .abs().max()) <= GATE
+    assert _rel(dw_b, dw_f) <= DW_GATE
+    g14 = framed.Geom(1400, 80, 64, 8000, 0.0, 4000.0)
+    w14 = fused.pad_window(w[:700].contiguous(), 1400)
+    _, reim14 = fused.fused_fwd(x, w14, g14)
+    dmel14 = _signal((2, 64, ops.num_frames(6000, 80)), seed=4).to(cuda)
+    for bad in (fft_plan.Bluestein(4096, (4,) * 6),
+                fft_plan.Bluestein(2048, (4, 4, 4, 4, 4)),
+                fft_plan.Bluestein(2048, (4, 4, 4, 4, 4, 4))):
+        with pytest.raises(RuntimeError, match="fused_fwd launch failed"):
+            framed.launch_fwd("fused_fwd", x, w14, g14, bad)
+        with pytest.raises(RuntimeError, match="fused_bwd launch failed"):
+            framed.launch_bwd("fused_bwd", x, reim14, dmel14, g14, bad)
+    with pytest.raises(RuntimeError, match="framed_fwd launch failed"):
+        framed.launch_fwd("framed_fwd", x, w, g, bl)
+    with pytest.raises(RuntimeError, match="framed_bwd launch failed"):
+        framed.launch_bwd("framed_bwd", x, reim_f, dmel, g, bl)
 
 
 def _k4_operands(cuda, case, seed=0):
@@ -898,15 +1012,25 @@ def test_band_stage_edges(cuda, case):
 
 def _launches_by_kernel(fn):
     """``{kernel name: launches}`` of one call of ``fn`` after a warm-up,
-    from ``torch.profiler``."""
-    from torch.profiler import ProfilerActivity, profile
+    from ``torch.profiler``.  The profiler's own warm-up step takes a
+    second call whose events it drops: the first kernel of a profiling
+    session can go unrecorded, and the recorded step is the one after
+    (its events read when that step's trace is ready)."""
+    from torch.profiler import ProfilerActivity, profile, schedule
     fn()
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CUDA]) as prof:
-        fn()
-        torch.cuda.synchronize()
+    steps = []
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1),
+                 on_trace_ready=lambda p: steps.append(p.key_averages())
+                 ) as prof:
+        for _ in range(2):
+            fn()
+            torch.cuda.synchronize()
+            prof.step()
+    assert len(steps) == 1, len(steps)
     out = {}
-    for ev in prof.key_averages():
+    for ev in steps[0]:
         if (getattr(ev, "device_time_total", 0) or 0) > 0:
             name = ev.key.replace("(anonymous namespace)::", "")
             name = name.removeprefix("void ").split("(")[0].split("<")[0]
@@ -955,15 +1079,17 @@ def test_k6_matches_plain(cuda, case):
     dmel = torch.from_numpy(np.random.default_rng(1).standard_normal(
         tuple(out.shape)).astype(np.float32)).to(cuda)
     counter = fused.fused_dwindow
-    before = (counter.launches, counter.fft_launches)
+    before = _counts(counter)
     got = fused.fused_dwindow(x, reim, dmel, g)
     again = fused.fused_dwindow(x, reim, dmel, g)
     want = framed.framed_dwindow_plain(x, reim, dmel, g)
     direct = framed.launch_bwd("fused_bwd", x, reim, dmel, g, None)
     torch.cuda.synchronize()
-    # the inverse FFT at 2048, 4096 and 3000; the direct adjoint at 1400
-    assert (counter.launches, counter.fft_launches) == (
-        before[0] + 2, before[1] + 2 * _fft_planned(n_fft))
+    # the inverse FFT at 2048, 4096 and 3000; Bluestein's at 1400 and the
+    # other faithful n_fft
+    assert _counts(counter) == (
+        before[0] + 2, before[1] + 2 * _fft_planned(n_fft),
+        before[2] + 2 * _bluestein(n_fft))
     assert got.shape == want.shape == (n_fft,)
     assert torch.isfinite(got).all()
     assert torch.equal(got, again)
@@ -1305,8 +1431,8 @@ def test_prefetch_is_bit_identical(cuda, tmp_path):
 # --- packs of trials: K1, K2, K3-K6 with a trial axis ----------------------
 
 # (trials, batch, T, n_fft, win_length, hop, n_mels, lambdas): the FFT stage
-# at 2048 and 4096, faithful mode's direct stage (n_fft 1400), trials whose
-# frame rows do not fill a block
+# at 2048 and 4096, faithful mode's Bluestein stage (n_fft 1400), trials
+# whose frame rows do not fill a block
 PACK_FUSED_CASES = [
     (3, 2, 3000, 2048, 2048, 80, 64, (250.0, 300.0, 341.0)),
     (2, 3, 9000, 4096, 4096, 80, 64, (13.33, 400.0)),
