@@ -11,7 +11,9 @@ Phases, each announced by a flushed line when it starts and ends:
    that call a model directly run inside that scope too.
 2. build: nvcc builds every kernel of the paths from ``csrc/``, one
    process per source, all started together; each library's seconds
-   and ptxas register, spill and shared-memory lines.
+   and ptxas register, spill and shared-memory lines, and for K5's and
+   K6's Bluestein instantiations one line each with their registers,
+   spills and dynamic shared bytes a block.
 3. K1 against its plain version: the specband forward kernel against
    ``specband_mel_power_plain`` on the same CUDA tensors at the bench
    workload (B=128 x 5 s at 8 kHz, n_fft 1024, hop 80, 64 mels,
@@ -69,7 +71,8 @@ Phases, each announced by a flushed line when it starts and ends:
    and 600 (4096), B=32, and faithful mode at T=1500 (n_fft 3000, the
    window centred in it; radices 4, 3, 5, 5, 5) and on Bluestein's stage
    at T 700, 1021 and 2039 (B 32, lambda T / 5; m_pad 2048, 2048, 4096)
-   and B 512 x 2039, where the card does real work (``BLUESTEIN_SHAPES``).
+   and B 512 x 1021 and 2039, where the card does real work
+   (``BLUESTEIN_SHAPES``).
    The same forward gates, the Re|Im residual within 1e-5 of the plain
    version's largest entry and bit-identical on repeat; dlambda through
    K5 and the torch adjoint against autograd of the plain chain and of
@@ -374,9 +377,11 @@ N_BATCHES, BATCH = 3, 32
 #: AudioMNIST's clips and batch (the audio_mnist space)
 AM_T, AM_BATCH = 8000, 64
 #: faithful mode's Bluestein shapes (win T, n_fft 2 T, lambda T / 5): B
-#: 32 at T 700, 1021 and 2039 (m_pad 2048, 2048, 4096), and B 512 x 2039,
-#: where the card does real work (26 frames a row, a 218 MB residual)
-BLUESTEIN_SHAPES = ((BATCH, 700), (BATCH, 1021), (BATCH, 2039), (512, 2039))
+#: 32 at T 700, 1021 and 2039 (m_pad 2048, 2048, 4096), and B 512 x 1021
+#: and 2039, where the card does real work (13 and 26 frames a row, a 54
+#: and a 218 MB residual); the last is the main shape
+BLUESTEIN_SHAPES = ((BATCH, 700), (BATCH, 1021), (BATCH, 2039), (512, 1021),
+                    (512, 2039))
 #: one H100 SXM: fp32 outside the tensor cores, and HBM3 bandwidth
 PEAK_FP32_FLOPS = 67e12
 PEAK_BYTES_S = 3.35e12
@@ -548,6 +553,27 @@ def fused_stage_fields(n_fft: int) -> dict:
         return dict(stage="bluestein", radices=stage.radices,
                     m_pad=stage.m_pad)
     return dict(stage=fft_plan.fused_stage_name(n_fft), radices=stage)
+
+
+def bluestein_ptxas(log: str, kernel: tuple, extra: int) -> str:
+    """One line for a Bluestein kernel (the entry whose mangled name holds
+    every string of ``kernel``: K5's ``fused_bluestein_kernel``, K6's
+    ``adjoint_fft_dw_kernel<true>``, ``ILb1E``) from nvcc's ``-Xptxas -v``
+    log: its registers and spill bytes, and the dynamic shared bytes a
+    block takes at m_pad 2048 and 4096, which ptxas does not print:
+    ``frame_fft.cuh:fft_stage_smem`` (max(1, 4096 / m_pad) frames of
+    m_pad + m_pad / 16 points) and ``extra`` bytes of the kernel's own."""
+    lines, keep = [], False
+    for line in log.splitlines():
+        if "Compiling entry" in line:
+            keep = all(part in line for part in kernel)
+        elif keep and ("registers" in line or "spill" in line):
+            lines.append(line.split(":", 1)[-1].strip())
+    smem = {mp: 8 * max(1, 4096 // mp) * (mp + mp // 16) + extra
+            for mp in (2048, 4096)}
+    return (f"  {' '.join(kernel)} (Bluestein's): " + "; ".join(lines)
+            + "; dynamic shared bytes a block "
+            + ", ".join(f"{b} at m_pad {mp}" for mp, b in smem.items()))
 
 
 def pack_of_two(seed: int, xm: torch.Tensor, w: torch.Tensor, lambd: float,
@@ -3826,6 +3852,12 @@ def main():
                 if "registers" in line or "Compiling entry" in line \
                         or "spill" in line:
                     say("  " + line.strip())
+        # K6 also keeps its dw sums there: 16 floats a thread, 16 KB
+        for name, kernel, extra in (
+                ("framed_fwd", ("fused_bluestein_kernel",), 0),
+                ("framed_bwd", ("adjoint_fft_dw_kernel", "ILb1E"), 16384)):
+            say(bluestein_ptxas(libs[KERNELS.index(name)].log, kernel,
+                                extra))
 
     seed = args.seed
     with phase("K1 vs plain"):

@@ -36,12 +36,22 @@
 // K3 leaves the same Re|Im layout (kp_of(n_fft) columns a plane) that K5
 // leaves for K6.
 //
-// Bluestein's stage is adjoint_fft_dw_kernel<true>: the pre-pass times
-// frame_fft.cuh's chirp, zero-padded to P points, then bluestein_frames
-// (two P-point FFTs), whose output lands at the planned stage's frame
-// stride, so the dw sums below are the same code.  max(1, 2048 / P)
-// frames a group; at P = 4096 a block takes 64 KB of shared memory, 3 an
-// SM, and the grid is DW_BLOCKS_WIDE = 3 x 132 blocks.
+// Bluestein's stage is adjoint_fft_dw_kernel<true>: Y at the start of
+// frame_fft.cuh's one buffer, the pre-pass (times the chirp) read from it
+// by the first pass of bluestein_frames (two P-point FFTs in
+// register-resident passes), whose output lands at the planned stage's
+// frame stride, so the dw products below are the same code.  What bounded
+// the stage's first design (2.82 ms at faithful B 512 x 2039): the two
+// FFTs (58 % of the time), then dP and Y (17 %: each thread's bins one
+// after another, each waiting on its residual load).  Here a group is
+// max(1, 4096 / P) frames in 34 KB, Y's loads are issued together, level
+// by level (bluestein_half_spectrum), and the 16 dw sums a thread sit in
+// shared memory past the buffer (16 KB), so that its registers hold the
+// FFT's points: 1.00 ms, 2.8x less, against the exact backward's 2.78
+// (tools/bluestein_split.py and PERF.md; NVIDIA H100 80GB HBM3, 700 W).
+// Built for 2 blocks an SM (__launch_bounds__(256, 2): 128 registers, 76
+// bytes of spills; 3 blocks, at 85 registers, ran 1.28-1.31x slower, 4
+// 1.50-1.60x), and the grid is DW_BLOCKS_BLUESTEIN = 2 x 132 blocks.
 //
 // The FFT stage: one launch of adjoint_fft_dw_kernel<false>, then
 // dw_sum_kernel.
@@ -62,8 +72,9 @@
 // depend on the card) that each walk the frame groups blockIdx.x,
 // blockIdx.x + DW_BLOCKS, ... in order: one partial of n_fft floats a
 // block, 8.7 MB at 4096 where one a frame group would write as many bytes
-// as the residual.  __launch_bounds__(256, 4) caps the registers at 64,
-// so the 4 x 132 blocks of the H100 are all resident at once: ptxas gives
+// as the residual.  __launch_bounds__(256, 4) caps the planned stage's
+// registers at 64, so the 4 x 132 blocks of the H100 are all resident at
+// once: ptxas gives
 // 64 registers with 168 bytes of spills, and the block takes 32 KB of
 // shared memory (chip_smoke.py's build phase prints both).  Keeping the 16
 // sums in shared memory instead (48 KB a block, 56 bytes of spills) was
@@ -119,11 +130,11 @@ constexpr int SUM_THREADS = 256;
 #include "frame_fft.cuh"
 
 // The FFT stage's fixed grid: 4 blocks on each of the H100's 132 SMs;
-// 3 on each where a block takes more than 48 KB of shared memory
-// (Bluestein's at m_pad 4096: 64 KB, 3 blocks an SM)
+// Bluestein's, as many as its kernel is built to keep resident
 constexpr int DW_BLOCKS = 528;
-constexpr int DW_BLOCKS_WIDE = 396;
-constexpr size_t DW_WIDE_SMEM = 48 * 1024;
+constexpr int DW_BLOCKS_BLUESTEIN = 264;
+static_assert(DW_BLOCKS_BLUESTEIN == 132 * BLUESTEIN_BWD_BLOCKS,
+              "Bluestein's grid is its resident blocks");
 // dw sums a thread keeps: a block's frames hold at most FFT_BLOCK_POINTS
 // samples
 constexpr int DW_SLOTS = FFT_BLOCK_POINTS / FFT_THREADS;
@@ -361,11 +372,84 @@ __device__ __forceinline__ float bin_dp(const float* __restrict__ g,
   return dp;
 }
 
+// Y (fr x m pairs, Y[k] = dP (Re + i Im)[k] at 0 < k < m, slot 0 (dRe[0],
+// dRe[m])) of the frame rows row0 .., as the planned stage forms it, value
+// for value, for Bluestein's stage: a thread's at most 8 pairs take their
+// loads together, level by level (the residual and each bin's band range,
+// then the cotangent and weights of its first two bands, then bin_dp's
+// sum in its order), where a loop over the pairs waits on each load in
+// turn.
+__device__ __forceinline__ void bluestein_half_spectrum(
+    float2* y, const float* __restrict__ reim, const float* __restrict__ fb_t,
+    const int* __restrict__ bin_lo, const int* __restrict__ bin_hi,
+    const float* __restrict__ dmel, int row0, int fr, int rows, int nfr,
+    int kp, int m, int n_mels) {
+  constexpr int SLOTS = FFT_BLOCK_POINTS / 2 / FFT_THREADS;
+  const int n_bins = m + 1;
+  float re[SLOTS], im[SLOTS], g0[SLOTS], w0[SLOTS], g1[SLOTS], w1[SLOTS];
+  const float* g[SLOTS];
+  int k_of[SLOTS], lo[SLOTS], hi[SLOTS];
+  #pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int i = s * FFT_THREADS + threadIdx.x;
+    const int f = i / m;
+    const int k = i - f * m;
+    const int r = row0 + f;
+    k_of[s] = k;
+    re[s] = im[s] = 0.f;
+    g[s] = dmel;
+    lo[s] = hi[s] = 0;
+    if (f < fr && r < rows) {
+      const int b = r / nfr;
+      g[s] = dmel + (size_t)b * n_mels * nfr + (r - b * nfr);
+      const float* src = reim + (size_t)r * 2 * kp;
+      re[s] = __ldg(src + k);
+      im[s] = __ldg(src + (k == 0 ? m : kp + k));
+      lo[s] = __ldg(bin_lo + k);
+      hi[s] = __ldg(bin_hi + k);
+    }
+  }
+  #pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int k = k_of[s];
+    const int j = lo[s];
+    g0[s] = w0[s] = g1[s] = w1[s] = 0.f;
+    if (j < hi[s]) {
+      g0[s] = __ldg(g[s] + (size_t)j * nfr);
+      w0[s] = __ldg(fb_t + (size_t)j * n_bins + k);
+    }
+    if (j + 1 < hi[s]) {
+      g1[s] = __ldg(g[s] + (size_t)(j + 1) * nfr);
+      w1[s] = __ldg(fb_t + (size_t)(j + 1) * n_bins + k);
+    }
+  }
+  #pragma unroll
+  for (int s = 0; s < SLOTS; ++s) {
+    const int i = s * FFT_THREADS + threadIdx.x;
+    if (i >= fr * m) break;
+    const int k = k_of[s];
+    // bin_dp's sum: the bin's bands from lo up
+    float dp = 0.f;
+    if (lo[s] < hi[s]) dp = fmaf(g0[s], w0[s], dp);
+    if (lo[s] + 1 < hi[s]) dp = fmaf(g1[s], w1[s], dp);
+    for (int j = lo[s] + 2; j < hi[s]; ++j)
+      dp = fmaf(__ldg(g[s] + (size_t)j * nfr),
+                __ldg(fb_t + (size_t)j * n_bins + k), dp);
+    float2 v = make_float2(dp * re[s], dp * im[s]);
+    if (k == 0) {
+      const float dpm = bin_dp(g[s], fb_t, bin_lo, bin_hi, m, nfr, n_bins);
+      v = make_float2(2.f * dp * re[s], 2.f * dpm * im[s]);
+    }
+    y[i] = v;
+  }
+}
+
 // The FFT stage: fr frames a group, groups blockIdx.x + i gridDim.x in
 // order; a partial dw of n_fft floats a block.  The inverse FFT is the
 // plan's, or Bluestein's where BLUESTEIN.
 template <bool BLUESTEIN>
-__global__ void __launch_bounds__(FFT_THREADS, 4)
+__global__ void __launch_bounds__(FFT_THREADS,
+                                  BLUESTEIN ? BLUESTEIN_BWD_BLOCKS : 4)
 adjoint_fft_dw_kernel(const float* __restrict__ x,
                       const float* __restrict__ reim,
                       const float* __restrict__ table,
@@ -376,10 +460,10 @@ adjoint_fft_dw_kernel(const float* __restrict__ x,
                       float* __restrict__ partials, int rows, int sig_len,
                       int nfr, int hop, int n_fft, int kp, int n_mels, int fr,
                       FftStage stage) {
-  // 2 x fr x span: n_fft / 2 points a frame, or Bluestein's m_pad
+  // the plan's 2 x fr x n_fft / 2 points; Bluestein's fr x (m_pad + m_pad
+  // / 16), Y at its start
   extern __shared__ __align__(16) float2 fft_buf[];
   const int m = n_fft / 2;
-  const int span = BLUESTEIN ? stage.m_pad : m;
   const int n_bins = m + 1;
   // trial blockIdx.y of a pack: its signal rows, residual, cotangent and
   // partials (rows is one trial's)
@@ -389,7 +473,7 @@ adjoint_fft_dw_kernel(const float* __restrict__ x,
   dmel += trial * (size_t)rows * n_mels;
   partials += trial * (size_t)n_fft * gridDim.x;
   float2* a = fft_buf;
-  float2* y = fft_buf + fr * span;
+  float2* y = BLUESTEIN ? fft_buf : fft_buf + fr * m;
   const int n_groups = (rows + fr - 1) / fr;
   // This thread's samples: flat index s FFT_THREADS + threadIdx.x of the
   // group's fr x n_fft samples, walked as (frame f, sample mm) pairs.  As
@@ -400,49 +484,63 @@ adjoint_fft_dw_kernel(const float* __restrict__ x,
   const int df = FFT_THREADS / n_fft;
   const int dm = FFT_THREADS - df * n_fft;
   const float sign = (threadIdx.x & 1) ? -1.f : 1.f;
+  // dw sums: a thread's DW_SLOTS in registers; on Bluestein's stage, whose
+  // registers hold the FFT's points, in shared memory past its buffer
   float acc[DW_SLOTS];
-  #pragma unroll
-  for (int s = 0; s < DW_SLOTS; ++s) acc[s] = 0.f;
+  float* acc_s = nullptr;
+  if constexpr (BLUESTEIN) {
+    acc_s = reinterpret_cast<float*>(
+                fft_buf + fr * (stage.m_pad + stage.m_pad / 16)) +
+            threadIdx.x;
+    #pragma unroll
+    for (int s = 0; s < DW_SLOTS; ++s) acc_s[s * FFT_THREADS] = 0.f;
+  } else {
+    #pragma unroll
+    for (int s = 0; s < DW_SLOTS; ++s) acc[s] = 0.f;
+  }
 
   for (int grp = blockIdx.x; grp < n_groups; grp += gridDim.x) {
     const int row0 = grp * fr;
     __syncthreads();               // the last group's reads are done
     // Y = dP (Re + i Im) at 0 < k < m; slot 0 holds (dRe[0], dRe[m])
-    int f_src = -1;
-    const float* g = dmel;
-    const float* src = reim;
-    for_frame_columns(fr, m, [&](int f, int k) {
-      const int r = row0 + f;
-      float2 v = make_float2(0.f, 0.f);
-      if (r < rows) {
-        if (f != f_src) {
-          const int b = r / nfr;
-          g = dmel + (size_t)b * n_mels * nfr + (r - b * nfr);
-          src = reim + (size_t)r * 2 * kp;
-          f_src = f;
+    if constexpr (BLUESTEIN) {
+      bluestein_half_spectrum(y, reim, fb_t, bin_lo, bin_hi, dmel, row0, fr,
+                              rows, nfr, kp, m, n_mels);
+    } else {
+      int f_src = -1;
+      const float* g = dmel;
+      const float* src = reim;
+      for_frame_columns(fr, m, [&](int f, int k) {
+        const int r = row0 + f;
+        float2 v = make_float2(0.f, 0.f);
+        if (r < rows) {
+          if (f != f_src) {
+            const int b = r / nfr;
+            g = dmel + (size_t)b * n_mels * nfr + (r - b * nfr);
+            src = reim + (size_t)r * 2 * kp;
+            f_src = f;
+          }
+          const float dp = bin_dp(g, fb_t, bin_lo, bin_hi, k, nfr, n_bins);
+          if (k == 0) {
+            const float dpm = bin_dp(g, fb_t, bin_lo, bin_hi, m, nfr,
+                                     n_bins);
+            v = make_float2(2.f * dp * __ldg(src),
+                            2.f * dpm * __ldg(src + m));
+          } else {
+            v = make_float2(dp * __ldg(src + k), dp * __ldg(src + kp + k));
+          }
         }
-        const float dp = bin_dp(g, fb_t, bin_lo, bin_hi, k, nfr, n_bins);
-        if (k == 0) {
-          const float dpm = bin_dp(g, fb_t, bin_lo, bin_hi, m, nfr, n_bins);
-          v = make_float2(2.f * dp * __ldg(src), 2.f * dpm * __ldg(src + m));
-        } else {
-          v = make_float2(dp * __ldg(src + k), dp * __ldg(src + kp + k));
-        }
-      }
-      y[f * m + k] = v;
-    });
+        y[f * m + k] = v;
+      });
+    }
     __syncthreads();
     const float* z;
     if constexpr (BLUESTEIN) {
-      // the pre-pass times the chirp, zero-padded to span points
-      for_frame_columns(fr, span, [&](int f, int k) {
-        a[f * span + k] =
-            k < m ? cmul(irfft_prepass(y + f * m, n_fft, k, table),
-                         chirp(table, n_fft, k))
-                  : make_float2(0.f, 0.f);
-      });
-      z = reinterpret_cast<const float*>(
-          bluestein_frames(a, y, fr, n_fft, stage, table));
+      // the pre-pass, times the chirp in the first pass
+      z = reinterpret_cast<const float*>(bluestein_frames(
+          fft_buf, n_fft, stage, [&](int f, int k) {
+            return irfft_prepass(y + f * m, n_fft, k, table);
+          }));
     } else {
       for_frame_columns(fr, m, [&](int f, int k) {
         a[f * m + k] = irfft_prepass(y + f * m, n_fft, k, table);
@@ -480,9 +578,16 @@ adjoint_fft_dw_kernel(const float* __restrict__ x,
           f_row = f;
         }
         const int p = base + mm;
-        if (row_ok && p >= 0 && p < sig_len)
-          acc[s] = fmaf(__ldg(xb + p), sign * z[s * FFT_THREADS + threadIdx.x],
-                        acc[s]);
+        if (row_ok && p >= 0 && p < sig_len) {
+          if constexpr (BLUESTEIN) {
+            float& a = acc_s[s * FFT_THREADS];
+            a = fmaf(__ldg(xb + p), sign * z[s * FFT_THREADS + threadIdx.x],
+                     a);
+          } else {
+            acc[s] = fmaf(__ldg(xb + p),
+                          sign * z[s * FFT_THREADS + threadIdx.x], acc[s]);
+          }
+        }
       }
     }
   }
@@ -490,12 +595,16 @@ adjoint_fft_dw_kernel(const float* __restrict__ x,
   // the block's partial: each sample's sums over the group's frames
   __syncthreads();
   float* red = reinterpret_cast<float*>(fft_buf);      // fr x n_fft
-  #pragma unroll
-  for (int s = 0; s < DW_SLOTS; ++s) {
-    const int i = s * FFT_THREADS + threadIdx.x;
-    if (i < fr * n_fft) red[i] = acc[s];
+  if constexpr (BLUESTEIN) {
+    red = acc_s - threadIdx.x;
+  } else {
+    #pragma unroll
+    for (int s = 0; s < DW_SLOTS; ++s) {
+      const int i = s * FFT_THREADS + threadIdx.x;
+      if (i < fr * n_fft) red[i] = acc[s];
+    }
+    __syncthreads();
   }
-  __syncthreads();
   for (int mm = threadIdx.x; mm < n_fft; mm += FFT_THREADS) {
     float v = 0.f;
     for (int f = 0; f < fr; ++f) v += red[f * n_fft + mm];
@@ -510,8 +619,7 @@ int partial_blocks(int rows, int n_fft, const FftStage* stage) {
   if (stage == nullptr) return (rows + BM - 1) / BM;
   const int fr = fft_stage_frames(n_fft, *stage);
   const int groups = (rows + fr - 1) / fr;
-  const int cap = fft_stage_smem(n_fft, *stage) > DW_WIDE_SMEM
-                      ? DW_BLOCKS_WIDE : DW_BLOCKS;
+  const int cap = stage->m_pad ? DW_BLOCKS_BLUESTEIN : DW_BLOCKS;
   return groups < cap ? groups : cap;
 }
 
@@ -534,7 +642,9 @@ int launch_bwd(const float* x, const float* reim, const float* table,
   const int n_blocks = partial_blocks(rows, n_fft, stage);
   cudaError_t err;
   if (stage != nullptr) {
-    const size_t smem = fft_stage_smem(n_fft, *stage);
+    // Bluestein's: and the dw sums, DW_SLOTS floats a thread
+    const size_t smem = fft_stage_smem(n_fft, *stage) +
+                        (stage->m_pad ? sizeof(float) * FFT_BLOCK_POINTS : 0);
     auto kernel = stage->m_pad ? adjoint_fft_dw_kernel<true>
                                : adjoint_fft_dw_kernel<false>;
     err = cudaFuncSetAttribute(kernel,

@@ -32,7 +32,7 @@
 // n_fft alone (dmel_tpu_torch/ops/fft_plan.py) and passed as the stage's
 // radices (and, for Bluestein's, its padded length and two tables):
 //
-// - the FFT stage, one launch of fused_fft_kernel<false>, for every even
+// - the FFT stage, one launch of fused_fft_kernel, for every even
 //   n_fft up to 4096 whose half has no prime factor above 5: every bucket
 //   the fused route takes and faithful 3000 (K5), every n_fft of the
 //   framed route but 896 = 2^7 7 (K3: 128 to 1024).  A block owns
@@ -48,23 +48,33 @@
 //   coalesced, and reads nothing back: the power goes from shared memory
 //   to the mel output in the same block, where the direct stage reads the
 //   residual again.
-// - Bluestein's stage, one launch of fused_fft_kernel<true> (K5 only), at
+// - Bluestein's stage, one launch of fused_bluestein_kernel (K5 only), at
 //   every other even n_fft up to 4096: faithful mode's n_fft = 2 T (1400,
-//   and 1494 of the 1536 T in (512, 2048]).  The same kernel, but each
-//   frame's M = n_fft / 2 points go through frame_fft.cuh's chirp-z
-//   (bluestein_frames): two power-of-two FFTs of P >= 2 M - 1 points (P =
-//   2048 at faithful T 513-1024, 4096 above), max(1, 2048 / P) frames a
-//   block,
-//   64 KB of shared memory at P = 4096.  Its result lands at the planned
-//   stage's frame stride, so the post-pass, the residual and the mel are
-//   the same code.
+//   and 1494 of the 1536 T in (512, 2048]).  Each frame's M = n_fft / 2
+//   points go through frame_fft.cuh's chirp-z (bluestein_frames): two
+//   power-of-two FFTs of P >= 2 M - 1 points (P = 2048 at faithful T
+//   513-1024, 4096 above) as register-resident passes, max(1, 4096 / P)
+//   frames a block in 34 KB of shared memory.  The DFT lands at the
+//   planned stage's frame stride, so the post-pass and the residual are
+//   the planned kernel's code.  What bounded the first design of the
+//   stage (2.75 ms at faithful B 512 x 2039 against a 0.0673 ms bytes
+//   bound): the two FFTs' ~15 passes through shared memory and twiddle
+//   gathers from L2 (65 % and a quarter of the time), then the mel
+//   projection (17 %: 64 threads each walking a band down fb's columns,
+//   a line a bin).  Here the FFTs take 4 exchanges a frame and read their
+//   twiddles by stage, and the mel projection reads fb_t, band by band,
+//   8 bins ahead (mel_project_t): 0.68 ms, 4.0x less, against
+//   torch.stft + mel's 1.40 (tools/bluestein_split.py and PERF.md;
+//   NVIDIA H100 80GB HBM3, 700 W).  Built for 3 blocks an SM (80
+//   registers; 4 blocks, at 64, spilled and ran up to 1.04x slower).
 // - the direct stage, two launches, wherever the caller passes no stage
 //   (K3 at 896; chip_smoke.py times it at every shape as direct_ms):
 //   frame_dft_kernel then power_mel_kernel.
 //
 // fused_fft_kernel takes 256 threads, at most 64 registers (no spills)
-// and 32 KB of shared memory a block (frame_fft.cuh; chip_smoke.py's build
-// phase prints ptxas's counts).  The direct stage:
+// and 32 KB of shared memory a block (frame_fft.cuh), fused_bluestein_kernel
+// 256 threads, at most 85 registers and 34 KB (chip_smoke.py's build phase
+// prints ptxas's counts).  The direct stage:
 //
 // 1. frame_dft_kernel: Re|Im as one fp32 GEMM, windowed frames (rows,
 //    n_fft) times the bases (n_fft, 2 kp), cos plane in columns [0, kp),
@@ -292,11 +302,50 @@ power_mel_kernel(const float* __restrict__ reim, const float* __restrict__ fb,
                            n_bins, n_mels);
 }
 
-// K5's FFT stage: fr frames a block, windowed, through the shared-memory
-// FFT (the plan's, or Bluestein's where BLUESTEIN); Re|Im with its zero
-// pad columns to the residual, the power to the buffer the FFT left free,
-// then the mel projection.
-template <bool BLUESTEIN>
+// mel_project over the transposed filterbank fb_t (n_mels, n_bins), for
+// Bluestein's kernel: band j's weights lie side by side (~16 KB of lines
+// in all at n_fft 4096, which stay in L1, where fb's column j is a line a
+// bin), and each chain of fmas takes its powers and weights 8 at a time,
+// loaded ahead of their fmas, where mel_project waits on a load a bin.
+// The same sum, weight for weight and in the same order.  (A warp a band,
+// its lanes 32 bins apart and a butterfly of shuffles, measured slower:
+// PERF.md.)
+template <int NT>
+__device__ __forceinline__ void mel_project_t(
+    const float* p, const float* __restrict__ fb_t,
+    const int* __restrict__ mel_lo, const int* __restrict__ mel_hi,
+    float* __restrict__ out, int row0, int nf, int rows, int nfr,
+    int n_bins, int n_mels) {
+  for (int i = threadIdx.x; i < nf * n_mels; i += NT) {
+    const int j = i / nf;
+    const int f = i - j * nf;
+    const int r = row0 + f;
+    if (r >= rows) continue;
+    const float* pf = p + f * n_bins;
+    const float* wj = fb_t + (size_t)j * n_bins;
+    float acc = 0.f;
+    int k = __ldg(mel_lo + j);
+    const int hi = __ldg(mel_hi + j);
+    for (; k + 8 <= hi; k += 8) {
+      float pk[8], wk[8];
+      #pragma unroll
+      for (int e = 0; e < 8; ++e) {
+        pk[e] = pf[k + e];
+        wk[e] = __ldg(wj + k + e);
+      }
+      #pragma unroll
+      for (int e = 0; e < 8; ++e) acc = fmaf(pk[e], wk[e], acc);
+    }
+    for (; k < hi; ++k) acc = fmaf(pf[k], __ldg(wj + k), acc);
+    const int b = r / nfr;
+    const int t = r - b * nfr;
+    out[((size_t)b * n_mels + j) * nfr + t] = acc;
+  }
+}
+
+// K5's FFT stage: fr frames a block, windowed, through the plan's
+// shared-memory FFT; Re|Im with its zero pad columns to the residual, the
+// power to the buffer the FFT left free, then the mel projection.
 __global__ void __launch_bounds__(FFT_THREADS)
 fused_fft_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  const float* __restrict__ table,
@@ -305,10 +354,9 @@ fused_fft_kernel(const float* __restrict__ x, const float* __restrict__ w,
                  float* __restrict__ out, int rows, int sig_len, int nfr,
                  int hop, int n_fft, int kp, int n_bins, int n_mels, int fr,
                  FftStage stage) {
-  // 2 x fr x span: n_fft / 2 points a frame, or Bluestein's m_pad
+  // 2 x fr x n_fft / 2 points
   extern __shared__ __align__(16) float2 fft_buf[];
   const int m = n_fft / 2;
-  const int span = BLUESTEIN ? stage.m_pad : m;
   const int row0 = blockIdx.x * fr;
   // trial blockIdx.y of a pack: its signal rows, window and outputs (rows
   // is one trial's)
@@ -318,16 +366,9 @@ fused_fft_kernel(const float* __restrict__ x, const float* __restrict__ w,
   reim += trial * (size_t)rows * 2 * kp;
   out += trial * (size_t)rows * n_mels;
   float2* a = fft_buf;
-  float2* b = fft_buf + fr * span;
-  const float2* z;
-  if constexpr (BLUESTEIN) {
-    bluestein_load_frames(a, x, w, table, row0, fr, rows, sig_len, nfr, hop,
-                          n_fft, span);
-    z = bluestein_frames(a, b, fr, n_fft, stage, table);
-  } else {
-    fft_load_frames(a, x, w, row0, fr, rows, sig_len, nfr, hop, n_fft);
-    z = fft_frames(a, b, fr, n_fft, stage.plan, table);
-  }
+  float2* b = fft_buf + fr * m;
+  fft_load_frames(a, x, w, row0, fr, rows, sig_len, nfr, hop, n_fft);
+  const float2* z = fft_frames(a, b, fr, n_fft, stage.plan, table);
   // fr x n_bins power in the buffer the FFT left free (fr n_fft floats)
   float* p = reinterpret_cast<float*>(z == a ? b : a);
   for_frame_columns(fr, kp, [&](int f, int k) {
@@ -345,6 +386,74 @@ fused_fft_kernel(const float* __restrict__ x, const float* __restrict__ w,
   __syncthreads();
   mel_project<FFT_THREADS>(p, fb, mel_lo, mel_hi, out, row0, fr, rows, nfr,
                            n_bins, n_mels);
+}
+
+// K5's Bluestein stage: fused_fft_kernel with frame_fft.cuh's
+// bluestein_frames for the FFT (max(1, 4096 / m_pad) frames a block, 34 KB
+// of shared memory, built for BLUESTEIN_FWD_BLOCKS blocks an SM), the power
+// in the room the DFT leaves, the mel projection over fb_t.
+__global__ void __launch_bounds__(FFT_THREADS, BLUESTEIN_FWD_BLOCKS)
+fused_bluestein_kernel(const float* __restrict__ x,
+                       const float* __restrict__ w,
+                       const float* __restrict__ table,
+                       const float* __restrict__ fb_t,
+                       const int* __restrict__ mel_lo,
+                       const int* __restrict__ mel_hi,
+                       float* __restrict__ reim, float* __restrict__ out,
+                       int rows, int sig_len, int nfr, int hop, int n_fft,
+                       int kp, int n_bins, int n_mels, int fr,
+                       FftStage stage) {
+  // fr x (m_pad + m_pad / 16) points
+  extern __shared__ __align__(16) float2 fft_buf[];
+  const int m = n_fft / 2;
+  const int row0 = blockIdx.x * fr;
+  // trial blockIdx.y of a pack: its signal rows, window and outputs (rows
+  // is one trial's)
+  const size_t trial = blockIdx.y;
+  x += trial * (size_t)(rows / nfr) * sig_len;
+  w += trial * n_fft;
+  reim += trial * (size_t)rows * 2 * kp;
+  out += trial * (size_t)rows * n_mels;
+  // this thread's frame's samples in pairs z[n] = x[2n] + i x[2n+1],
+  // windowed (w in pairs: n_fft is even)
+  const float2* w2 = reinterpret_cast<const float2*>(w);
+  const int r = row0 + bl_frame(stage.m_pad);
+  const bool row_ok = r < rows;
+  const float* src = x;
+  int start = 0;
+  if (row_ok) {
+    const int b = r / nfr;
+    src = x + (size_t)b * sig_len;
+    start = (r - b * nfr) * hop - m;
+  }
+  auto load = [&](int, int n) {
+    float2 v = make_float2(0.f, 0.f);
+    if (row_ok) {
+      const int p = start + 2 * n;
+      const float2 wn = __ldg(w2 + n);
+      if (p >= 0 && p < sig_len) v.x = __ldg(src + p) * wn.x;
+      if (p + 1 >= 0 && p + 1 < sig_len) v.y = __ldg(src + p + 1) * wn.y;
+    }
+    return v;
+  };
+  const float2* z = bluestein_frames(fft_buf, n_fft, stage, load);
+  // fr x n_bins power past the DFT's fr m points
+  float* p = reinterpret_cast<float*>(fft_buf + fr * m);
+  for_frame_columns(fr, kp, [&](int f, int k) {
+    const int r = row0 + f;
+    if (r >= rows) return;
+    float2 v = make_float2(0.f, 0.f);
+    if (k < n_bins) {
+      v = rfft_bin(z + f * m, n_fft, k, table);
+      p[f * n_bins + k] = v.x * v.x + v.y * v.y;
+    }
+    float* dst = reim + (size_t)r * 2 * kp;
+    dst[k] = v.x;
+    dst[kp + k] = v.y;
+  });
+  __syncthreads();
+  mel_project_t<FFT_THREADS>(p, fb_t, mel_lo, mel_hi, out, row0, fr, rows,
+                             nfr, n_bins, n_mels);
 }
 
 // The direct stage: frame_dft_kernel, then power_mel_kernel.
@@ -373,21 +482,33 @@ int launch_direct(const float* x, const float* w, const float* table,
 
 // The FFT stage: one launch of fused_fft_kernel.
 int launch_fft(const float* x, const float* w, const float* table,
-               const float* fb, const int* mel_lo, const int* mel_hi,
-               float* reim, float* out, int batch, int trials, int sig_len,
-               int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
-               const FftStage& stage, cudaStream_t s) {
+               const float* fb, const float* fb_t, const int* mel_lo,
+               const int* mel_hi, float* reim, float* out, int batch,
+               int trials, int sig_len, int nfr, int hop, int n_fft, int kp,
+               int n_bins, int n_mels, const FftStage& stage,
+               cudaStream_t s) {
   const int rows = batch * nfr;
   const int fr = fft_stage_frames(n_fft, stage);
   const size_t smem = fft_stage_smem(n_fft, stage);
-  auto kernel = stage.m_pad ? fused_fft_kernel<true> : fused_fft_kernel<false>;
-  cudaError_t err = cudaFuncSetAttribute(
-      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      static_cast<int>(smem));
-  if (err != cudaSuccess) return static_cast<int>(err);
-  kernel<<<dim3((rows + fr - 1) / fr, trials), FFT_THREADS, smem, s>>>(
-      x, w, table, fb, mel_lo, mel_hi, reim, out, rows, sig_len, nfr, hop,
-      n_fft, kp, n_bins, n_mels, fr, stage);
+  const dim3 grid((rows + fr - 1) / fr, trials);
+  cudaError_t err;
+  if (stage.m_pad) {
+    err = cudaFuncSetAttribute(fused_bluestein_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_bluestein_kernel<<<grid, FFT_THREADS, smem, s>>>(
+        x, w, table, fb_t, mel_lo, mel_hi, reim, out, rows, sig_len, nfr,
+        hop, n_fft, kp, n_bins, n_mels, fr, stage);
+  } else {
+    err = cudaFuncSetAttribute(fused_fft_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               static_cast<int>(smem));
+    if (err != cudaSuccess) return static_cast<int>(err);
+    fused_fft_kernel<<<grid, FFT_THREADS, smem, s>>>(
+        x, w, table, fb, mel_lo, mel_hi, reim, out, rows, sig_len, nfr, hop,
+        n_fft, kp, n_bins, n_mels, fr, stage);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -403,10 +524,11 @@ bool bad_geometry(int batch, int trials, int nfr, int hop, int n_fft, int kp,
 // m_pad = 0: the direct stage); a stage that is not one of n_fft is
 // refused.
 int launch_stage(const float* x, const float* w, const float* table,
-                 const float* fb, const int* mel_lo, const int* mel_hi,
-                 float* reim, float* out, int batch, int trials, int sig_len,
-                 int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
-                 const int* radices, int n_stages, int m_pad,
+                 const float* fb, const float* fb_t, const int* mel_lo,
+                 const int* mel_hi, float* reim, float* out, int batch,
+                 int trials, int sig_len, int nfr, int hop, int n_fft,
+                 int kp, int n_bins, int n_mels, const int* radices,
+                 int n_stages, int m_pad,
                  const float* bl_table, const float* bl_hat, cudaStream_t s) {
   if (bad_geometry(batch, trials, nfr, hop, n_fft, kp, n_bins, n_mels)) {
     return static_cast<int>(cudaErrorInvalidValue);
@@ -421,7 +543,7 @@ int launch_stage(const float* x, const float* w, const float* table,
                       &stage)) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_fft(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
+  return launch_fft(x, w, table, fb, fb_t, mel_lo, mel_hi, reim, out, batch,
                     trials, sig_len, nfr, hop, n_fft, kp, n_bins, n_mels,
                     stage, s);
 }
@@ -437,8 +559,10 @@ const char* framed_fwd_error_string(int code) {
 // A pack of `trials` trials, each of `batch` signal rows: x (trials*batch,
 // sig_len), trial k's rows k*batch ..; w (trials, n_fft), one window a
 // trial; table (2, n_fft): cos then -sin of 2 pi i / n_fft; fb (n_bins,
-// n_mels) dense; mel_lo / mel_hi (n_mels) int32, each band's nonzero bin
-// range; reim (trials*batch*nfr, 2*kp); out (trials*batch, n_mels, nfr).
+// n_mels) dense and fb_t, its transpose (n_mels, n_bins), read by
+// Bluestein's stage only; mel_lo / mel_hi (n_mels) int32, each band's
+// nonzero bin range; reim (trials*batch*nfr, 2*kp); out (trials*batch,
+// n_mels, nfr).
 // Each kernel takes the trial as a grid dimension, so trial k's outputs are
 // bit for bit those of a launch with trials = 1 on its rows and window.
 // All fp32 unless stated, contiguous, on the current device.
@@ -447,39 +571,43 @@ const char* framed_fwd_error_string(int code) {
 // ops/framed.py:_stage_args passes it: radices (n_stages ints, host
 // memory) the plan of the complex FFT of length n_fft / 2 with m_pad = 0
 // and both tables null; or, with m_pad > 0, Bluestein's (fused_fwd only):
-// the plan of the m_pad-point FFT, bl_table its (2, 2 m_pad) cos / -sin
-// table and bl_hat (m_pad, 2) FFT(b) / m_pad of the conjugate chirp
+// the plan of the m_pad-point FFT (radix 4, then at most one radix 2;
+// m_pad at least 16), bl_table (m_pad + n_fft / 2, 2): its twiddles by
+// stage, then the chirp (fft_plan.py:bluestein_table_np), and bl_hat
+// (m_pad, 2) FFT(b) / m_pad of the conjugate chirp
 // (fft_plan.py:bluestein_kernel_np), on the device; or the direct stage,
 // radices null, n_stages = -1, m_pad = 0.  Anything else is refused.
 
 // K3: n_fft a multiple of 128, at most 1024 (the framed route's geometry);
 // no Bluestein stage.
 int framed_fwd(const float* x, const float* w, const float* table,
-               const float* fb, const int* mel_lo, const int* mel_hi,
-               float* reim, float* out, int batch, int trials, int sig_len,
-               int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
-               const int* radices, int n_stages, int m_pad,
+               const float* fb, const float* fb_t, const int* mel_lo,
+               const int* mel_hi, float* reim, float* out, int batch,
+               int trials, int sig_len, int nfr, int hop, int n_fft, int kp,
+               int n_bins, int n_mels, const int* radices, int n_stages,
+               int m_pad,
                const float* bl_table, const float* bl_hat, void* stream) {
   if (n_fft % 128 != 0 || n_fft > 1024 || m_pad != 0) {
     return static_cast<int>(cudaErrorInvalidValue);
   }
-  return launch_stage(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
-                      trials, sig_len, nfr, hop, n_fft, kp, n_bins, n_mels,
-                      radices, n_stages, m_pad, bl_table, bl_hat,
+  return launch_stage(x, w, table, fb, fb_t, mel_lo, mel_hi, reim, out,
+                      batch, trials, sig_len, nfr, hop, n_fft, kp, n_bins,
+                      n_mels, radices, n_stages, m_pad, bl_table, bl_hat,
                       static_cast<cudaStream_t>(stream));
 }
 
 // K5: any even n_fft up to 4096; w is the window centred in n_fft.
 int fused_fwd(const float* x, const float* w, const float* table,
-              const float* fb, const int* mel_lo, const int* mel_hi,
-              float* reim, float* out, int batch, int trials, int sig_len,
-              int nfr, int hop, int n_fft, int kp, int n_bins, int n_mels,
-              const int* radices, int n_stages, int m_pad,
+              const float* fb, const float* fb_t, const int* mel_lo,
+              const int* mel_hi, float* reim, float* out, int batch,
+              int trials, int sig_len, int nfr, int hop, int n_fft, int kp,
+              int n_bins, int n_mels, const int* radices, int n_stages,
+              int m_pad,
               const float* bl_table, const float* bl_hat, void* stream) {
   if (n_fft > 4096) return static_cast<int>(cudaErrorInvalidValue);
-  return launch_stage(x, w, table, fb, mel_lo, mel_hi, reim, out, batch,
-                      trials, sig_len, nfr, hop, n_fft, kp, n_bins, n_mels,
-                      radices, n_stages, m_pad, bl_table, bl_hat,
+  return launch_stage(x, w, table, fb, fb_t, mel_lo, mel_hi, reim, out,
+                      batch, trials, sig_len, nfr, hop, n_fft, kp, n_bins,
+                      n_mels, radices, n_stages, m_pad, bl_table, bl_hat,
                       static_cast<cudaStream_t>(stream));
 }
 

@@ -24,7 +24,8 @@ check, since the CUDA code cannot run there:
   inverse real FFT (the inverse post-pass, then the same stages on
   conjugated data);
 - :func:`bluestein_kernel_np`, Bluestein's convolution kernel in the
-  frequency domain, the table K5 and K6 read;
+  frequency domain, and :func:`bluestein_table_np`, its twiddles and
+  chirp laid out for the card: the tables K5 and K6 read;
 - :func:`ext_bin_map`, K1's map from its extended bins ``-J .. n_bins -
   1 + J`` to FFT bins, with the sign of each plane.
 """
@@ -141,6 +142,46 @@ def bluestein_kernel_np(n_fft: int, m_pad: int) -> np.ndarray:
     b[m_pad - m + 1:] = conj_c[1:][::-1]
     bhat = np.fft.fft(b) / m_pad
     out = np.stack([bhat.real, bhat.imag], -1).astype(np.float32)
+    out.flags.writeable = False
+    return out
+
+
+def bluestein_stage_twiddles(m_pad: int) -> list[tuple[int, int, int]]:
+    """``(l, radix, first row)`` of each stage of the ``m_pad``-point FFT
+    past the first (the first stage's twiddles are all exactly 1): ``l``
+    the product of the radices before it (:func:`_pow2_radices`), its
+    entries ``(r, k)``, ``1 <= r < radix``, ``k < l``, at rows ``first +
+    (r - 1) l + k`` of :func:`bluestein_table_np` (``first = l - 4``)."""
+    out, ell = [], 1
+    for r in _pow2_radices(m_pad):
+        if ell > 1:
+            out.append((ell, r, ell - 4))
+        ell *= r
+    return out
+
+
+@functools.lru_cache(maxsize=16)
+def bluestein_table_np(n_fft: int, m_pad: int) -> np.ndarray:
+    """``(m_pad + n_fft / 2, 2)`` float32, (cos, -sin) pairs: the table
+    K5's and K6's Bluestein stage reads (``frame_fft.cuh:bl_tw``), each
+    entry one of :func:`table_np`'s, laid out for the card.  Rows ``[0,
+    m_pad - 4)`` hold the m_pad-point FFT's twiddles by stage
+    (:func:`bluestein_stage_twiddles`): ``W_{lR}^{rk}``, entry ``r k 2
+    m_pad / (l R)`` of ``table_np(2 m_pad)``, so that the threads of a
+    warp read neighbouring rows; rows ``[m_pad - 4, m_pad)`` are zero;
+    rows ``m_pad + n``, ``n < n_fft / 2``, hold the chirp ``c[n]``,
+    entry ``n^2 mod n_fft`` of ``table_np(n_fft)`` (:func:`chirp_index`),
+    in natural order."""
+    m = n_fft // 2
+    if m_pad < 16 or m_pad & (m_pad - 1) or m_pad < 2 * m - 1:
+        raise ValueError(f"m_pad {m_pad} is no Bluestein length of {n_fft}")
+    big = table_np(2 * m_pad)
+    out = np.zeros((m_pad + m, 2), np.float32)
+    for ell, radix, first in bluestein_stage_twiddles(m_pad):
+        r, k = np.meshgrid(np.arange(1, radix), np.arange(ell), indexing="ij")
+        idx = r * k * (2 * m_pad // (ell * radix))
+        out[first + (r - 1) * ell + k] = big[:, idx].transpose(1, 2, 0)
+    out[m_pad:] = table_np(n_fft)[:, chirp_index(n_fft)].T
     out.flags.writeable = False
     return out
 

@@ -146,9 +146,11 @@ def _kernel_consts(g: Geom, device: torch.device) -> _Consts:
 @functools.lru_cache(maxsize=8)
 def _bluestein_consts(n_fft: int, m_pad: int, device: torch.device):
     """Bluestein's tables on ``device`` (:class:`fft_plan.Bluestein`):
-    the ``(2, 2 m_pad)`` cos / -sin table of the m_pad-point FFT and
+    the m_pad-point FFT's twiddles by stage and the chirp,
+    ``(m_pad + n_fft / 2, 2)`` (:func:`fft_plan.bluestein_table_np`), and
     ``FFT(b) / m_pad``, ``(m_pad, 2)``."""
-    return (torch.tensor(_table_np(2 * m_pad), device=device),
+    return (torch.tensor(fft_plan.bluestein_table_np(n_fft, m_pad),
+                         device=device),
             torch.tensor(fft_plan.bluestein_kernel_np(n_fft, m_pad),
                          device=device))
 
@@ -251,7 +253,7 @@ def _fwd_lib() -> ctypes.CDLL:
     32-bit int), sizes as ``c_int``."""
     lib = _cuda.load("framed_fwd").cdll
     for entry in (lib.framed_fwd, lib.fused_fwd):
-        entry.argtypes = ([ctypes.c_void_p] * 8 + [ctypes.c_int] * 9
+        entry.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_int] * 9
                           + _STAGE_ARGTYPES + [ctypes.c_void_p])
         entry.restype = ctypes.c_int
     lib.framed_fwd_error_string.argtypes = [ctypes.c_int]
@@ -326,9 +328,9 @@ def launch_fwd(entry: str, x2: torch.Tensor, window: torch.Tensor,
                           device=x2.device)
         lib = _fwd_lib()
         args = (x2.data_ptr(), window.data_ptr(), c.table.data_ptr(),
-                c.fb.data_ptr(), c.mel_lo.data_ptr(), c.mel_hi.data_ptr(),
-                reim.data_ptr(), out.data_ptr(), b, trials, t, nfr,
-                g.hop_length, g.n_fft, kp, n_bins, g.n_mels)
+                c.fb.data_ptr(), c.fb_t.data_ptr(), c.mel_lo.data_ptr(),
+                c.mel_hi.data_ptr(), reim.data_ptr(), out.data_ptr(), b,
+                trials, t, nfr, g.hop_length, g.n_fft, kp, n_bins, g.n_mels)
         rc = getattr(lib, entry)(
             *args, *_stage_args(stage, g.n_fft, x2.device),
             torch.cuda.current_stream(x2.device).cuda_stream)

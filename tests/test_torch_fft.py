@@ -31,8 +31,12 @@ held against independent references:
   direct DFT's, on a band-limited clip;
 - K5's and K6's Bluestein stage (``fft_plan.fused_stage``) at the even
   n_fft with no plan: a stage the C check takes at every even n_fft in
-  [2, 4096], its mirrors against numpy's float64 rfft and irfft (1e-5 of
-  the largest entry), and K5 and K6 emulated through them at faithful T
+  [2, 4096], the table its kernels read (``bluestein_table_np``: each
+  twiddle and chirp entry one of ``table_np``'s) at every such n_fft,
+  the kernels' register-resident passes emulated against the mirror bit
+  for bit at every m_pad from 16 to 4096, its mirrors against numpy's
+  float64 rfft and irfft (1e-5 of the largest entry), and K5 and K6
+  emulated through them at faithful T
   521 and 700 (n_fft 1042 and 1400) against dmel_tpu's fused kernel and
   fused dw kernel in interpret mode (log-mel 1e-4, Re|Im 1e-5 of the
   largest entry, dlambda 1e-2, dw 1e-3), a pack of two trials bit for
@@ -153,9 +157,11 @@ def _stage_accepted(stage, n_fft: int, header: str) -> bool:
     if not isinstance(stage, fft_plan.Bluestein):
         return plan_ok(stage, n_fft)
     mp = stage.m_pad
-    return (1 <= mp <= _header_int(header, "BLUESTEIN_MAX_POINTS")
+    return (_header_int(header, "BLUESTEIN_MIN_POINTS") <= mp
+            <= _header_int(header, "BLUESTEIN_MAX_POINTS")
             and mp & (mp - 1) == 0 and n_fft - 1 <= mp < 2 * (n_fft - 1)
-            and plan_ok(stage.radices, 2 * mp))
+            and plan_ok(stage.radices, 2 * mp)
+            and all(r == 4 for r in stage.radices[:-1]))
 
 
 def test_fused_stage_covers_every_even_nfft():
@@ -187,8 +193,12 @@ def test_fused_stage_covers_every_even_nfft():
     # the checks refuse what is not Bluestein's stage of n_fft
     for bad in (fft_plan.Bluestein(4096, (4,) * 6),
                 fft_plan.Bluestein(1024, (4, 4, 4, 4, 2)),
-                fft_plan.Bluestein(2048, (4, 4, 4, 4, 4))):
+                fft_plan.Bluestein(2048, (4, 4, 4, 4, 4)),
+                fft_plan.Bluestein(2048, (2, 4, 4, 4, 4, 4))):
         assert not _stage_accepted(bad, 1400, header)
+    # the passes take two radix-4 stages at least: 8 points is refused
+    assert _stage_accepted(fft_plan.Bluestein(16, (4, 4)), 10, header)
+    assert not _stage_accepted(fft_plan.Bluestein(8, (4, 2)), 6, header)
 
 
 # --- the arithmetic --------------------------------------------------------
@@ -231,6 +241,190 @@ def test_bluestein_mirror_matches_numpy_rfft(m):
     print(f"n_fft {n_fft} (m_pad {fft_plan.fused_stage(n_fft).m_pad}): "
           f"Bluestein {err:.3e}, direct DFT {err_direct:.3e} of max |X|")
     assert err <= RESIDUAL_GATE
+
+
+def test_bluestein_table_at_every_bluestein_nfft():
+    """The table K5's and K6's Bluestein stage reads
+    (``fft_plan.bluestein_table_np``) at every even n_fft up to 4096 that
+    takes the stage: row ``l - 4 + (r - 1) l + k`` of each stage past the
+    first is entry ``r k 2 m_pad / (l R)`` of ``table_np(2 m_pad)``, every
+    row below ``m_pad`` is one stage entry or zero, and row ``m_pad + n``
+    is entry ``n^2 mod n_fft`` of ``table_np(n_fft)``: the same float32
+    values ``rfft_mirror`` reads, laid out for the card."""
+    seen = 0
+    for n_fft in range(2, fft_plan.MAX_N_FFT + 1, 2):
+        stage = fft_plan.fused_stage(n_fft)
+        if not isinstance(stage, fft_plan.Bluestein):
+            continue
+        mp, m = stage.m_pad, n_fft // 2
+        got = fft_plan.bluestein_table_np(n_fft, mp)
+        assert got.shape == (mp + m, 2) and got.dtype == np.float32
+        big = fft_plan.table_np(2 * mp).T
+        rows = np.zeros(mp, bool)
+        ells = []
+        for ell, radix, first in fft_plan.bluestein_stage_twiddles(mp):
+            assert first == ell - 4
+            ells.append(ell)
+            r, k = np.meshgrid(np.arange(1, radix), np.arange(ell),
+                               indexing="ij")
+            at = first + (r - 1) * ell + k
+            assert not rows[at].any()
+            rows[at] = True
+            assert np.array_equal(got[at], big[r * k * (2 * mp // (ell *
+                                                                   radix))])
+        assert ells == [4 ** s for s in range(1, len(stage.radices))]
+        assert rows.sum() == mp - 4 and not got[:mp][~rows].any()
+        assert np.array_equal(got[mp:], fft_plan.table_np(n_fft).T[
+            fft_plan.chirp_index(n_fft)])
+        seen += 1
+    assert seen == 2048 - len([n for n in range(2, 4097, 2)
+                               if fft_plan.plan(n) is not None])
+
+
+def emulate_bluestein_passes(zr, zi, n_fft):
+    """The complex DFT of length ``n_fft / 2`` of each row of ``(zr,
+    zi)`` as ``frame_fft.cuh:bluestein_frames`` runs Bluestein's stage:
+    thread ``t`` of a frame holds the points ``i0 + (P / 16) c`` in
+    registers (``i0 = t``), passes of two stages ((4, 4), then the last
+    (4, 4), (4, 2), (4, 1) or (2, 1)) on them, each pass's outputs to
+    their points in a padded buffer of ``P + P / 16`` (a float2 every 16)
+    read back by the next pass; the first FFT's input ``z c`` with the
+    zero half never loaded (zeros here), ``B^`` and the conjugation in the
+    hand-over between the FFTs (a renaming of registers), the chirp and
+    the conjugation on the points below ``m`` of the last pass.  Every
+    twiddle and chirp from ``bluestein_table_np``."""
+    stage = fft_plan.fused_stage(n_fft)
+    mp, m, rows = stage.m_pad, n_fft // 2, zr.shape[0]
+    table = torch.from_numpy(fft_plan.bluestein_table_np(n_fft, mp).copy())
+    tw, chirp = table[:mp], table[mp:]
+    bh = torch.from_numpy(fft_plan.bluestein_kernel_np(n_fft, mp).copy())
+    q16 = mp // 16
+    i0 = torch.arange(q16)
+    n4 = sum(r == 4 for r in stage.radices)
+    two = stage.radices[-1] == 2
+    rest = n4 - 2
+    if rest % 2:
+        last = (4, 2) if two else (4, 1)
+    else:
+        last = (2, 1) if two else (4, 4)
+    n_mid = rest // 2 - (last == (4, 4))
+    cmul = fft_plan._cmul
+
+    def bl_tw(ell, r, k):
+        row = tw[ell - 4 + (r - 1) * ell + k]
+        return row[:, 0], row[:, 1]
+
+    def bl_pass(v, radices, ell):
+        r1, r2 = radices
+        s_ = r1 * r2
+        for u in range(16 // s_):
+            k = (i0 + q16 * u) & (ell - 1)
+            for rr in range(r2):
+                a = [v[u * s_ + r * r2 + rr] for r in range(r1)]
+                if ell > 1:
+                    a = [a[0]] + [cmul(*a[r], *bl_tw(ell, r, k))
+                                  for r in range(1, r1)]
+                for q, o in enumerate(fft_plan._butterfly(r1, a, None)):
+                    v[u * s_ + q * r2 + rr] = o
+            if r2 > 1:
+                for q in range(r1):
+                    a = [v[u * s_ + q * r2 + rr] for rr in range(r2)]
+                    a = [a[0]] + [cmul(*a[rr], *bl_tw(r1 * ell, rr,
+                                                      q * ell + k))
+                                  for rr in range(1, r2)]
+                    for qq, o in enumerate(fft_plan._butterfly(r2, a, None)):
+                        v[u * s_ + q * r2 + qq] = o
+
+    def pad(i):
+        return i + (i >> 4)
+
+    def read(buf, radices):
+        s_ = radices[0] * radices[1]
+        return [tuple(b[:, pad(i0 + q16 * (c // s_) + (c % s_) * (mp // s_))]
+                      for b in buf) for c in range(16)]
+
+    def write(v, radices, ell):
+        r1, r2 = radices
+        s_ = r1 * r2
+        buf = (torch.full((rows, mp + q16), float("nan")),
+               torch.full((rows, mp + q16), float("nan")))
+        for u in range(16 // s_):
+            i = i0 + q16 * u
+            k = i & (ell - 1)
+            for q in range(r1):
+                for qq in range(r2):
+                    at = pad((i - k) * s_ + k + ell * (q + r1 * qq))
+                    buf[0][:, at], buf[1][:, at] = v[u * s_ + q * r2 + qq]
+        assert not torch.isnan(buf[0][:, pad(torch.arange(mp))]).any()
+        return buf
+
+    def fft(v):
+        """The passes past the first; returns the last pass's registers."""
+        if n_mid < 0:
+            return v
+        buf, ell = write(v, (4, 4), 1), 16
+        for _ in range(n_mid):
+            v = read(buf, (4, 4))
+            bl_pass(v, (4, 4), ell)
+            buf, ell = write(v, (4, 4), ell), ell * 16
+        v = read(buf, last)
+        bl_pass(v, last, ell)
+        return v
+
+    zero = torch.zeros((rows, q16))
+    v = []
+    for c in range(16):
+        n = i0 + q16 * c
+        ok = n < m
+        nn = torch.where(ok, n, 0)
+        a = cmul(zr[:, nn], zi[:, nn], chirp[nn, 0], chirp[nn, 1])
+        v.append(tuple(torch.where(ok, x, zero) for x in a))
+    bl_pass(v, (4, 4), 1)
+    v = fft(v)
+    s_ = last[0] * last[1]
+    hand = [None] * 16
+    for u in range(16 // s_):
+        for q in range(last[0]):
+            for qq in range(last[1]):
+                c = u + (16 // s_) * (q + last[0] * qq)
+                p_ = i0 + q16 * c
+                br, bi = cmul(*v[u * s_ + q * last[1] + qq], bh[p_, 0],
+                              bh[p_, 1])
+                hand[c] = (br, -bi)
+    v = hand
+    bl_pass(v, (4, 4), 1)
+    v = fft(v)
+    outr, outi = torch.zeros((rows, m)), torch.zeros((rows, m))
+    for u in range(16 // s_):
+        for q in range(last[0]):
+            for qq in range(last[1]):
+                if 2 * (q + last[0] * qq) >= s_:
+                    continue
+                p_ = i0 + q16 * (u + (16 // s_) * (q + last[0] * qq))
+                ok = p_ < m
+                zr_, zi_ = v[u * s_ + q * last[1] + qq]
+                o = cmul(zr_[:, ok], -zi_[:, ok], chirp[p_[ok], 0],
+                         chirp[p_[ok], 1])
+                outr[:, p_[ok]], outi[:, p_[ok]] = o
+    return outr, outi
+
+
+@pytest.mark.parametrize("m", [7, 14, 22, 44, 77, 154, 257, 700, 1021, 2039])
+def test_bluestein_passes_give_the_mirror_bit_for_bit(m):
+    """Bluestein's stage as the kernels run it (passes of two stages in
+    registers, the padded buffer, the hand-over; ``emulate_bluestein_
+    passes``) at every m_pad from 16 to 4096 gives ``fft_plan``'s mirror
+    of the stage bit for bit: the same butterflies, twiddles and
+    products, the additions of zero and the multiplies by twiddle entry
+    0 (exactly 1) aside, which change no finite nonzero value."""
+    n_fft = 2 * m
+    stage = fft_plan.fused_stage(n_fft)
+    assert isinstance(stage, fft_plan.Bluestein)
+    z = torch.from_numpy(_signal(m, (3, n_fft))).reshape(3, m, 2)
+    tc, ts = torch.tensor(fft_plan.table_np(n_fft))
+    want = fft_plan._bluestein(z[..., 0], z[..., 1], stage, tc, ts)
+    got = emulate_bluestein_passes(z[..., 0], z[..., 1], n_fft)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
 @pytest.mark.parametrize("n_fft", PLANNED + [2 * m for m in BLUESTEIN_M])
@@ -489,25 +683,18 @@ def _block_order_dw(prod, n):
     """dw from the frame products ``prod`` (rows, n) summed in K6's block
     order: frame groups of the stage's frames a block (``frame_fft.cuh:
     fft_stage_frames``), group ``i`` to block ``i mod blocks`` (``blocks =
-    min(DW_BLOCKS, groups)``, ``DW_BLOCKS_WIDE`` where a block takes more
-    than ``DW_WIDE_SMEM``), a block's groups in order, then its frames,
-    then the blocks' partials."""
+    min(DW_BLOCKS, groups)``, ``DW_BLOCKS_BLUESTEIN`` on Bluestein's
+    stage), a block's groups in order, then its frames, then the blocks'
+    partials."""
     rows = prod.shape[0]
     header = (_cuda.SRC_DIR / "frame_fft.cuh").read_text()
     points = _header_int(header, "FFT_BLOCK_POINTS")
     stage = fft_plan.fused_stage(n)
-    if isinstance(stage, fft_plan.Bluestein):
-        fr = max(1, points // (2 * stage.m_pad))
-        smem = 16 * fr * stage.m_pad
-    else:
-        fr = max(1, points // n)
-        smem = 8 * fr * n
-    src = (_cuda.SRC_DIR / "framed_bwd.cu").read_text()
-    wide = smem > int(re.search(r"DW_WIDE_SMEM = (\d+) \* 1024;", src)[1]) \
-        * 1024
+    bluestein = isinstance(stage, fft_plan.Bluestein)
+    fr = max(1, points // (stage.m_pad if bluestein else n))
     groups = -(-rows // fr)
     blocks = min(_constants("framed_bwd")[
-        "DW_BLOCKS_WIDE" if wide else "DW_BLOCKS"], groups)
+        "DW_BLOCKS_BLUESTEIN" if bluestein else "DW_BLOCKS"], groups)
     walks = -(-groups // blocks)
     prod = torch.nn.functional.pad(prod, (0, 0, 0, walks * blocks * fr - rows))
     partials = prod.reshape(walks, blocks, fr, n).sum(0).sum(1)
@@ -520,8 +707,8 @@ K6_CASES = [(1024, 1024, 80, 64, 3000, 2), (2048, 2048, 160, 64, 4000, 2),
             (3000, 1500, 80, 64, 1500, 2), (512, 512, 40, 32, 2000, 3),
             (4096, 4096, 40, 64, 11000, 2)]
 #: Bluestein's stage: faithful T 521 and 700 (m_pad 2048), faithful 2039
-#: at hop 1 (m_pad 4096: more groups than DW_BLOCKS_WIDE), and 14 (m_pad
-#: 16, 128 frames a group)
+#: at hop 1 (m_pad 4096: more groups than DW_BLOCKS_BLUESTEIN), and 14
+#: (m_pad 16, 256 frames a group)
 K6_BLUESTEIN = [(1042, 521, 80, 64, 521, 2), (1400, 700, 80, 64, 700, 2),
                 (4078, 2039, 1, 64, 2039, 1), (14, 14, 4, 4, 300, 2)]
 

@@ -506,8 +506,11 @@ def test_direct_stage_at_planned_nfft_and_bad_plans(cuda):
 
 
 #: (batch, T): faithful mode (win T, n_fft 2 T) on Bluestein's stage, as
-#: chip_smoke.py's "K5 vs plain" and "K6 vs plain" phases run it
-BLUESTEIN_CASES = [(32, 700), (32, 1021), (32, 2039)]
+#: chip_smoke.py's "K5 vs plain" and "K6 vs plain" phases run it (m_pad
+#: 2048, 2048, 4096, and B 512 at m_pad 2048 and 4096: the card's real
+#: work)
+BLUESTEIN_CASES = [(32, 700), (32, 1021), (32, 2039), (512, 1021),
+                   (512, 2039)]
 
 
 @pytest.mark.parametrize("b,t", BLUESTEIN_CASES, ids=lambda v: str(v))
